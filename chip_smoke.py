@@ -1,0 +1,698 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch / CUDA port (wespeaker_hubert_tpu_torch) on one
+NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases:
+  1. the card: `nvidia-smi` name and power limit, torch.cuda device name;
+  2. build every CUDA kernel of the served path from the sources in
+     wespeaker_hubert_tpu_torch/csrc (nvcc, at first use);
+  3. each kernel against its plain PyTorch version on the card, at the
+     served shapes, with the stated tolerance, and both timed (CUDA events,
+     warm, median of 25);
+  4. the served slice at full width: ECAPA_TDNN_GLOB_c512 (80 mels, 192-d)
+     with seeded random weights behind the port's EmbeddingService and HTTP
+     server, in bf16 and in float32.  Requests: /embed at 1.3, 5, 12 and
+     30 s, 8 concurrent /similarity, KServe WAV infer, feature_extractor,
+     speaker_model and /stats.  Every result is held against the port's
+     plain path on the CPU in float32 with the same weights, and the kernel
+     launch counters must have grown during the requests;
+  5. timings of the served path: bursts of 64 concurrent 10 s requests
+     (audio-s/s, and the device's idle share of one burst from a
+     torch.profiler trace), make_chunked_embed at 16 x 30 s with the fbank
+     kernel and with the plain fbank, and a torch.profiler breakdown of one
+     batch;
+  6. the bf16 margin: cosines of 1.3 s utterances over 16 audio seeds and 3
+     weight seeds, bf16 on the card against float32 on the CPU.
+
+A kernel's bound is the least time the card could take for the work the
+function needs (for log-mel: an FFT and a sparse mel product, not the dense
+DFT the kernel computes), against the H100 SXM's published peaks.
+
+It prints one JSON line of kernels, the card's name and power limit, and as
+its last line {"ok": true, "device": {...}}; details go to
+chiprun_out/chip_smoke.json.  It exits non-zero, and prints no result, when
+there is no CUDA device, when the port is not importable, or when any phase
+fails.  TF32 is off for every phase (cuDNN convolutions default to it).
+"""
+
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+import traceback
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+SR = 16000
+FBANK_TOL = dict(rtol=1e-4, atol=2e-3)
+COS_MIN = {"f32": 0.99999, "bf16": 0.9999}
+# H100 SXM published peaks (dense): float32 outside the tensor cores, HBM3
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+MODEL = "ECAPA_TDNN_GLOB_c512"
+WEIGHT_SEED = 20251016
+OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
+
+
+class PhaseFailed(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise PhaseFailed(msg)
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def nvidia_smi_line():
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    lines = proc.stdout.strip().splitlines()
+    return lines[0].strip() if proc.returncode == 0 and lines else "nvidia-smi unavailable"
+
+
+def cuda_median_ms(fn, reps=25, warmup=3):
+    """Median of per-call device times (CUDA events around each call)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        events.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in events)
+
+
+def host_median_ms(fn, reps=10, warmup=2):
+    """Median wall time of fn() followed by a device synchronize."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def fbank_bound(b, w, cfg):
+    """The least time log-mel of (b, w) can take, from the work the function
+    needs (not the dense DFT the kernel does).
+
+    Operations per frame: the preprocessing (int16 scale, DC mean and
+    removal, pre-emphasis, window: 5 per sample), a real FFT of
+    N = fft_size (2.5 N log2 N), the power (3 per bin), the mel product over
+    the filters' nonzeros (2 each) and the log (1 per mel), in float32.
+    Bytes: the wav read once, the filters' nonzeros read once, the log-mel
+    written once.  Returns (bound_ms, bound_by, flop, bytes, dense_flop),
+    where dense_flop is the dense-DFT work the kernel does."""
+    from wespeaker_hubert_tpu_torch.ops.signal import mel_banks
+
+    L, n, m = cfg.frame_length, cfg.fft_size, cfg.num_mel_bins
+    nb = n // 2 + 1
+    nnz = int(np.count_nonzero(mel_banks(m, n, float(cfg.sample_rate),
+                                         cfg.low_freq, cfg.high_freq)))
+    t = 1 + (w - L) // cfg.frame_shift
+    flop = b * t * (5 * L + 2.5 * n * math.log2(n) + 3 * nb + 2 * nnz + m)
+    dense_flop = b * t * (2 * L * nb * 2 + 2 * nb * m)
+    nbytes = 4 * (b * w + nnz + b * t * m)
+    ops_ms = flop / PEAK_F32_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    return max(ops_ms, bytes_ms), bound_by, flop, nbytes, dense_flop
+
+
+def device_busy_us(prof):
+    """Union of the device-event intervals of a torch.profiler run (us)."""
+    spans = sorted(
+        (ev.time_range.start, ev.time_range.end) for ev in prof.events()
+        if ev.device_type == torch.autograd.DeviceType.CUDA
+        and ev.time_range.end > ev.time_range.start
+    )
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy, len(spans)
+
+
+def audio(seed, seconds):
+    """Seeded tones + noise on the int16 grid (a PCM16 WAV round trip is
+    exact), float32 in [-1, 1]."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * SR)
+    t = np.arange(n) / SR
+    x = 0.02 * rng.standard_normal(n)
+    for f in rng.uniform(80, 3000, 4):
+        x += 0.1 * np.sin(2 * np.pi * f * t + rng.uniform(0, 2 * np.pi))
+    return (np.round(np.clip(x, -1, 1) * 32767) / 32768).astype(np.float32)
+
+
+def wav_bytes(x):
+    import io
+    import wave
+
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(SR)
+        w.writeframes(np.round(x * 32768).astype("<i2").tobytes())
+    return buf.getvalue()
+
+
+def seeded_state_dict(model, seed):
+    """Random weights from a numpy generator: lecun-normal conv / linear
+    weights, small biases, BN statistics and affine parameters near 0 / 1."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, v in model.state_dict().items():
+        shape = tuple(v.shape)
+        if k.endswith("num_batches_tracked"):
+            sd[k] = torch.zeros_like(v)
+            continue
+        if k.endswith("running_var"):
+            x = rng.uniform(0.5, 1.5, shape)
+        elif k.endswith("running_mean") or k.endswith(".bias"):
+            x = rng.normal(0.0, 0.1, shape)
+        elif len(shape) == 1:  # BN weight
+            x = rng.uniform(0.8, 1.2, shape)
+        else:
+            x = rng.normal(0.0, float(np.prod(shape[1:])) ** -0.5, shape)
+        sd[k] = torch.from_numpy(x.astype(np.float32))
+    return sd
+
+
+def cosine(a, b):
+    a = np.asarray(a, np.float64).ravel()
+    b = np.asarray(b, np.float64).ravel()
+    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+
+def post(url, data, timeout=600):
+    req = urllib.request.Request(url, data=data, method="POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def get(url):
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return json.loads(r.read())
+
+
+# --------------------------------------------------------------- phases
+def phase_build(report):
+    from wespeaker_hubert_tpu_torch.ops import fbank_kernel
+    from wespeaker_hubert_tpu_torch.utils import cuda_build
+
+    t0 = time.perf_counter()
+    fbank_kernel._library()  # builds csrc/fbank.cu unless already built
+    report["build_s"] = {"fbank": time.perf_counter() - t0}
+    ptxas = [
+        line.strip() for _, (_, out) in cuda_build.BUILD_LOG.items()
+        for line in out.splitlines() if "registers" in line or "smem" in line
+    ]
+    report["ptxas"] = ptxas
+    log(f"[build] fbank: {report['build_s']['fbank']:.1f} s "
+        f"(nvcc {cuda_build.NVCC_FLAGS[1]})")
+    for line in ptxas:
+        log(f"[build]   {line}")
+
+
+def phase_kernel_checks(report):
+    from wespeaker_hubert_tpu_torch.ops import fbank_kernel
+    from wespeaker_hubert_tpu_torch.ops.fbank import FbankConfig
+
+    cases = [(16, 480000, 80), (16, 32000, 80), (1, 32240, 80), (16, 32000, 40)]
+    rows = []
+    for i, (b, w, m) in enumerate(cases):
+        cfg = FbankConfig(num_mel_bins=m, spectrum_impl="kernel")
+        rng = np.random.default_rng(100 + i)
+        wav = torch.from_numpy(
+            (rng.standard_normal((b, w)) * 0.1).astype(np.float32)
+        ).cuda()
+        got = fbank_kernel.fbank_kernel(wav, cfg)
+        torch.cuda.synchronize()
+        want = fbank_kernel.fbank_kernel_reference(wav, cfg)
+        err = float((got - want).abs().max())
+        ok = bool(torch.allclose(got, want, **FBANK_TOL)) and bool(torch.isfinite(got).all())
+        k_ms = cuda_median_ms(lambda: fbank_kernel.fbank_kernel(wav, cfg))
+        p_ms = cuda_median_ms(lambda: fbank_kernel.fbank_kernel_reference(wav, cfg))
+        bound_ms, bound_by, flop, nbytes, dense_flop = fbank_bound(b, w, cfg)
+        row = dict(shape=[b, w], mels=m, max_abs_err=err, ok=ok, ms=k_ms,
+                   plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   needed_gflop=flop / 1e9, mbytes=nbytes / 1e6,
+                   dense_dft_gflop=dense_flop / 1e9,
+                   roofline_share=bound_ms / k_ms)
+        rows.append(row)
+        log(f"[K1] ({b}, {w}) mels={m}: max|err|={err:.3e} "
+            f"{'ok' if ok else 'FAIL'} (rtol 1e-4, atol 2e-3); kernel {k_ms:.4f} ms, "
+            f"plain {p_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+            f"{flop / 1e9:.3f} GFLOP needed, {nbytes / 1e6:.2f} MB), roofline share "
+            f"{bound_ms / k_ms:.4f}; dense-DFT work done {dense_flop / 1e9:.2f} GFLOP "
+            f"at {dense_flop / k_ms / 1e9:.1f} TFLOP/s")
+        del wav, got, want
+    report["fbank_checks"] = rows
+    check(all(r["ok"] for r in rows), "fbank kernel disagrees with its plain version")
+    return rows[0]
+
+
+def write_model_dir(root, seed=WEIGHT_SEED):
+    from wespeaker_hubert_tpu_torch.models.registry import get_speaker_model
+
+    config = {
+        "model": MODEL,
+        "model_args": {"feat_dim": 80, "embed_dim": 192, "pooling_func": "ASTP"},
+        "dataset_args": {"resample_rate": SR, "frontend": "fbank",
+                         "fbank_args": {"num_mel_bins": 80, "frame_shift": 10,
+                                        "frame_length": 25}},
+    }
+    model = get_speaker_model(MODEL)(**config["model_args"])
+    sd = seeded_state_dict(model, seed=seed)
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump(config, f)
+    torch.save(sd, os.path.join(root, "avg_model.pt"))
+    return config
+
+
+class CpuReference:
+    """The port's plain path on the CPU in float32, same weights."""
+
+    def __init__(self, model_dir):
+        from wespeaker_hubert_tpu_torch.cli.speaker import Speaker
+        from wespeaker_hubert_tpu_torch.train.chunked import make_chunked_embed
+        from wespeaker_hubert_tpu_torch.train.executor import make_eval_embed
+
+        self.speaker = Speaker(model_dir, device="cpu")
+        self._chunked = make_chunked_embed(self.speaker.net, self.speaker.fbank_cfg, 198)
+        self._eval = make_eval_embed(self.speaker.net)
+        self._cache = {}
+
+    def embed(self, wav, bucket):
+        key = (wav.tobytes(), bucket)
+        if key not in self._cache:
+            padded = np.zeros((1, bucket), np.float32)
+            padded[0, : len(wav)] = wav
+            self._cache[key] = self._chunked({
+                "wav": torch.from_numpy(padded),
+                "length": torch.tensor([len(wav)], dtype=torch.int32),
+            })[0].numpy()
+        return self._cache[key]
+
+    def features(self, wav, bucket):
+        from wespeaker_hubert_tpu_torch.ops.fbank import fbank
+        from wespeaker_hubert_tpu_torch.ops.feature_utils import apply_cmvn
+
+        padded = np.zeros((1, bucket), np.float32)
+        padded[0, : len(wav)] = wav
+        feats, lens = fbank(torch.from_numpy(padded), self.speaker.fbank_cfg,
+                            lengths=torch.tensor([len(wav)]))
+        return apply_cmvn(feats, lengths=lens)[0, : int(lens[0])].numpy()
+
+    def embed_feats(self, feats):
+        t = len(feats)
+        bucket = max(128, 1 << max(t - 1, 1).bit_length())
+        pad = np.zeros((1, bucket, feats.shape[1]), np.float32)
+        pad[0, :t] = feats
+        return self._eval({"feat": torch.from_numpy(pad),
+                           "feat_length": torch.tensor([t], dtype=torch.int32)})[0].numpy()
+
+
+def drive_service(service, url, ref, tag, report):
+    """The served requests of one service; returns the kernel launches they
+    made.  Raises PhaseFailed when a result disagrees with the reference."""
+    from wespeaker_hubert_tpu_torch.bin.serve import BOUNDARY
+    from wespeaker_hubert_tpu_torch.ops import fbank_kernel
+
+    cos_min = COS_MIN[tag]
+    out = {"embed": [], "similarity": [], "kserve": {}}
+    fbank_kernel.LAUNCHES = 0
+    # /embed at 1.3, 5, 12 and 30 s
+    for i, sec in enumerate((1.3, 5.0, 12.0, 30.0)):
+        x = audio(1000 + i, sec)
+        emb = np.asarray(post(url + "/embed", wav_bytes(x))["embedding"], np.float32)
+        want = ref.embed(x, service.bucket_for(len(x)))
+        c = cosine(emb, want)
+        out["embed"].append({"seconds": sec, "cosine": c, "finite": bool(np.isfinite(emb).all())})
+        check(emb.shape == (192,) and np.isfinite(emb).all(), f"{tag} /embed {sec}s: bad output")
+        check(c >= cos_min, f"{tag} /embed {sec}s: cosine {c} < {cos_min}")
+    # 8 concurrent /similarity
+    pairs = [(audio(2000 + 2 * i, 2.0 + 0.5 * i), audio(2001 + 2 * i, 3.0)) for i in range(8)]
+    with ThreadPoolExecutor(8) as pool:
+        sims = list(pool.map(
+            lambda p: post(url + "/similarity", wav_bytes(p[0]) + BOUNDARY + wav_bytes(p[1]))["similarity"],
+            pairs,
+        ))
+    # the score's error follows from the embeddings' cosine bar
+    sim_tol = 2 * math.sqrt(2 * (1 - cos_min))
+    for (a, b), s in zip(pairs, sims):
+        s_ref = (cosine(ref.embed(a, service.bucket_for(len(a))),
+                        ref.embed(b, service.bucket_for(len(b)))) + 1) / 2
+        out["similarity"].append({"served": s, "reference": s_ref})
+        check(abs(s - s_ref) <= sim_tol, f"{tag} /similarity {s} vs {s_ref}")
+    # KServe: WAV model
+    x = audio(3000, 5.0)
+    body = {"inputs": [{"name": "WAV", "shape": [1, len(x)], "datatype": "FP32",
+                        "data": x.tolist()}]}
+    r = post(url + "/v2/models/speaker/infer", json.dumps(body).encode())
+    emb = np.asarray(r["outputs"][0]["data"], np.float32)
+    c = cosine(emb, ref.embed(x, service.bucket_for(len(x))))
+    out["kserve"]["speaker"] = c
+    check(c >= cos_min, f"{tag} KServe speaker: cosine {c}")
+    # feature_extractor: the CMN'd fbank through the kernel
+    body = {"inputs": [{"name": "wav", "shape": [1, len(x)], "datatype": "FP32",
+                        "data": x.tolist()}]}
+    r = post(url + "/v2/models/feature_extractor/infer", json.dumps(body).encode())
+    sp = r["outputs"][0]
+    feats = np.asarray(sp["data"], np.float32).reshape(sp["shape"])
+    want = ref.features(x, service.bucket_for(len(x)))
+    ferr = float(np.abs(feats - want).max()) if feats.shape == want.shape else float("inf")
+    out["kserve"]["feature_extractor_max_abs_err"] = ferr
+    check(feats.shape == want.shape and np.allclose(feats, want, **FBANK_TOL),
+          f"{tag} feature_extractor: max|err| {ferr}")
+    # speaker_model: features -> embedding
+    body = {"inputs": [{"name": "feats", "shape": list(feats.shape), "datatype": "FP32",
+                        "data": feats.ravel().tolist()}]}
+    r = post(url + "/v2/models/speaker_model/infer", json.dumps(body).encode())
+    emb = np.asarray(r["outputs"][0]["data"], np.float32)
+    c = cosine(emb, ref.embed_feats(want))
+    out["kserve"]["speaker_model"] = c
+    check(c >= cos_min, f"{tag} KServe speaker_model: cosine {c}")
+    stats = get(url + "/stats")
+    launches = fbank_kernel.LAUNCHES
+    out["stats"] = stats
+    out["fbank_launches"] = launches
+    check(stats["total_steps"] >= 4 + 16 + 1, f"{tag} /stats: {stats}")
+    check(launches > 0, f"{tag}: the served requests never launched the fbank kernel")
+    log(f"[serve {tag}] /embed cosines "
+        + ", ".join(f"{e['seconds']}s {e['cosine']:.7f}" for e in out["embed"])
+        + f"; similarity max|d| {max(abs(s['served'] - s['reference']) for s in out['similarity']):.2e}"
+        + f"; kserve speaker {out['kserve']['speaker']:.7f}, speaker_model "
+        + f"{out['kserve']['speaker_model']:.7f}, features max|err| {ferr:.2e}"
+        + f"; fbank kernel launches {launches}; device {stats['device']}")
+    report[f"serve_{tag}"] = out
+    return launches
+
+
+def burst(url, n=64, seconds=10.0):
+    """n concurrent /embed requests of `seconds` each -> served audio-s/s."""
+    bodies = [wav_bytes(audio(5000 + i, seconds)) for i in range(n)]
+    with ThreadPoolExecutor(n) as pool:
+        t0 = time.perf_counter()
+        outs = list(pool.map(lambda b: post(url + "/embed", b), bodies))
+        wall = time.perf_counter() - t0
+    check(all(len(o["embedding"]) == 192 for o in outs), "burst: bad embeddings")
+    return n * seconds / wall, wall
+
+
+def device_rows(prof):
+    """(name, device us, calls) of the device events, largest first."""
+    rows = [
+        (ev.key, ev.self_device_time_total, ev.count)
+        for ev in prof.key_averages()
+        if ev.device_type == torch.autograd.DeviceType.CUDA
+        and ev.self_device_time_total > 0
+    ]
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def profiled_burst(url, tag, bucket):
+    """One burst under torch.profiler: the device's busy and idle share of
+    the burst's wall time, from the union of the traced device intervals,
+    checked against the fbank launches the burst made (one per batch)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from wespeaker_hubert_tpu_torch.ops import fbank_kernel
+
+    launches0 = fbank_kernel.LAUNCHES
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        rate, wall = burst(url)
+        torch.cuda.synchronize()
+    batches = fbank_kernel.LAUNCHES - launches0
+    busy_us, n_events = device_busy_us(prof)
+    rows = device_rows(prof)
+    traced_fbank = sum(c for k, _, c in rows if "fbank" in k)
+    out = {"audio_s_per_s_profiled": rate, "wall_s": wall, "batches": batches,
+           "batch_shape": [16, bucket], "device_events": n_events,
+           "traced_fbank_launches": traced_fbank}
+    if n_events == 0 or traced_fbank != batches:
+        out["device_busy_share"] = "not measured"
+        log(f"[serve {tag}] profiled burst: the trace holds {n_events} device events "
+            f"and {traced_fbank} of {batches} fbank launches: idle share not measured")
+        return out
+    out["device_busy_ms"] = busy_us / 1e3
+    out["device_busy_share"] = busy_us / (wall * 1e6)
+    out["device_idle_share"] = 1 - out["device_busy_share"]
+    out["top"] = [{"name": k[:90], "ms": d / 1e3, "calls": c} for k, d, c in rows[:8]]
+    log(f"[serve {tag}] profiled burst of 64 x 10 s: {wall:.4f} s wall, {rate:.1f} "
+        f"audio-s/s with the profiler on; {batches} device batches (16 x {bucket} "
+        f"samples each); device busy {busy_us / 1e3:.3f} ms, idle share "
+        f"{out['device_idle_share']:.4f}")
+    return out
+
+
+def phase_serve(report, model_dir):
+    from wespeaker_hubert_tpu_torch.bin.serve import EmbeddingService, make_http_server
+
+    ref = CpuReference(model_dir)
+    launches = {}
+    for tag in ("bf16", "f32"):
+        t0 = time.perf_counter()
+        service = EmbeddingService(model_dir, device="cuda", bf16=(tag == "bf16"))
+        startup = time.perf_counter() - t0
+        httpd = make_http_server(service, "127.0.0.1", 0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        try:
+            log(f"[serve {tag}] EmbeddingService up in {startup:.1f} s on {url}")
+            launches[tag] = drive_service(service, url, ref, tag, report)
+            for rep in range(2):
+                rate, wall = burst(url)
+                report[f"serve_{tag}"][f"burst{rep}_audio_s_per_s"] = rate
+                report[f"serve_{tag}"][f"burst{rep}_wall_s"] = wall
+                log(f"[serve {tag}] burst {rep} of 64 x 10 s: {wall:.4f} s wall, "
+                    f"{rate:.1f} audio-s/s")
+            report[f"serve_{tag}"]["burst_profile"] = profiled_burst(
+                url, tag, service.bucket_for(10 * SR))
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            service.close()
+            thread.join(timeout=10)
+    return launches
+
+
+def phase_bf16_margin(report):
+    """The bf16 service's bar (cosine >= 0.9999 against the CPU float32
+    path) is tightest for utterances shorter than one chunk, whose chunk
+    reads padded frames.  Its margin over inputs and weights: 16 utterances
+    of 1.3 s from 16 audio seeds in one served batch of 16 x 2 s, for the
+    served weights and two other weight seeds; a measurement, not a bar."""
+    import copy
+
+    from wespeaker_hubert_tpu_torch.cli.speaker import Speaker
+    from wespeaker_hubert_tpu_torch.train.chunked import make_chunked_embed
+    from wespeaker_hubert_tpu_torch.train.executor import cast_variables_bf16
+
+    n, bucket = int(1.3 * SR), 2 * SR
+    wav = np.zeros((16, bucket), np.float32)
+    for i in range(16):
+        wav[i, :n] = audio(6000 + i, 1.3)
+    batch = {"wav": torch.from_numpy(wav), "length": torch.full((16,), n, dtype=torch.int32)}
+    per_seed = {}
+    for seed in (WEIGHT_SEED, WEIGHT_SEED + 1, WEIGHT_SEED + 2):
+        with tempfile.TemporaryDirectory() as d:
+            write_model_dir(d, seed)
+            gpu, cpu = Speaker(d, device="cuda"), Speaker(d, device="cpu")
+        net = cast_variables_bf16(copy.deepcopy(gpu.net))
+        got = make_chunked_embed(net, gpu.fbank_cfg, 198, compute_dtype=torch.bfloat16)(
+            {k: v.cuda() for k, v in batch.items()}).cpu().numpy()
+        want = make_chunked_embed(cpu.net, cpu.fbank_cfg, 198)(batch).numpy()
+        check(np.isfinite(got).all(), f"bf16 margin: non-finite embeddings (seed {seed})")
+        per_seed[str(seed)] = [cosine(g, w) for g, w in zip(got, want)]
+        del gpu, cpu, net
+    allc = [c for v in per_seed.values() for c in v]
+    report["bf16_margin_1p3s"] = {"cosines": per_seed, "min": min(allc),
+                                 "median": statistics.median(allc), "bar": COS_MIN["bf16"]}
+    log(f"[bf16 margin] 1.3 s, 16 audio seeds x 3 weight seeds: cosine min "
+        f"{min(allc):.7f}, median {statistics.median(allc):.7f}, "
+        f"{sum(c < COS_MIN['bf16'] for c in allc)} of {len(allc)} below the "
+        f"{COS_MIN['bf16']} bar; per weight seed min "
+        + ", ".join(f"{min(v):.7f}" for v in per_seed.values()))
+
+
+def phase_chunked_timing(report, model_dir):
+    """make_chunked_embed at the served 16 x 30 s bucket: f32 and bf16, with
+    the fbank kernel and with the plain fbank, in turns; then a profile."""
+    import copy
+    import dataclasses
+
+    from wespeaker_hubert_tpu_torch.cli.speaker import Speaker
+    from wespeaker_hubert_tpu_torch.train.chunked import make_chunked_embed
+    from wespeaker_hubert_tpu_torch.train.executor import cast_variables_bf16
+
+    spk = Speaker(model_dir, device="cuda")
+    nets = {"f32": spk.net, "bf16": cast_variables_bf16(copy.deepcopy(spk.net))}
+    rng = np.random.default_rng(7)
+    wav = torch.from_numpy((rng.standard_normal((16, 30 * SR)) * 0.1).astype(np.float32)).cuda()
+    batch = {"wav": wav, "length": torch.full((16,), 30 * SR, dtype=torch.int32, device="cuda")}
+    plain_cfg = dataclasses.replace(spk.fbank_cfg, spectrum_impl="matmul")
+    fns = {}
+    for tag, net in nets.items():
+        dt = torch.bfloat16 if tag == "bf16" else None
+        fns[(tag, "kernel")] = make_chunked_embed(net, spk.fbank_cfg, 198, compute_dtype=dt)
+        fns[(tag, "plain")] = make_chunked_embed(net, plain_cfg, 198, compute_dtype=dt)
+    times = {k: [] for k in fns}
+    for order in (("kernel", "plain"), ("plain", "kernel")):
+        for tag in ("f32", "bf16"):
+            for impl in order:
+                times[(tag, impl)].append(host_median_ms(lambda: fns[(tag, impl)](batch), reps=8))
+    res = {f"{tag}_{impl}_ms": statistics.mean(v) for (tag, impl), v in times.items()}
+    n_chunks = -(-(1 + (30 * SR - 400) // 160) // 198)
+    res["batch"] = f"16 x 30 s ({16 * n_chunks} chunks of 198 frames)"
+    for tag in ("f32", "bf16"):
+        res[f"{tag}_audio_s_per_s"] = 16 * 30 / (res[f"{tag}_kernel_ms"] / 1e3)
+    report["chunked_embed"] = res
+    log(f"[chunked] {res['batch']}: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in res.items() if k.endswith("_ms")))
+    check(all(math.isfinite(v) for k, v in res.items() if k.endswith("_ms")), "timing")
+
+    # where the time goes in one bf16 batch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn = fns[("bf16", "kernel")]
+    fn(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn(batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # device-side events only (kernels, copies): the operator rows above
+    # them repeat the same time
+    rows = device_rows(prof)
+    total = sum(r[1] for r in rows)
+    busy_us, _ = device_busy_us(prof)
+    prof_out = {
+        "window": "3 x make_chunked_embed bf16 16 x 30 s",
+        "wall_ms": wall_us / 1e3,
+        "device_ms": total / 1e3,
+        "device_busy_share": busy_us / wall_us if total else "not measured",
+        "top": [{"name": k[:90], "ms": d / 1e3, "calls": c, "share": d / total}
+                for k, d, c in rows[:12]] if total else [],
+    }
+    report["profile"] = prof_out
+    if total:
+        fb = sum(d for k, d, _ in rows if "fbank" in k)
+        prof_out["fbank_share"] = fb / total
+        log(f"[profile] device {total / 1e3:.2f} ms over {wall_us / 1e3:.2f} ms wall "
+            f"(busy {busy_us / wall_us:.4f}); fbank kernel share {fb / total:.4f}")
+        for r in prof_out["top"][:8]:
+            log(f"[profile]   {r['share']:.3f} {r['ms']:.3f} ms x{r['calls']} {r['name']}")
+    else:
+        log("[profile] torch.profiler reported no device time: not measured")
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this check needs "
+              "an NVIDIA GPU", file=sys.stderr)
+        return 2
+    # the port: a missing package is a failure, not a skip
+    from wespeaker_hubert_tpu_torch.ops import fbank_kernel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi_line()
+    kind = torch.cuda.get_device_name(0)
+    log(f"[device] {smi}")
+    log(f"[device] torch {torch.__version__} cuda {torch.version.cuda}, {kind}, "
+        f"{torch.cuda.device_count()} visible; TF32 off for matmul and cuDNN")
+    report = {"nvidia_smi": smi, "device": kind, "torch": torch.__version__}
+    failures = []
+
+    def run(name, fn, *args):
+        try:
+            return fn(*args)
+        except Exception as e:  # noqa: BLE001 — every phase reports; the run fails below
+            traceback.print_exc()
+            failures.append(f"{name}: {type(e).__name__}: {e}")
+            return None
+
+    t_start = time.perf_counter()
+    run("build", phase_build, report)
+    k1 = run("kernel checks", phase_kernel_checks, report)
+    with tempfile.TemporaryDirectory() as model_dir:
+        write_model_dir(model_dir)
+        launches = run("serve", phase_serve, report, model_dir)
+        run("chunked timing", phase_chunked_timing, report, model_dir)
+    run("bf16 margin", phase_bf16_margin, report)
+    report["wall_s"] = time.perf_counter() - t_start
+    report["failures"] = failures
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
+    if failures or k1 is None or launches is None:
+        for f in failures:
+            print(f"chip_smoke FAILED {f}", file=sys.stderr)
+        return 1
+
+    kernels = [{
+        "name": "fbank",
+        "route": "cuda",
+        "source": "wespeaker_hubert_tpu_torch/csrc/fbank.cu",
+        "replaces": "wespeaker_hubert_tpu/ops/fbank_pallas.py:117",
+        "launches": launches["bf16"],
+        "launches_f32_service": launches["f32"],
+        "max_abs_err": max(r["max_abs_err"] for r in report["fbank_checks"]),
+        "max_err": max(r["max_abs_err"] for r in report["fbank_checks"]),
+        "ms": k1["ms"],
+        "kernel_ms": k1["ms"],
+        "plain_ms": k1["plain_ms"],
+        "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"],
+        "roofline_share": k1["roofline_share"],
+        "needed_gflop": k1["needed_gflop"],
+        "dense_dft_gflop": k1["dense_dft_gflop"],
+        "library_ms": None,
+        "shape": k1["shape"],
+    }]
+    log(json.dumps({"kernels": kernels}))
+    log(f"[device] {smi}")
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
