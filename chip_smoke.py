@@ -24,11 +24,27 @@ Phases:
      kernel and with the plain fbank, and a torch.profiler breakdown of one
      batch;
   6. the bf16 margin: cosines of 1.3 s utterances over 16 audio seeds and 3
-     weight seeds, bf16 on the card against float32 on the CPU.
+     weight seeds, bf16 on the card against float32 on the CPU;
+  7. K2, the flash-attention kernel, against its plain version on the card
+     at the SSL path's shapes ((16, 499, 16, 64) with the gated bias, the
+     32 s bucket (16, 1599, 16, 64), no bias with key lengths, odd T), bf16
+     and float32, timed beside its plain version and beside
+     scaled_dot_product_attention (the library yardstick, which the port
+     never calls);
+  8. the SSL extraction slice at full width: WavLM-Large (24 layers, 1024
+     wide, 16 heads, flash attention) + ECAPA_TDNN_GLOB_c512 with seeded
+     random weights through bin/extract.extract on 24 seeded wavs of
+     1.5-20 s, bf16 and float32.  K2 must launch 24 times per device batch;
+     float32 on the card is held against the port on the CPU, and bf16 with
+     K2 against bf16 with plain attention;
+  9. timings of that slice: the entry point's audio-s/s, make_eval_embed at
+     16 x 10 s in bf16 with K2 and with plain attention, and a
+     torch.profiler breakdown of one batch.
 
 A kernel's bound is the least time the card could take for the work the
 function needs (for log-mel: an FFT and a sparse mel product, not the dense
-DFT the kernel computes), against the H100 SXM's published peaks.
+DFT the kernel computes; for attention: the valid keys of each row), against
+the H100 SXM's published peaks.
 
 It prints one JSON line of kernels, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}; details go to
@@ -38,6 +54,7 @@ fails.  TF32 is off for every phase (cuDNN convolutions default to it).
 """
 
 import json
+import logging
 import math
 import os
 import statistics
@@ -57,8 +74,10 @@ import torch
 SR = 16000
 FBANK_TOL = dict(rtol=1e-4, atol=2e-3)
 COS_MIN = {"f32": 0.99999, "bf16": 0.9999}
-# H100 SXM published peaks (dense): float32 outside the tensor cores, HBM3
+# H100 SXM published peaks (dense): float32 outside the tensor cores, bf16
+# on the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 MODEL = "ECAPA_TDNN_GLOB_c512"
 WEIGHT_SEED = 20251016
@@ -231,21 +250,29 @@ def get(url):
 
 # --------------------------------------------------------------- phases
 def phase_build(report):
+    """Both kernels' nvcc runs start together (one thread each)."""
     from wespeaker_hubert_tpu_torch.ops import fbank_kernel
+    from wespeaker_hubert_tpu_torch.ops import flash_attention as k2
     from wespeaker_hubert_tpu_torch.utils import cuda_build
 
     t0 = time.perf_counter()
-    fbank_kernel._library()  # builds csrc/fbank.cu unless already built
-    report["build_s"] = {"fbank": time.perf_counter() - t0}
-    ptxas = [
-        line.strip() for _, (_, out) in cuda_build.BUILD_LOG.items()
-        for line in out.splitlines() if "registers" in line or "smem" in line
-    ]
-    report["ptxas"] = ptxas
-    log(f"[build] fbank: {report['build_s']['fbank']:.1f} s "
-        f"(nvcc {cuda_build.NVCC_FLAGS[1]})")
-    for line in ptxas:
-        log(f"[build]   {line}")
+    with ThreadPoolExecutor(2) as pool:  # builds csrc/*.cu unless already built
+        for f in [pool.submit(fbank_kernel._library), pool.submit(k2._library)]:
+            f.result()
+    report["build_s"] = {"wall": time.perf_counter() - t0}
+    report["ptxas"] = {}
+    for name, (secs, out) in cuda_build.BUILD_LOG.items():
+        report["build_s"][name] = secs
+        report["ptxas"][name] = [
+            line.strip() for line in out.splitlines()
+            if "registers" in line or "smem" in line or "spill" in line
+        ]
+    log(f"[build] {report['build_s']['wall']:.1f} s wall for "
+        + ", ".join(f"{n} {t:.1f} s" for n, t in report["build_s"].items() if n != "wall")
+        + f" (nvcc {cuda_build.NVCC_FLAGS[1]}, in parallel)")
+    for name, lines in report["ptxas"].items():
+        for line in lines:
+            log(f"[build]   {name}: {line}")
 
 
 def phase_kernel_checks(report):
@@ -624,6 +651,334 @@ def phase_chunked_timing(report, model_dir):
         log("[profile] torch.profiler reported no device time: not measured")
 
 
+# ------------------------------------------------------ K2 and the SSL slice
+K2_TOL = {"f32": dict(atol=1e-4), "bf16": dict(atol=2e-2, cos=0.9999)}
+SSL_SECONDS = [1.5, 2.2, 3.1, 3.9, 4.6, 5.5, 6.3, 7.2, 8.0, 8.8, 9.7, 10.5,
+               11.3, 12.1, 13.0, 13.8, 14.6, 15.5, 16.3, 17.1, 18.0, 18.7, 19.4, 20.0]
+SSL_WEIGHT_SEED = 20251017
+
+
+def k2_bound(b, t, h, key_len, dtype, bias_bytes_per_pair):
+    """The least time attention over these inputs can take: operations
+    4 h hd T sum_b(valid keys) (QK^T and PV) on the dtype's peak, against
+    bytes q and out (every query row), k and v (valid keys) and the bias
+    read over the valid (query, key) pairs, once each."""
+    hd = 64
+    elem = 2 if dtype == torch.bfloat16 else 4
+    valid = int(key_len.sum()) if key_len is not None else b * t
+    flop = 4 * h * hd * t * valid
+    nbytes = elem * (2 * b * t * h * hd + 2 * valid * h * hd)
+    nbytes += bias_bytes_per_pair * h * t * valid
+    if key_len is not None:
+        nbytes += 4 * b
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    ops_ms, bytes_ms = flop / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), flop, nbytes
+
+
+def phase_k2_checks(report):
+    from wespeaker_hubert_tpu_torch.ops import flash_attention as k2
+
+    F = torch.nn.functional
+    # (B, T, bias, key lengths): the 10 s batch of bench_all's SSL row (every
+    # row full, the gated bias materialized as the encoder passes it), the
+    # 32 s bucket, no bias with key lengths, an odd T
+    cases = [(16, 499, "gated", "full"), (16, 1599, "gated", "random"),
+             (16, 499, None, "random"), (16, 131, "gated", "random")]
+    rows = []
+    for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        for i, (b, t, bias_kind, len_kind) in enumerate(cases):
+            h = 16
+            dev = torch.device("cuda")
+            gen = torch.Generator(device=dev).manual_seed(300 + i)  # inputs made on the card
+            q, k, v = (torch.randn((b, t, h, 64), generator=gen, device=dev).to(dtype)
+                       for _ in range(3))
+            bias = None
+            if bias_kind:
+                bias = torch.randn((b, h, t, t), generator=gen, device=dev).to(dtype)
+            if len_kind == "full":
+                key_len = torch.full((b,), t, dtype=torch.int32, device=dev)
+            else:
+                key_len = torch.randint(t // 2, t + 1, (b,), generator=gen, device=dev,
+                                        dtype=torch.int32)
+            got = k2.flash_attention(q, k, v, bias=bias, key_len=key_len)
+            torch.cuda.synchronize()
+            want = k2.flash_attention_reference(q, k, v, bias, key_len)
+            err = float((got.float() - want.float()).abs().max())
+            cos = float(F.cosine_similarity(got.float().flatten(), want.float().flatten(), dim=0))
+            ok = err <= K2_TOL[tag]["atol"] and bool(torch.isfinite(got).all())
+            if tag == "bf16":
+                ok = ok and cos >= K2_TOL[tag]["cos"]
+            # SDPA computes the same function from (B, h, T, 64) views and
+            # one additive mask: bias plus -inf past each row's key length
+            valid = torch.arange(t, device=dev)[None, :] < key_len[:, None]
+            if bias is not None:
+                mask = bias.masked_fill(~valid[:, None, None, :], float("-inf"))
+            else:
+                mask = valid[:, None, None, :]
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            k_ms = cuda_median_ms(lambda: k2.flash_attention(q, k, v, bias=bias, key_len=key_len))
+            p_ms = cuda_median_ms(lambda: k2.flash_attention_reference(q, k, v, bias, key_len))
+            l_ms = cuda_median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+            bias_pair = (2 if dtype == torch.bfloat16 else 4) if bias is not None else 0
+            bound_ms, bound_by, flop, nbytes = k2_bound(b, t, h, key_len, dtype, bias_pair)
+            row = dict(dtype=tag, shape=[b, t, h, 64], bias=bias_kind, key_len=len_kind,
+                       valid_keys=int(key_len.sum()), max_abs_err=err, cosine=cos, ok=ok,
+                       ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, gflop=flop / 1e9, mbytes=nbytes / 1e6,
+                       roofline_share=bound_ms / k_ms)
+            if bias is not None:  # the bias formed in the kernel: (h, T, T) + (B, h, T) gate
+                elem = 2 if dtype == torch.bfloat16 else 4
+                fused = nbytes - bias_pair * h * t * int(key_len.sum()) + elem * (h * t * t + b * h * t)
+                row["bound_ms_in_kernel_bias"] = max(flop / (PEAK_BF16_FLOPS if tag == "bf16" else PEAK_F32_FLOPS),
+                                                     fused / PEAK_BYTES) * 1e3
+                row["mbytes_in_kernel_bias"] = fused / 1e6
+            rows.append(row)
+            log(f"[K2] {tag} ({b}, {t}, {h}, 64) bias={bias_kind} key_len={len_kind}: "
+                f"max|err|={err:.3e} cos={cos:.7f} {'ok' if ok else 'FAIL'} "
+                f"({'atol 2e-2, cos >= 0.9999' if tag == 'bf16' else 'atol 1e-4'}); kernel "
+                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA {l_ms:.4f} ms, bound {bound_ms:.5f} ms "
+                f"({bound_by}: {flop / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), roofline share "
+                f"{bound_ms / k_ms:.4f}"
+                + (f"; bound with the bias formed in the kernel {row['bound_ms_in_kernel_bias']:.5f} ms"
+                   f" ({row['mbytes_in_kernel_bias']:.1f} MB)" if "bound_ms_in_kernel_bias" in row else ""))
+            del q, k, v, bias, got, want, mask
+            torch.cuda.empty_cache()
+    report["k2_checks"] = rows
+    check(all(r["ok"] for r in rows), "the flash-attention kernel disagrees with its plain version")
+    return rows[0]
+
+
+def ssl_config(attn_impl="flash", compute_dtype=None):
+    """examples/voxceleb/v2/conf/ecapa_tdnn_wavlm_frozen.yaml's model, with
+    the flash-attention knob."""
+    cfg = {
+        "model": "ECAPA_TDNN_GLOB_c512",
+        "model_args": {"feat_dim": 1024, "embed_dim": 192, "pooling_func": "ASTP"},
+        "dataset_args": {
+            "resample_rate": SR,
+            "frontend": "s3prl",
+            "s3prl_args": {"upstream": "wavlm_large", "frozen": True, "attn_impl": attn_impl},
+        },
+    }
+    if compute_dtype:
+        cfg["compute_dtype"] = compute_dtype
+    return cfg
+
+
+def ssl_state_dict(net, seed):
+    """Seeded random weights in the port's names: the frontend HF-like
+    (dense weights normal(0, 0.02), conv extractor He-normal, the
+    positional conv normal(0, 2 / sqrt(k * C)) as HF initializes it, norms
+    near 1, small biases), the ECAPA backbone as seeded_state_dict."""
+    rng = np.random.default_rng(seed)
+    sd = seeded_state_dict(net.backbone, seed)
+    for k, v in net.frontend.state_dict().items():
+        shape = tuple(v.shape)
+        if k.endswith("featurizer_weights"):
+            x = rng.normal(0.0, 0.1, shape)
+        elif k.endswith("gru_rel_pos_const"):
+            x = np.ones(shape)
+        elif "pos_conv_embed.conv.weight" in k:
+            x = rng.normal(0.0, 2.0 / math.sqrt(shape[2] * shape[0]), shape)
+        elif "feature_extractor" in k and k.endswith("conv.weight"):
+            x = rng.normal(0.0, math.sqrt(2.0 / (shape[1] * shape[2])), shape)
+        elif "layer_norm" in k and k.endswith("weight"):
+            x = 1.0 + rng.normal(0.0, 0.02, shape)
+        elif k.endswith("bias"):
+            x = rng.normal(0.0, 0.02, shape)
+        else:  # linears, rel_attn_embed
+            x = rng.normal(0.0, 0.02, shape)
+        sd["frontend." + k] = torch.from_numpy(x.astype(np.float32))
+    return sd
+
+
+def write_ssl_dir(root):
+    """24 seeded wavs of 1.5-20 s, their raw JSONL list, the config as JSON
+    and a seeded .pt; returns (list path, {key: seconds})."""
+    from wespeaker_hubert_tpu_torch.data.wav_io import write_wav
+    from wespeaker_hubert_tpu_torch.models.speaker_net import build_speaker_net
+
+    lines, seconds = [], {}
+    for i, sec in enumerate(SSL_SECONDS):
+        path = os.path.join(root, f"utt{i:02d}.wav")
+        write_wav(path, audio(8000 + i, sec))
+        lines.append(json.dumps({"key": f"utt{i:02d}", "wav": path}))
+        seconds[f"utt{i:02d}"] = sec
+    with open(os.path.join(root, "wav.jsonl"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    small = [ln for ln, sec in zip(lines, SSL_SECONDS) if sec <= 4.0][:4]
+    with open(os.path.join(root, "wav_cpu.jsonl"), "w") as f:
+        f.write("\n".join(small) + "\n")
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump(ssl_config(), f)
+    net = build_speaker_net(ssl_config())
+    torch.save(ssl_state_dict(net, SSL_WEIGHT_SEED), os.path.join(root, "model.pt"))
+    return os.path.join(root, "wav.jsonl"), seconds
+
+
+class ExtractLog(logging.Handler):
+    """Catches bin/extract's "extracted ... audio-s/s" record."""
+
+    def __init__(self):
+        super().__init__()
+        self.records = []
+
+    def emit(self, record):
+        if record.getMessage().startswith("extracted"):
+            self.records.append(record.args)
+
+
+def phase_ssl_extract(report, root):
+    """The extraction entry point on the card; returns K2's launches in the
+    bf16 run (the main path)."""
+    from wespeaker_hubert_tpu_torch.bin.extract import extract
+    from wespeaker_hubert_tpu_torch.data.dataset import EvalPipeline, load_data_list
+    from wespeaker_hubert_tpu_torch.ops import flash_attention as k2
+
+    lst, _ = write_ssl_dir(root)
+    ckpt = os.path.join(root, "model.pt")
+    n_batches = sum(1 for _ in EvalPipeline(load_data_list(lst), batch_size=16))
+    catcher = ExtractLog()
+    logging.getLogger("extract").addHandler(catcher)
+    logging.getLogger("extract").setLevel(logging.INFO)
+    out = {"utterances": len(SSL_SECONDS), "audio_s": sum(SSL_SECONDS),
+           "device_batches": n_batches, "batch_size": 16}
+    runs = {}
+    try:
+        # warm-up: the first pass over the buckets pays cuDNN's and cuBLAS's
+        # first-call costs; the timed runs below follow it
+        extract(ssl_config(compute_dtype="bf16"), lst, ckpt, "", batch_size=16, device="cuda")
+        for tag, cfg in (("bf16", ssl_config(compute_dtype="bf16")),
+                         ("f32", ssl_config()),
+                         ("bf16_plain_attention", ssl_config("einsum", "bf16"))):
+            k2.LAUNCHES = 0
+            t0 = time.perf_counter()
+            keys, emb = extract(cfg, lst, ckpt, os.path.join(root, f"{tag}.npz"),
+                                batch_size=16, device="cuda")
+            wall = time.perf_counter() - t0
+            launches = k2.LAUNCHES
+            n, audio_s, loop_s, rate = catcher.records[-1]
+            runs[tag] = dict(zip(keys, emb))
+            out[tag] = {"launches": launches, "entry_wall_s": wall, "loop_s": loop_s,
+                        "audio_s_per_s": rate, "finite": bool(np.isfinite(emb).all())}
+            log(f"[ssl {tag}] bin/extract: {n} utterances, {audio_s:.1f} audio-s in "
+                f"{loop_s:.3f} s = {rate:.1f} audio-s/s (entry point {wall:.1f} s with "
+                f"model load); K2 launches {launches} over {n_batches} device batches")
+            check(emb.shape == (len(SSL_SECONDS), 192) and np.isfinite(emb).all(),
+                  f"ssl {tag}: bad embeddings {emb.shape}")
+            want = 24 * n_batches if tag != "bf16_plain_attention" else 0
+            check(launches == want, f"ssl {tag}: K2 launched {launches} times, want {want}")
+        # float32 on the CPU: the subset of <= 4 utterances of <= 4 s
+        t0 = time.perf_counter()
+        keys, emb = extract(ssl_config(), os.path.join(root, "wav_cpu.jsonl"), ckpt, "",
+                            batch_size=16, device="cpu")
+        cpu = dict(zip(keys, emb))
+        out["cpu_f32_s"] = time.perf_counter() - t0
+    finally:
+        logging.getLogger("extract").removeHandler(catcher)
+    cos_f32 = {k: cosine(runs["f32"][k], e) for k, e in cpu.items()}
+    cos_bf16_cpu = {k: cosine(runs["bf16"][k], e) for k, e in cpu.items()}
+    cos_plain = {k: cosine(runs["bf16"][k], runs["bf16_plain_attention"][k]) for k in runs["bf16"]}
+    cos_bf16_f32 = {k: cosine(runs["bf16"][k], runs["f32"][k]) for k in runs["bf16"]}
+    out.update(cos_f32_card_vs_cpu=cos_f32, cos_bf16_vs_cpu_f32=cos_bf16_cpu,
+               cos_bf16_k2_vs_plain=cos_plain, cos_bf16_vs_f32_card=cos_bf16_f32)
+    below = sorted(c for c in cos_bf16_f32.values() if c < COS_MIN["bf16"])
+    out["bf16_vs_f32_below_bar"] = len(below)
+    report["ssl_extract"] = out
+    log(f"[ssl] f32 card vs CPU ({len(cpu)} utterances <= 4 s): cosine min "
+        f"{min(cos_f32.values()):.7f}; bf16 K2 vs bf16 plain attention ({len(cos_plain)}): min "
+        f"{min(cos_plain.values()):.7f}; bf16 vs CPU f32: min {min(cos_bf16_cpu.values()):.7f}; "
+        f"bf16 vs card f32 ({len(cos_bf16_f32)}): min {min(cos_bf16_f32.values()):.7f}, median "
+        f"{statistics.median(cos_bf16_f32.values()):.7f}, {len(below)} of {len(cos_bf16_f32)} below "
+        f"{COS_MIN['bf16']}")
+    check(min(cos_f32.values()) >= COS_MIN["f32"], f"ssl f32 card vs CPU: {cos_f32}")
+    check(min(cos_plain.values()) >= COS_MIN["bf16"], f"ssl bf16 K2 vs plain: {cos_plain}")
+    if min(cos_bf16_cpu.values()) < COS_MIN["bf16"]:
+        log(f"[ssl] NOTE: bf16 vs CPU f32 falls below the {COS_MIN['bf16']} bar "
+            "(recorded in PERF.md, not a pass)")
+    return out["bf16"]["launches"]
+
+
+def phase_ssl_timing(report, root):
+    """make_eval_embed at bench_all's SSL shape (16 x 10 s, bf16) with K2 and
+    with plain attention, in turns; then a profile of one K2 batch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from wespeaker_hubert_tpu_torch.models.speaker_net import build_speaker_net, load_speaker_state
+    from wespeaker_hubert_tpu_torch.train.executor import cast_variables_bf16, make_eval_embed
+
+    state = torch.load(os.path.join(root, "model.pt"), map_location="cpu", weights_only=True)
+    fns = {}
+    for impl in ("flash", "einsum"):
+        net = build_speaker_net(ssl_config(impl))
+        load_speaker_state(net, state)
+        net = cast_variables_bf16(net).to("cuda").eval()
+        fns[impl] = make_eval_embed(net, compute_dtype=torch.bfloat16)
+    del state
+    rng = np.random.default_rng(7)
+    batch = {"wav": torch.from_numpy((rng.standard_normal((16, 10 * SR)) * 0.1).astype(np.float32)).cuda(),
+             "length": torch.full((16,), 10 * SR, dtype=torch.int32, device="cuda")}
+    times = {k: [] for k in fns}
+    for order in (("flash", "einsum"), ("einsum", "flash")):
+        for impl in order:
+            times[impl].append(host_median_ms(lambda: fns[impl](batch), reps=6))
+    res = {f"{impl}_ms": statistics.mean(v) for impl, v in times.items()}
+    res["batch"] = "16 x 10 s bf16 (499 frames)"
+    res["audio_s_per_s_flash"] = 160 / (res["flash_ms"] / 1e3)
+    fn = fns["flash"]
+    fn(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn(batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = device_rows(prof)
+    total = sum(r[1] for r in rows)
+    busy_us, _ = device_busy_us(prof)
+    # first match wins (lower-case names): cuDNN's convolutions are CUTLASS
+    # kernels too, and a dtype cast is an elementwise kernel
+    groups = {"K2 flash_fwd": ("flash_fwd",),
+              "conv": ("fprop", "cudnn", "convol", "winograd", "implicit_gemm"),
+              "GEMM": ("nvjet", "gemm", "cutlass", "xmma", "cublas"),
+              "layer/group norm": ("layer_norm", "group_norm", "batch_norm"),
+              "copies and casts": ("copy", "memcpy", "memset", "catarray"),
+              "elementwise": ("elementwise", "reduce", "softmax", "gelu", "index")}
+    shares = {g: 0.0 for g in groups}
+    shares["other"] = 0.0
+    members = {g: [] for g in shares}
+    for name, d, _ in rows:
+        group = next((g for g, keys in groups.items()
+                      if any(key in name.lower() for key in keys)), "other")
+        shares[group] += d
+        members[group].append((d, name[:120]))
+    res["profile"] = {
+        "window": "3 x make_eval_embed bf16 16 x 10 s, K2",
+        "wall_ms": wall_us / 1e3, "device_ms": total / 1e3,
+        "device_busy_share": busy_us / wall_us if total else "not measured",
+        "device_idle_share": 1 - busy_us / wall_us if total else "not measured",
+        "shares": {g: d / total for g, d in shares.items()} if total else "not measured",
+        "group_top": {g: [f"{d / 1e3:.3f} ms {n}" for d, n in sorted(m, reverse=True)[:4]]
+                      for g, m in members.items()},
+        "top": [{"name": k[:90], "ms": d / 1e3, "calls": c, "share": d / total}
+                for k, d, c in rows[:12]] if total else [],
+    }
+    report["ssl_timing"] = res
+    log(f"[ssl timing] make_eval_embed {res['batch']}: K2 {res['flash_ms']:.2f} ms, plain "
+        f"attention {res['einsum_ms']:.2f} ms ({res['audio_s_per_s_flash']:.1f} audio-s/s with K2)")
+    if total:
+        log(f"[ssl profile] device {total / 1e3:.2f} ms over {wall_us / 1e3:.2f} ms wall "
+            f"(idle share {1 - busy_us / wall_us:.4f}); shares "
+            + ", ".join(f"{g} {d / total:.3f}" for g, d in shares.items()))
+        for r in res["profile"]["top"][:8]:
+            log(f"[ssl profile]   {r['share']:.3f} {r['ms']:.3f} ms x{r['calls']} {r['name']}")
+    else:
+        log("[ssl profile] torch.profiler reported no device time: not measured")
+    check(all(math.isfinite(res[k]) for k in ("flash_ms", "einsum_ms")), "ssl timing")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs "
@@ -651,18 +1006,33 @@ def main():
             return None
 
     t_start = time.perf_counter()
-    run("build", phase_build, report)
-    k1 = run("kernel checks", phase_kernel_checks, report)
+    phase_s = report["phase_s"] = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = run(name, fn, *args)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
+    timed("build", phase_build, report)
+    k1 = timed("kernel checks", phase_kernel_checks, report)
+    k2_row = timed("K2 checks", phase_k2_checks, report)
     with tempfile.TemporaryDirectory() as model_dir:
         write_model_dir(model_dir)
-        launches = run("serve", phase_serve, report, model_dir)
-        run("chunked timing", phase_chunked_timing, report, model_dir)
-    run("bf16 margin", phase_bf16_margin, report)
+        launches = timed("serve", phase_serve, report, model_dir)
+        timed("chunked timing", phase_chunked_timing, report, model_dir)
+    timed("bf16 margin", phase_bf16_margin, report)
+    with tempfile.TemporaryDirectory() as ssl_dir:
+        k2_launches = timed("ssl extract", phase_ssl_extract, report, ssl_dir)
+        if k2_launches is not None:
+            timed("ssl timing", phase_ssl_timing, report, ssl_dir)
     report["wall_s"] = time.perf_counter() - t_start
     report["failures"] = failures
+    log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items())
+        + f"; total {report['wall_s']:.1f} s")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
-    if failures or k1 is None or launches is None:
+    if failures or k1 is None or launches is None or k2_row is None or k2_launches is None:
         for f in failures:
             print(f"chip_smoke FAILED {f}", file=sys.stderr)
         return 1
@@ -686,6 +1056,24 @@ def main():
         "dense_dft_gflop": k1["dense_dft_gflop"],
         "library_ms": None,
         "shape": k1["shape"],
+    }, {
+        "name": "flash_attention_fwd",
+        "route": "cuda",
+        "source": "wespeaker_hubert_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "wespeaker_hubert_tpu/frontend/ssl_encoder.py:281",
+        "launches": k2_launches,
+        "launches_per_device_batch": 24,
+        "max_abs_err": max(r["max_abs_err"] for r in report["k2_checks"] if r["dtype"] == "bf16"),
+        "max_abs_err_f32": max(r["max_abs_err"] for r in report["k2_checks"] if r["dtype"] == "f32"),
+        "ms": k2_row["ms"],
+        "plain_ms": k2_row["plain_ms"],
+        "bound_ms": k2_row["bound_ms"],
+        "bound_by": k2_row["bound_by"],
+        "bound_ms_in_kernel_bias": k2_row.get("bound_ms_in_kernel_bias"),
+        "roofline_share": k2_row["roofline_share"],
+        "library_ms": k2_row["library_ms"],
+        "shape": k2_row["shape"],
+        "dtype": k2_row["dtype"],
     }]
     log(json.dumps({"kernels": kernels}))
     log(f"[device] {smi}")

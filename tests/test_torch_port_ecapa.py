@@ -202,4 +202,4 @@ def test_registry_and_build():
     assert net.backbone.conv.weight.shape == (1536, 3072, 1)
     with pytest.raises(NotImplementedError, match="not ported"):
         build_speaker_net({"model": "ECAPA_TDNN_c512",
-                           "dataset_args": {"frontend": "s3prl"}})
+                           "dataset_args": {"frontend": "whisper_encoder"}})

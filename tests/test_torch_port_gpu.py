@@ -4,9 +4,13 @@ so on a machine without JAX run it as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_gpu.py
 
-Kernel against its plain version: rtol 1e-4 / atol 2e-3, the bar of the
-JAX package's Pallas fbank; float32 embeddings cosine >= 0.99999 against
-the CPU (TF32 off)."""
+K1 against its plain version: rtol 1e-4 / atol 2e-3, the bar of the JAX
+package's Pallas fbank.  K2 (flash attention) against its plain version:
+float32 atol 1e-4 (float32 sums in another order); bf16 against the plain
+bf16 path compared in float32, atol 2e-2 and cosine >= 0.9999 (the kernel
+rounds the unnormalized probabilities to bf16 before P V, the plain version
+the normalized ones).  Float32 embeddings cosine >= 0.99999 against the CPU
+(TF32 off)."""
 
 import json
 
@@ -15,6 +19,7 @@ import pytest
 import torch
 
 from wespeaker_hubert_tpu_torch.ops import fbank_kernel
+from wespeaker_hubert_tpu_torch.ops import flash_attention as k2
 from wespeaker_hubert_tpu_torch.ops.fbank import FbankConfig, fbank
 
 FBANK_TOL = dict(rtol=1e-4, atol=2e-3)
@@ -100,3 +105,98 @@ def test_service_on_gpu_matches_cpu(cuda, tmp_path):
     )[0].numpy()
     cos = float(got @ want / (np.linalg.norm(got) * np.linalg.norm(want)))
     assert cos >= 0.99999, cos
+
+
+K2_TOL = {torch.float32: dict(atol=1e-4, rtol=0.0), torch.bfloat16: dict(atol=2e-2, rtol=0.0)}
+
+
+def _attn_inputs(seed, b, t, h, dtype, device):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, t, h, 64)).astype(np.float32))
+               .to(device, dtype) for _ in range(3))
+    return q, k, v, rng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "t,bias_shape,with_len",
+    [(131, "full", True), (200, "padding", True), (64, "none", False),
+     (77, "heads", False), (1, "full", True)],
+    ids=["odd_T_full_bias_lengths", "broadcast_padding_bias", "no_bias",
+         "broadcast_head_bias", "T_1"],
+)
+def test_flash_kernel_matches_plain(cuda, dtype, t, bias_shape, with_len):
+    b, h = 3, 4
+    q, k, v, rng = _attn_inputs(t, b, t, h, dtype, cuda)
+    shape = {"full": (b, h, t, t), "padding": (b, 1, 1, t), "heads": (1, h, t, t),
+             "none": None}[bias_shape]
+    bias = None if shape is None else torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(cuda, dtype)
+    key_len = torch.tensor([t, max(1, t // 2), max(1, t // 3)], device=cuda) if with_len else None
+    launches = k2.LAUNCHES
+    got = k2.flash_attention(q, k, v, bias=bias, key_len=key_len)
+    torch.cuda.synchronize()
+    assert k2.LAUNCHES == launches + 1 and got.dtype == dtype and got.shape == q.shape
+    want = k2.flash_attention_reference(q, k, v, bias, key_len)
+    torch.testing.assert_close(got.float(), want.float(), **K2_TOL[dtype])
+    cos = torch.nn.functional.cosine_similarity(got.float().flatten(), want.float().flatten(), dim=0)
+    assert float(cos) >= 0.9999
+
+
+@pytest.mark.cuda
+def test_flash_kernel_strided_views(cuda):
+    """q, k, v as views of one fused (B, T, 3, h, 64) projection: the kernel
+    reads through the strides."""
+    rng = np.random.default_rng(2)
+    qkv = torch.from_numpy(rng.standard_normal((2, 90, 3, 4, 64)).astype(np.float32)).to(cuda)
+    q, k, v = qkv.unbind(2)
+    got = k2.flash_attention(q, k, v)
+    want = k2.flash_attention_reference(q, k, v)
+    torch.testing.assert_close(got, want, **K2_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rejects_bad_input(cuda):
+    q, k, v, _ = _attn_inputs(0, 2, 16, 2, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head dim 64"):
+        k2.flash_attention(q[..., :32], k[..., :32], v[..., :32])
+    with pytest.raises(TypeError):
+        k2.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError, match="bias"):
+        k2.flash_attention(q, k, v, bias=torch.zeros(2, 2, 16, 16, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        k2.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="aligned"):
+        shifted = torch.empty(v.numel() + 1, device=cuda)[1:].view(v.shape)  # 4-byte offset
+        k2.flash_attention(q, k, shifted)
+    launches = k2.LAUNCHES
+    k2.flash_attention(q, k, v, key_len=torch.tensor([16, 3], device=cuda))
+    assert k2.LAUNCHES == launches + 1  # refusals never count
+
+
+@pytest.mark.cuda
+def test_wavlm_embedding_on_gpu_matches_cpu(cuda):
+    """A tiny WavLM at head dim 64 (the kernel's) + a narrow ECAPA through
+    make_eval_embed with lengths, K2 on the card against the plain path on
+    the CPU, float32."""
+    import dataclasses
+
+    from wespeaker_hubert_tpu_torch.frontend import SSLEncoderConfig, SSLFrontend
+    from wespeaker_hubert_tpu_torch.models.ecapa_tdnn import EcapaTdnn
+    from wespeaker_hubert_tpu_torch.models.speaker_net import SpeakerNet
+    from wespeaker_hubert_tpu_torch.train.executor import make_eval_embed
+
+    cfg = dataclasses.replace(SSLEncoderConfig.tiny("wavlm"), hidden_size=128,
+                              num_attention_heads=2, intermediate_size=256, attn_impl="flash")
+    torch.manual_seed(0)
+    net = SpeakerNet(EcapaTdnn(32, 128, 16, "ASTP", True), SSLFrontend(cfg)).eval()
+    wav = _wav(5, (3, 40000))
+    lengths = torch.tensor([40000, 25000, 9000], dtype=torch.int32)
+    want = make_eval_embed(net)({"wav": wav, "length": lengths}).numpy()
+    launches = k2.LAUNCHES
+    got = make_eval_embed(net.to(cuda))({"wav": wav.to(cuda), "length": lengths.to(cuda)})
+    assert k2.LAUNCHES - launches == cfg.num_hidden_layers
+    got = got.cpu().numpy()
+    cos = np.sum(got * want, 1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(want, axis=1))
+    assert cos.min() >= 0.99999, cos

@@ -85,6 +85,7 @@ def test_cpu_service_runs_without_jax(tmp_path):
 
 def test_packaging_finds_the_port():
     found = setuptools.find_packages(where=str(ROOT), include=["wespeaker_hubert_tpu*"])
-    for sub in ("", ".ops", ".models", ".train", ".data", ".utils", ".cli", ".bin"):
+    for sub in ("", ".ops", ".models", ".train", ".data", ".utils", ".cli", ".bin",
+                ".frontend", ".backend"):
         assert "wespeaker_hubert_tpu_torch" + sub in found
     assert "wespeaker_hubert_tpu" in found

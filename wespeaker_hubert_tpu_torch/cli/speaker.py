@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..data.wav_io import read_wav
-from ..models.speaker_net import build_speaker_net
+from ..models.speaker_net import build_speaker_net, load_speaker_state
 from ..ops.fbank import FbankConfig
 from ..ops.pipeline import FeaturePipelineConfig
 from ..train.executor import make_eval_embed
@@ -75,8 +75,7 @@ class Speaker:
         self.table: Dict[str, np.ndarray] = {}
 
     def _load_weights(self, state: Dict[str, torch.Tensor]) -> None:
-        missing, unexpected = self.net.backbone.load_state_dict(state, strict=False)
-        missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+        missing, unexpected = load_speaker_state(self.net, state)
         if missing:
             raise KeyError(f"checkpoint lacks backbone weights: {missing[:8]}")
         if unexpected:

@@ -3,7 +3,12 @@
 Carries weights trained or initialized by the JAX package into the port's
 modules.  The input is the flax `{'params', 'batch_stats'}` tree as numpy
 arrays, of a bare backbone or of a `SpeakerNet` (whose backbone sits under
-'backbone'); the output uses the WeSpeaker names of the port's modules.
+'backbone', and its SSL frontend under 'frontend'); the output uses the
+WeSpeaker names of the port's modules: the backbone's keys unprefixed, the
+frontend's under `frontend.` with HuggingFace's encoder names
+(`frontend.upstream.encoder.layers.0.attention.q_proj.weight`, ...) and
+`frontend.featurizer_weights` (`frontend_from_jax` is the inverse of the
+JAX package's `frontend/convert.py:convert_hf_state_dict`).
 
 Layout rules:
   Conv    kernel (K, Cin, Cout)  -> weight (Cout, Cin, K)
@@ -20,7 +25,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-__all__ = ["from_jax_variables"]
+__all__ = ["from_jax_variables", "frontend_from_jax"]
 
 # flax module names inside an ECAPA SE-Res2 block -> torch module paths
 _SE_RES2 = {"conv1": "0", "res2": "1", "conv2": "2", "se": "3"}
@@ -51,14 +56,65 @@ def _ecapa_module(path: Tuple[str, ...]) -> str:
     return ".".join(parts)
 
 
+# flax module names of SSLEncoder -> HF module paths
+_SSL_TOP = {
+    "feat_proj_layer_norm": "feature_projection.layer_norm",
+    "feat_projection": "feature_projection.projection",
+    "encoder_layer_norm": "encoder.layer_norm",
+}
+
+
+def _ssl_module(path: Tuple[str, ...]) -> str:
+    head, rest = path[0], list(path[1:])
+    if head == "feature_extractor":  # conv_3 / norm_3
+        kind, idx = rest[0].rsplit("_", 1)
+        sub = "conv" if kind == "conv" else "layer_norm"
+        return f"feature_extractor.conv_layers.{idx}.{sub}"
+    if head == "pos_conv_embed":
+        return "encoder.pos_conv_embed." + ".".join(rest)
+    if head.startswith("layer_"):
+        return f"encoder.layers.{head[len('layer_'):]}." + ".".join(rest)
+    return _SSL_TOP[head]
+
+
+def frontend_from_jax(params: Dict) -> Dict[str, np.ndarray]:
+    """JAX SSLFrontend params {'upstream': ..., 'featurizer_weights'} ->
+    the port's SSLFrontend state_dict (HF encoder names under `upstream.`)."""
+    sd: Dict[str, np.ndarray] = {}
+    for path, leaf in _flatten(params.get("upstream", {})).items():
+        module, name = _ssl_module(path[:-1]), path[-1]
+        if name == "gru_rel_pos_const":
+            sd[f"upstream.{module}.{name}"] = leaf
+        elif name == "rel_attn_embed":  # (num_buckets, h), an nn.Embedding
+            sd[f"upstream.{module}.rel_attn_embed.weight"] = leaf
+        elif name == "kernel":
+            # conv (k, in/g, out) -> (out, in/g, k); dense (in, out) -> (out, in)
+            sd[f"upstream.{module}.weight"] = (
+                leaf.transpose(2, 1, 0) if leaf.ndim == 3 else leaf.T
+            )
+        elif name == "scale":
+            sd[f"upstream.{module}.weight"] = leaf
+        elif name == "bias":
+            sd[f"upstream.{module}.bias"] = leaf
+        else:
+            raise KeyError(f"unexpected flax frontend parameter {'/'.join(path)}")
+    if "featurizer_weights" in params:
+        sd["featurizer_weights"] = np.asarray(params["featurizer_weights"])
+    return sd
+
+
 def from_jax_variables(model_name: str, variables: Dict) -> Dict[str, torch.Tensor]:
-    """JAX `{'params', 'batch_stats'}` of an ECAPA model -> state_dict of the
-    port's module of the same name."""
+    """JAX `{'params', 'batch_stats'}` of an ECAPA model, or of a SpeakerNet
+    with one, -> state_dict of the port's module of the same name (with the
+    SpeakerNet's frontend under `frontend.`)."""
     if not model_name.upper().startswith("ECAPA_TDNN"):
         raise NotImplementedError(f"no JAX converter for {model_name!r} yet")
     params = variables["params"]
     stats = variables.get("batch_stats", {})
+    frontend: Dict[str, np.ndarray] = {}
     if "backbone" in params:  # SpeakerNet
+        if "frontend" in params:
+            frontend = frontend_from_jax(params["frontend"])
         params = params["backbone"]
         stats = stats.get("backbone", {})
 
@@ -85,6 +141,7 @@ def from_jax_variables(model_name: str, variables: Dict) -> Dict[str, torch.Tens
             raise KeyError(f"unexpected flax batch stat {'/'.join(path)}")
         sd[f"{module}.running_{name}"] = leaf
         sd[f"{module}.num_batches_tracked"] = np.zeros((), np.int64)
+    sd.update({f"frontend.{k}": v for k, v in frontend.items()})
     return {
         k: torch.from_numpy(
             np.asarray(v, np.int64 if k.endswith("tracked") else np.float32).copy()

@@ -1,8 +1,8 @@
 """Eval-side executor: batched, masked embedding extraction.
 
 Counterpart of the eval half of `wespeaker_hubert_tpu/train/executor.py`
-(`make_eval_embed`, `cast_variables_bf16`).  The train step is the next
-slice of the port.
+(`make_eval_embed`, with its SSL-frontend branch, and
+`cast_variables_bf16`).  The train step is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -34,9 +34,12 @@ def make_eval_embed(
 
     Batch: {'wav': (B, W), 'length': (B,)} or {'feat': (B, T, F),
     'feat_length': (B,)}, on the model's device; lengths are optional.
-    Padded batches are exact: CMN and pooling only see valid frames.
+    Padded batches are exact: CMN and pooling only see valid frames.  A
+    SpeakerNet with a frontend takes the wav (cast to `compute_dtype`)
+    through it, then CMVN over the valid frames.
     """
     fcfg = feature_cfg or FeaturePipelineConfig()
+    use_frontend = getattr(model, "frontend", None) is not None
 
     def embed_fn(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         with torch.inference_mode():
@@ -54,6 +57,23 @@ def make_eval_embed(
                     mask = (
                         torch.arange(t, device=feats.device)[None, :]
                         < lengths[:, None]
+                    )
+            elif use_frontend:
+                wav = batch["wav"]
+                if compute_dtype is not None:
+                    wav = wav.to(compute_dtype)
+                feats, feat_lengths = model.features(wav, lengths=batch.get("length"))
+                feats = apply_cmvn(
+                    feats,
+                    norm_mean=fcfg.cmvn_norm_mean,
+                    norm_var=fcfg.cmvn_norm_var,
+                    lengths=feat_lengths,
+                )
+                mask = None
+                if feat_lengths is not None:
+                    mask = (
+                        torch.arange(feats.shape[1], device=feats.device)[None, :]
+                        < feat_lengths[:, None]
                     )
             else:
                 feats, mask = wav_to_features(

@@ -31,6 +31,7 @@ NVCC_FLAGS = (
 )
 
 _LOCK = threading.Lock()
+_NAME_LOCKS: Dict[str, threading.Lock] = {}  # one per library: builds run in parallel
 _LOADED: Dict[str, ctypes.CDLL] = {}
 # seconds spent in nvcc per library name, and its -Xptxas -v report
 BUILD_LOG: Dict[str, Tuple[float, str]] = {}
@@ -82,8 +83,11 @@ def build_library(name: str, sources: List[str]) -> Path:
 
 
 def load_library(name: str, sources: List[str]) -> ctypes.CDLL:
-    """Build (if needed) and load a kernel library once per process."""
+    """Build (if needed) and load a kernel library once per process.  Two
+    libraries build at once when two threads ask for them."""
     with _LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name not in _LOADED:
             _LOADED[name] = ctypes.CDLL(str(build_library(name, sources)))
         return _LOADED[name]
