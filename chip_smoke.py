@@ -39,7 +39,22 @@ Phases:
      K2 against bf16 with plain attention;
   9. timings of that slice: the entry point's audio-s/s, make_eval_embed at
      16 x 10 s in bf16 with K2 and with plain attention, and a
-     torch.profiler breakdown of one batch.
+     torch.profiler breakdown of one batch;
+ 10. K2's backward kernels (dK/dV, dQ + dBias) against their plain version
+     at the training shape (64, 75, 16, 64) with the gated bias, the
+     extraction shape (16, 499, 16, 64), no bias with key lengths, a
+     broadcast (B, 1, 1, T) bias and odd T, bf16 and float32, timed beside
+     the plain backward and scaled_dot_product_attention's forward +
+     backward;
+ 11. the joint fine-tuning slice at full width: bin/train.train on
+     examples/voxceleb/v2/conf/ecapa_tdnn_wavlm_joint_ft.yaml (WavLM-Large
+     unfrozen + ECAPA_TDNN_GLOB_c512 + ArcMargin, batch 64, 1.5 s chunks,
+     speed perturbation, packed reverb / noise, SpecAug, bf16, flash
+     attention) on seeded wavs for 6 steps: K2's forward, dK/dV and dQ
+     launch 24 times per step, the losses are finite, LR and margin follow
+     their schedules, models/model_1.pt loads into bin/extract.  Then one
+     float32 step with K2 against one with plain attention (batch 64), one
+     on the card against the CPU (batch 2), and a profile of 3 bf16 steps.
 
 A kernel's bound is the least time the card could take for the work the
 function needs (for log-mel: an FFT and a sparse mel product, not the dense
@@ -250,14 +265,15 @@ def get(url):
 
 # --------------------------------------------------------------- phases
 def phase_build(report):
-    """Both kernels' nvcc runs start together (one thread each)."""
+    """The kernels' nvcc runs start together (one thread each)."""
     from wespeaker_hubert_tpu_torch.ops import fbank_kernel
     from wespeaker_hubert_tpu_torch.ops import flash_attention as k2
     from wespeaker_hubert_tpu_torch.utils import cuda_build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # builds csrc/*.cu unless already built
-        for f in [pool.submit(fbank_kernel._library), pool.submit(k2._library)]:
+    with ThreadPoolExecutor(3) as pool:  # builds csrc/*.cu unless already built
+        for f in [pool.submit(fbank_kernel._library), pool.submit(k2._library),
+                  pool.submit(k2._bwd_library)]:
             f.result()
     report["build_s"] = {"wall": time.perf_counter() - t0}
     report["ptxas"] = {}
@@ -979,6 +995,570 @@ def phase_ssl_timing(report, root):
     check(all(math.isfinite(res[k]) for k in ("flash_ms", "einsum_ms")), "ssl timing")
 
 
+# --------------------------------------- K2's backward and the training slice
+K2_BWD_TOL = {"f32": dict(atol=1e-4), "bf16": dict(cos=0.9999)}
+TRAIN_WEIGHT_SEED = 20251018
+TRAIN_SPEAKERS = 20
+TRAIN_STEPS = 6
+DEVICE = "cuda"  # the training phases' device; a CPU rehearsal sets "cpu"
+
+
+def sync():
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def k2_bwd_bounds(b, t, h, key_len, dtype, bias_grad, bias_bytes_per_pair):
+    """The least time each backward kernel, and the whole backward, can take
+    on these inputs: bytes each input read once and each output written
+    once (q, dO and the row statistics for every row, k and v for the valid
+    keys, the bias over the valid (query, key) pairs, dq / dk / dv for every
+    row, dbias for every pair), operations 2 h hd T sum_b(valid keys) per
+    product on the dtype's peak: dK/dV needs 4 products (S, dP, dV, dK), dQ
+    3 (S, dP, dQ), the function 5 (S and dP once).  Returns {name: (ms, by,
+    flop, bytes)}."""
+    hd = 64
+    elem = 2 if dtype == torch.bfloat16 else 4
+    valid = int(key_len.sum()) if key_len is not None else b * t
+    rows = elem * b * t * h * hd          # one (B, T, h, 64) tensor, every row
+    keys = elem * valid * h * hd          # one over the valid keys
+    stats = 4 * b * h * t                 # lse or D
+    bias_in = bias_bytes_per_pair * h * t * valid
+    bias_out = bias_bytes_per_pair * h * t * t * b if bias_grad else 0
+    pair = 2 * h * hd * t * valid
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    need = {
+        # q, dO, k, v, lse, D, bias in; dk, dv out
+        "dkv": (4 * pair, 2 * rows + 2 * keys + 2 * stats + bias_in + 2 * rows),
+        # q, dO, k, v, lse, D, bias in; dq, dbias out
+        "dq": (3 * pair, 2 * rows + 2 * keys + 2 * stats + bias_in + rows + bias_out),
+        # q, k, v, out, dO, lse, bias in; dq, dk, dv, dbias out
+        "function": (5 * pair, 3 * rows + 2 * keys + stats + bias_in + 3 * rows + bias_out),
+    }
+    out = {}
+    for name, (flop, nbytes) in need.items():
+        ops_ms, bytes_ms = flop / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+        out[name] = (max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes",
+                     flop, nbytes)
+    return out
+
+
+def kernel_device_ms(fn, names, reps=10):
+    """Per-call device time of each kernel whose name holds one of `names`,
+    from a torch.profiler trace of `reps` warm calls; None when the trace
+    has no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    out = {}
+    for key in names:
+        us = sum(d for n, d, _ in rows if key in n)
+        out[key] = us / 1e3 / reps if us else None
+    return out
+
+
+def phase_k2_bwd_checks(report):
+    """The backward kernels (dK/dV, dQ + dBias), through the autograd
+    Function's wrapper, against the plain backward; timed beside it and
+    beside scaled_dot_product_attention's forward + backward."""
+    from wespeaker_hubert_tpu_torch.ops import flash_attention as k2
+
+    F = torch.nn.functional
+    # (B, T, bias, key lengths): the training batch (gated bias, full
+    # lengths), extraction's 16 x 10 s batch, no bias with random lengths, a
+    # broadcast (B, 1, 1, T) bias, an odd T
+    cases = [(64, 75, "gated", "full"), (16, 499, "gated", "full"),
+             (16, 499, None, "random"), (16, 499, "broadcast", "random"),
+             (16, 131, "gated", "random")]
+    rows = []
+    for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        for i, (b, t, bias_kind, len_kind) in enumerate(cases):
+            h, dev = 16, torch.device("cuda")
+            gen = torch.Generator(device=dev).manual_seed(500 + i)
+            q, k, v, dout = (torch.randn((b, t, h, 64), generator=gen, device=dev).to(dtype)
+                             for _ in range(4))
+            bias = None
+            if bias_kind:
+                shape = (b, 1, 1, t) if bias_kind == "broadcast" else (b, h, t, t)
+                bias = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            if len_kind == "full":
+                key_len = torch.full((b,), t, dtype=torch.int32, device=dev)
+            else:
+                key_len = torch.randint(t // 2, t + 1, (b,), generator=gen, device=dev,
+                                        dtype=torch.int32)
+            out, lse = k2.flash_attention_fwd(q, k, v, bias, key_len, return_lse=True)
+            got = k2.flash_attention_bwd(q, k, v, bias, key_len, None, out, lse, dout)
+            torch.cuda.synchronize()
+            want = k2.flash_attention_bwd_reference(q, k, v, bias, key_len, None, out, lse, dout)
+            errs, coss, ok = {}, {}, True
+            for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+                if w is None:
+                    continue
+                errs[name] = float((g.float() - w.float()).abs().max())
+                coss[name] = float(F.cosine_similarity(g.float().flatten(), w.float().flatten(), dim=0))
+                ok = ok and bool(torch.isfinite(g).all())
+                ok = ok and (errs[name] <= K2_BWD_TOL["f32"]["atol"] if tag == "f32"
+                             else coss[name] >= K2_BWD_TOL["bf16"]["cos"])
+            del got, want
+            # the kernels' backward alone (the wrapper: D, allocation, both
+            # launches), each kernel's device time, the plain backward
+            k_ms = cuda_median_ms(lambda: k2.flash_attention_bwd(
+                q, k, v, bias, key_len, None, out, lse, dout))
+            per = kernel_device_ms(lambda: k2.flash_attention_bwd(
+                q, k, v, bias, key_len, None, out, lse, dout), ("flash_bwd_dkv", "flash_bwd_dq"))
+            p_ms = cuda_median_ms(lambda: k2.flash_attention_bwd_reference(
+                q, k, v, bias, key_len, None, out, lse, dout), reps=10)
+            # SDPA forward + backward with the bias (plus -inf past each
+            # row's key length) as attn_mask; the mask's gradient where
+            # PyTorch gives one
+            valid = torch.arange(t, device=dev)[None, :] < key_len[:, None]
+            mask = (bias.expand(b, h, t, t) if bias is not None
+                    else torch.zeros((b, 1, 1, t), dtype=dtype, device=dev))
+            mask = mask.masked_fill(~valid[:, None, None, :], float("-inf")).contiguous()
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+            mask_leaf = mask.detach().requires_grad_(bias is not None)
+            do_t = dout.transpose(1, 2)
+
+            def sdpa_fwd_bwd():
+                o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask_leaf)
+                leaves = [qt, kt, vt] + ([mask_leaf] if mask_leaf.requires_grad else [])
+                return torch.autograd.grad(o, leaves, do_t)
+
+            try:
+                grads = sdpa_fwd_bwd()
+                l_ms = cuda_median_ms(sdpa_fwd_bwd, reps=10)
+                lib_bias_grad = mask_leaf.requires_grad and grads[-1] is not None
+            except RuntimeError as e:  # no backward for a mask needing a gradient
+                log(f"[K2 bwd] SDPA with a mask gradient: {e}; timed without one")
+                mask_leaf.requires_grad_(False)
+                l_ms = cuda_median_ms(sdpa_fwd_bwd, reps=10)
+                lib_bias_grad = False
+            bias_pair = (2 if dtype == torch.bfloat16 else 4) if bias is not None else 0
+            if bias_kind == "broadcast":
+                bias_pair = 0  # (B, 1, 1, T): read per key, not per pair
+            bounds = k2_bwd_bounds(b, t, h, key_len if len_kind != "full" else None, dtype,
+                                   bias is not None and bias_kind != "broadcast", bias_pair)
+            bound_ms = bounds["function"][0]
+            row = dict(dtype=tag, shape=[b, t, h, 64], bias=bias_kind, key_len=len_kind,
+                       max_abs_err=errs, cosine=coss, ok=ok, ms=k_ms, plain_ms=p_ms,
+                       library_ms=l_ms, library_bias_grad=lib_bias_grad,
+                       dkv_ms=per["flash_bwd_dkv"], dq_ms=per["flash_bwd_dq"],
+                       bound_ms=bound_ms, bound_by=bounds["function"][1],
+                       gflop=bounds["function"][2] / 1e9, mbytes=bounds["function"][3] / 1e6,
+                       dkv_bound_ms=bounds["dkv"][0], dkv_bound_by=bounds["dkv"][1],
+                       dq_bound_ms=bounds["dq"][0], dq_bound_by=bounds["dq"][1],
+                       roofline_share=bound_ms / k_ms)
+            rows.append(row)
+            log(f"[K2 bwd] {tag} ({b}, {t}, {h}, 64) bias={bias_kind} key_len={len_kind}: "
+                + " ".join(f"{n} err {errs[n]:.2e} cos {coss[n]:.7f}" for n in errs)
+                + f" {'ok' if ok else 'FAIL'} ({'atol 1e-4' if tag == 'f32' else 'cos >= 0.9999'}); "
+                f"backward {k_ms:.4f} ms (dK/dV {row['dkv_ms']} ms, dQ {row['dq_ms']} ms), plain "
+                f"{p_ms:.4f} ms, SDPA fwd+bwd {l_ms:.4f} ms ({'with' if lib_bias_grad else 'no'} "
+                f"mask gradient), bound {bound_ms:.5f} ms ({bounds['function'][1]}: "
+                f"{bounds['function'][2] / 1e9:.2f} GFLOP, {bounds['function'][3] / 1e6:.1f} MB), "
+                f"roofline share {bound_ms / k_ms:.4f}")
+            del q, k, v, dout, bias, out, lse, mask, mask_leaf, qt, kt, vt
+            torch.cuda.empty_cache()
+    report["k2_bwd_checks"] = rows
+    check(all(r["ok"] for r in rows), "the flash-attention backward disagrees with its plain version")
+    return rows[0]
+
+
+def train_config(root, attn_impl="flash"):
+    """examples/voxceleb/v2/conf/ecapa_tdnn_wavlm_joint_ft.yaml as a dict,
+    with the run's overrides: raw seeded wavs, seeded stores, a seeded
+    model_init, epoch_iter 6 in 1 epoch, the flash-attention knob."""
+    return {
+        "exp_dir": os.path.join(root, "exp"), "seed": 42, "enable_amp": True,
+        "num_epochs": 1, "epoch_iter": TRAIN_STEPS, "save_epoch_interval": 1,
+        "log_batch_interval": 1, "num_avg": 3, "model_parallel": 1,
+        "data_type": "raw", "train_data": os.path.join(root, "train.list"),
+        "train_label": os.path.join(root, "utt2spk"),
+        "model_init": os.path.join(root, "init.pt"),
+        "dataloader_args": {"batch_size": 64, "num_workers": 8},
+        "dataset_args": {
+            "shuffle": True, "shuffle_args": {"shuffle_size": 2500},
+            "filter_args": {"min_num_frames": 50, "max_num_frames": 400},
+            "resample_rate": SR, "speed_perturb": True, "num_frms": 150, "aug_prob": 0.6,
+            "reverb_data": os.path.join(root, "rirs_aug_store"),
+            "noise_data": os.path.join(root, "musan_aug_store"),
+            "frontend": "s3prl",
+            "s3prl_args": {"upstream": "wavlm_large", "frozen": False, "hf_checkpoint": None,
+                           "attn_impl": attn_impl},
+            "spec_aug": True,
+            "spec_aug_args": {"num_t_mask": 1, "num_f_mask": 1, "max_t": 10, "max_f": 8,
+                              "prob": 0.6},
+        },
+        "model": "ECAPA_TDNN_GLOB_c512",
+        "model_args": {"feat_dim": 1024, "embed_dim": 192, "pooling_func": "ASTP"},
+        "projection_args": {"project_type": "arc_margin", "scale": 32.0, "easy_margin": False},
+        "margin_update": {"initial_margin": 0.2, "final_margin": 0.2, "increase_start_epoch": 1,
+                          "fix_start_epoch": 1, "update_margin": True},
+        "loss": "CrossEntropyLoss", "optimizer": "SGD",
+        "optimizer_args": {"momentum": 0.9, "nesterov": True, "weight_decay": 0.0001},
+        "scheduler": "ExponentialDecrease",
+        "scheduler_args": {"initial_lr": 0.001, "final_lr": 0.00025, "warm_up_epoch": 1},
+    }
+
+
+def write_train_dir(root):
+    """Seeded 2-4 s wavs of TRAIN_SPEAKERS speakers (the config's filter
+    keeps 0.5-4 s), enough for TRAIN_STEPS batches of 64; a RIR store and a
+    noise store with noise / music / speech keys; a seeded model_init."""
+    from wespeaker_hubert_tpu_torch.data.wav_io import write_wav
+    from wespeaker_hubert_tpu_torch.models.speaker_net import build_speaker_net
+
+    rng = np.random.default_rng(TRAIN_WEIGHT_SEED)
+    lines, labels = [], []
+    for i in range(64 * TRAIN_STEPS + 16):
+        spk = f"spk{i % TRAIN_SPEAKERS:02d}"
+        path = os.path.join(root, f"tr{i:03d}.wav")
+        write_wav(path, audio(20000 + i, float(rng.uniform(2.0, 4.0))))
+        lines.append(json.dumps({"key": f"tr{i:03d}", "wav": path, "spk": spk}))
+        labels.append(f"tr{i:03d} {spk}")
+    with open(os.path.join(root, "train.list"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(os.path.join(root, "utt2spk"), "w") as f:
+        f.write("\n".join(labels) + "\n")
+    stores = {"rirs_aug_store": {f"rir{i}": np.exp(-np.arange(4000) / 800.0)
+                                 * rng.standard_normal(4000) for i in range(8)},
+              "musan_aug_store": {f"{kind}{i}": 0.1 * rng.standard_normal(48000)
+                                  for kind in ("noise", "music", "speech") for i in range(3)}}
+    for name, arrays in stores.items():
+        d = os.path.join(root, name)
+        os.makedirs(d)
+        for key, x in arrays.items():
+            np.save(os.path.join(d, key + ".npy"), x.astype(np.float32))
+        with open(os.path.join(d, "index.json"), "w") as f:
+            json.dump({k: k + ".npy" for k in arrays}, f)
+    net = build_speaker_net(train_config(root))
+    torch.save(ssl_state_dict(net, TRAIN_WEIGHT_SEED), os.path.join(root, "init.pt"))
+    with open(os.path.join(root, "eval.jsonl"), "w") as f:
+        f.write("\n".join(lines[:8]) + "\n")
+
+
+def _counts():
+    from wespeaker_hubert_tpu_torch.ops import flash_attention as k2
+
+    return k2.LAUNCHES, k2.LAUNCHES_BWD_DKV, k2.LAUNCHES_BWD_DQ
+
+
+def _zero_counts():
+    from wespeaker_hubert_tpu_torch.ops import flash_attention as k2
+
+    k2.LAUNCHES = k2.LAUNCHES_BWD_DKV = k2.LAUNCHES_BWD_DQ = 0
+
+
+def phase_train(report, root):
+    """bin/train.train on the joint fine-tuning config at full width, bf16,
+    for TRAIN_STEPS steps; returns the launches of K2's forward, dK/dV and
+    dQ in that run (the main path)."""
+    from wespeaker_hubert_tpu_torch.bin.extract import extract
+    from wespeaker_hubert_tpu_torch.bin.train import train
+    from wespeaker_hubert_tpu_torch.train.schedulers import ExponentialDecrease
+
+    write_train_dir(root)
+    cfg = train_config(root)
+    _zero_counts()
+    t0 = time.perf_counter()
+    state = train(cfg, device=DEVICE)
+    sync()
+    wall = time.perf_counter() - t0
+    fwd, dkv, dq = _counts()
+    with open(os.path.join(cfg["exp_dir"], "metrics.jsonl")) as f:
+        metrics = [json.loads(line) for line in f]
+    steps = [m["step"] for m in metrics]
+    times = [m["time"] for m in metrics]
+    step_ms = [1e3 * (b - a) for a, b in zip(times, times[1:])]
+    median_ms = statistics.median(step_ms)
+    lr = ExponentialDecrease(num_epochs=1, epoch_iter=TRAIN_STEPS, initial_lr=1e-3,
+                             final_lr=2.5e-4, warm_up_epoch=1)
+    lr_err = max(abs(m["lr"] - lr(m["step"] - 1)) / lr(m["step"] - 1) for m in metrics)
+    margin_err = max(abs(m["margin"] - 0.2) for m in metrics)
+    out = {"steps": state.step, "batch": 64, "entry_wall_s": wall, "launches":
+           {"flash_fwd": fwd, "flash_bwd_dkv": dkv, "flash_bwd_dq": dq},
+           "loss": [m["loss"] for m in metrics], "acc": [m["acc"] for m in metrics],
+           "lr": [m["lr"] for m in metrics], "margin": [m["margin"] for m in metrics],
+           "lr_max_rel_err": lr_err, "margin_max_err": margin_err,
+           "step_ms": step_ms, "step_ms_median_after_first": median_ms,
+           "audio_s_per_s": 64 * 1.5 / (median_ms / 1e3),
+           "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda"
+                           else "not measured")}
+    log(f"[train] bin/train {state.step} steps of batch 64 (WavLM-Large + ECAPA_TDNN_GLOB_c512, "
+        f"bf16, flash): {wall:.1f} s with set-up; losses "
+        + ", ".join(f"{x:.3f}" for x in out["loss"]) + f"; lr max rel err {lr_err:.2e}, margin "
+        f"max err {margin_err:.2e}; step {median_ms:.1f} ms median after the first ("
+        + ", ".join(f"{x:.0f}" for x in step_ms) + f") = {out['audio_s_per_s']:.1f} audio-s/s; "
+        f"launches fwd {fwd}, dK/dV {dkv}, dQ {dq} (want {24 * TRAIN_STEPS} each)")
+    report["train"] = out
+    check(state.step == TRAIN_STEPS and steps == list(range(1, TRAIN_STEPS + 1)),
+          f"train: steps {steps}")
+    check(all(math.isfinite(x) for x in out["loss"]), f"train: losses {out['loss']}")
+    check(lr_err < 1e-6 and margin_err < 1e-7, "train: LR or margin off their schedules")
+    check(fwd == dkv == dq == 24 * TRAIN_STEPS,
+          f"train: K2 launches fwd {fwd} dkv {dkv} dq {dq}, want {24 * TRAIN_STEPS} each")
+    ckpt = os.path.join(cfg["exp_dir"], "models", "model_1.pt")
+    keys, emb = extract(os.path.join(cfg["exp_dir"], "config.json"),
+                        os.path.join(root, "eval.jsonl"), ckpt, "", batch_size=8, device=DEVICE)
+    out["extract_from_model_1"] = {"n": len(keys), "finite": bool(np.isfinite(emb).all())}
+    log(f"[train] models/model_1.pt -> bin/extract: {emb.shape} embeddings, finite "
+        f"{bool(np.isfinite(emb).all())}")
+    check(emb.shape == (8, 192) and np.isfinite(emb).all(), "train: extract from model_1.pt")
+    del state
+    empty_cache()
+    return fwd, dkv, dq
+
+
+def empty_cache():
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _train_net(root, attn_impl, device, spec_aug=True):
+    """The slice's SpeakerNet (seeded init.pt, projection from a seeded
+    generator), its TrainState and float32 train step on `device`."""
+    from wespeaker_hubert_tpu_torch.bin.train import _feature_cfg
+    from wespeaker_hubert_tpu_torch.models.speaker_net import build_speaker_net, load_speaker_state
+    from wespeaker_hubert_tpu_torch.train.executor import make_train_step
+    from wespeaker_hubert_tpu_torch.train.schedulers import ExponentialDecrease, MarginSchedule
+    from wespeaker_hubert_tpu_torch.train.state import TrainState, make_optimizer
+
+    cfg = train_config(root, attn_impl)
+    cfg["dataset_args"]["spec_aug"] = spec_aug
+    torch.manual_seed(0)
+    net = build_speaker_net(cfg, 3 * TRAIN_SPEAKERS)
+    load_speaker_state(net, torch.load(os.path.join(root, "init.pt"), weights_only=True))
+    net.to(device)
+    lr = ExponentialDecrease(num_epochs=1, epoch_iter=TRAIN_STEPS, initial_lr=1e-3,
+                             final_lr=2.5e-4, warm_up_epoch=1)
+    margin = MarginSchedule(TRAIN_STEPS, 1, 1, 0.2, 0.2)
+    state = TrainState(net, make_optimizer(net), lr)
+    step = make_train_step(net, lr, margin, feature_cfg=_feature_cfg(cfg["dataset_args"]),
+                           chunk_samples=24240, seed=43)
+    return net, state, step
+
+
+def _one_step(net, state, step, batch):
+    """(loss, {frontend tensor: p_new - p_old}, {frontend tensor: max |p_old|})."""
+    before = {k: v.detach().float().cpu().clone() for k, v in net.state_dict().items()
+              if k.startswith("frontend.") and v.is_floating_point()}
+    metrics = step(state, batch)
+    upd = {k: net.state_dict()[k].detach().float().cpu() - v for k, v in before.items()}
+    return float(metrics["loss"]), upd, {k: float(v.abs().max()) for k, v in before.items()}
+
+
+# A frontend tensor's two updates agree when their cosine reaches the bar,
+# or when they differ by no more than the same model's updates differ under
+# an input perturbation of float32's rounding size (CONTROL_EPS; the factor
+# CONTROL_SLACK allows for the kernels' rounding entering at every layer),
+# or by at most NOISE_FLOOR (or two float32 spacings of the tensor's largest
+# value, the resolution of p_new - p_old) in every element.  Some frontend
+# updates are
+# that sensitive in float32: attention's key bias (a zero gradient by
+# construction), query biases (sums over keys whose dS rows add up to 0),
+# and, through the ECAPA BatchNorm's batch statistics of nearly constant
+# pooled features, most tensors at a cosine of 0.999 or so.  1e-8 at lr
+# 1e-3 is a gradient difference of 5e-6.
+NOISE_FLOOR = 1e-8
+CONTROL_EPS = 2.0 ** -20
+CONTROL_SLACK = 4.0
+
+
+def _diff_table(a, b):
+    """name -> (cosine, max abs difference) of two update dicts."""
+    table = {}
+    for k in a:
+        x, y = a[k].double().flatten(), b[k].double().flatten()
+        n = float(x.norm() * y.norm())
+        cos = float(x @ y) / n if n > 0 else (1.0 if float((x - y).abs().max()) == 0 else 0.0)
+        table[k] = (cos, float((x - y).abs().max()))
+    return table
+
+
+def _update_agreement(pair, control, bar, magnitude):
+    """Per frontend tensor: the pair's (cosine, max diff) and the control's;
+    `magnitude` the tensor's largest |value|.  Returns the failing tensors
+    and how many passed by each rule."""
+    failing, how = {}, {"cosine": 0, "within_control": 0, "noise_floor": 0}
+    for k, (cos, diff) in pair.items():
+        if cos >= bar:
+            how["cosine"] += 1
+        elif diff <= CONTROL_SLACK * control[k][1]:
+            how["within_control"] += 1
+        elif diff <= max(NOISE_FLOOR, 2.0 * magnitude[k] * 2.0 ** -23):
+            how["noise_floor"] += 1
+        else:
+            failing[k] = {"pair": (cos, diff), "control": control[k]}
+    return failing, how
+
+
+def _rel_l2(a, b):
+    num = sum(float((a[k].double() - b[k].double()).norm()) ** 2 for k in a)
+    den = sum(float(b[k].double().norm()) ** 2 for k in a)
+    return (num / den) ** 0.5
+
+
+def _perturbed(batch):
+    return {k: (v * (1.0 + CONTROL_EPS) if k == "wav" else v) for k, v in batch.items()}
+
+
+def phase_train_checks(report, root):
+    """(a) one float32 step with K2 against one with plain attention, same
+    batch and weights, batch 64; (b) one float32 step on the card against
+    the port's CPU float32 step, batch 2; each held against a control (the
+    same step on the input perturbed by CONTROL_EPS); (c) the device idle
+    share of 3 bf16 steps and a grouped profile of one.  Every result is in
+    the report before the checks run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from wespeaker_hubert_tpu_torch.data.dataset import TrainPipeline, TrainPipelineConfig
+    from wespeaker_hubert_tpu_torch.bin.train import read_spk2id, _to_device
+    from wespeaker_hubert_tpu_torch.data.aug_store import AugStore
+
+    cfg = train_config(root)
+    da = cfg["dataset_args"]
+    pipe = TrainPipeline(
+        [ln for ln in open(cfg["train_data"]).read().splitlines() if ln],
+        read_spk2id(cfg["train_label"]),
+        TrainPipelineConfig(num_frms=150, filter_min_frames=50, filter_max_frames=400,
+                            aug_prob=0.6, batch_size=64, seed=7),
+        AugStore(root=da["reverb_data"]), AugStore(root=da["noise_data"]))
+    host_batch = next(iter(pipe))
+    batch = _to_device(host_batch, torch.device(DEVICE))
+    out = report["train_checks"] = {}
+    # (a) K2 against plain attention, float32 on the card; the control is
+    # plain attention on the same batch perturbed by CONTROL_EPS
+    res = {}
+    for tag, impl, b in (("flash", "flash", batch), ("einsum", "einsum", batch),
+                         ("control", "einsum", _perturbed(batch))):
+        net, state, step = _train_net(root, impl, DEVICE)
+        _zero_counts()
+        res[tag] = _one_step(net, state, step, b)
+        res[tag + "_launches"] = _counts()
+        del net, state, step
+        empty_cache()
+    loss_rel = abs(res["flash"][0] - res["einsum"][0]) / abs(res["einsum"][0])
+    pair = _diff_table(res["flash"][1], res["einsum"][1])
+    control = _diff_table(res["control"][1], res["einsum"][1])
+    failing_a, how = _update_agreement(pair, control, 0.99999, res["einsum"][2])
+    worst = sorted(pair.items(), key=lambda kv: kv[1][0])[:4]
+    out["f32_k2_vs_plain"] = {
+        "loss": [res["flash"][0], res["einsum"][0], res["control"][0]], "loss_rel": loss_rel,
+        "control_loss_rel": abs(res["control"][0] - res["einsum"][0]) / abs(res["einsum"][0]),
+        "updates_rel_l2": _rel_l2(res["flash"][1], res["einsum"][1]),
+        "control_updates_rel_l2": _rel_l2(res["control"][1], res["einsum"][1]),
+        "n_tensors": len(pair), "passed_by": how, "worst": worst, "failing": failing_a,
+        "control_min_cos": min(c for c, _ in control.values()),
+        "launches_flash": res["flash_launches"], "launches_einsum": res["einsum_launches"]}
+    r = out["f32_k2_vs_plain"]
+    log(f"[train a] f32 step, K2 vs plain attention (batch 64): loss {res['flash'][0]:.6f} vs "
+        f"{res['einsum'][0]:.6f} (rel {loss_rel:.2e}, bar 1e-5); frontend updates: relative L2 "
+        f"{r['updates_rel_l2']:.2e} (plain vs plain on the wav x (1 + 2^-20): "
+        f"{r['control_updates_rel_l2']:.2e}, loss rel {r['control_loss_rel']:.2e}); of "
+        f"{len(pair)} tensors {how['cosine']} at cosine >= 0.99999, {how['within_control']} "
+        f"within {CONTROL_SLACK:g}x the control's difference, {how['noise_floor']} at the noise "
+        f"floor, {len(failing_a)} failing; least cosines {worst}; control's least "
+        f"cosine {r['control_min_cos']:.7f}")
+    del res
+    # (b) the card against the CPU, float32, batch 2 (SpecAug off: the two
+    # devices' generators draw differently); the control is the card on the
+    # perturbed batch
+    small = {k: v[:2] for k, v in host_batch.items() if k in ("wav", "speed_idx", "label")}
+    small_res = {}
+    for tag, dev, scale in ((DEVICE, DEVICE, False), ("cpu", "cpu", False),
+                            ("control", DEVICE, True)):
+        net, state, step = _train_net(root, "flash", dev, spec_aug=False)
+        b = _to_device(small, torch.device(dev))
+        t0 = time.perf_counter()
+        small_res[tag] = _one_step(net, state, step, _perturbed(b) if scale else b)
+        small_res[tag + "_s"] = time.perf_counter() - t0
+        del net, state, step
+    empty_cache()
+    loss_rel_b = abs(small_res[DEVICE][0] - small_res["cpu"][0]) / abs(small_res["cpu"][0])
+    pair = _diff_table(small_res[DEVICE][1], small_res["cpu"][1])
+    control = _diff_table(small_res["control"][1], small_res[DEVICE][1])
+    failing_b, how = _update_agreement(pair, control, 0.9999, small_res["cpu"][2])
+    worst = sorted(pair.items(), key=lambda kv: kv[1][0])[:4]
+    out["f32_card_vs_cpu"] = {
+        "loss": [small_res[DEVICE][0], small_res["cpu"][0]], "loss_rel": loss_rel_b,
+        "updates_rel_l2": _rel_l2(small_res[DEVICE][1], small_res["cpu"][1]),
+        "control_updates_rel_l2": _rel_l2(small_res["control"][1], small_res[DEVICE][1]),
+        "n_tensors": len(pair), "passed_by": how, "worst": worst, "failing": failing_b,
+        "cpu_step_s": small_res["cpu_s"]}
+    r = out["f32_card_vs_cpu"]
+    log(f"[train b] f32 step, card vs CPU (batch 2, speed perturbation, no aug or SpecAug): loss "
+        f"{small_res[DEVICE][0]:.6f} vs {small_res['cpu'][0]:.6f} (rel {loss_rel_b:.2e}, bar "
+        f"1e-4); frontend updates: relative L2 {r['updates_rel_l2']:.2e} (control "
+        f"{r['control_updates_rel_l2']:.2e}); of {len(pair)} tensors {how['cosine']} at cosine "
+        f">= 0.9999, {how['within_control']} within the control, {how['noise_floor']} at the "
+        f"noise floor, {len(failing_b)} failing; least cosines {worst}; CPU step "
+        f"{small_res['cpu_s']:.1f} s")
+    del small_res
+    # (c) bf16 steps under the profiler
+    net, state, step = _train_net(root, "flash", DEVICE)
+    from wespeaker_hubert_tpu_torch.train.executor import make_train_step
+    from wespeaker_hubert_tpu_torch.bin.train import _feature_cfg
+
+    step = make_train_step(net, state.lr_schedule, lambda s: 0.2,
+                           feature_cfg=_feature_cfg(cfg["dataset_args"]), chunk_samples=24240,
+                           compute_dtype=torch.bfloat16, seed=43)
+    for _ in range(2):
+        step(state, batch)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step(state, batch)
+        sync()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = device_rows(prof)
+    total = sum(r[1] for r in rows)
+    busy_us, _ = device_busy_us(prof)
+    groups = {"K2 flash_fwd": ("flash_fwd",), "K2 flash_bwd": ("flash_bwd",),
+              "conv": ("fprop", "dgrad", "wgrad", "cudnn", "convol", "winograd", "implicit_gemm"),
+              "GEMM": ("nvjet", "gemm", "cutlass", "xmma", "cublas"),
+              "norms": ("layer_norm", "group_norm", "batch_norm"),
+              "FFT (augmentation)": ("fft", "radix", "vector_fft"),
+              "optimizer": ("foreach", "multi_tensor"),
+              "copies and casts": ("copy", "memcpy", "memset", "catarray"),
+              "elementwise": ("elementwise", "reduce", "softmax", "gelu", "index")}
+    shares = {g: 0.0 for g in groups}
+    shares["other"] = 0.0
+    members = {g: [] for g in shares}
+    for name, d, c in rows:
+        group = next((g for g, keys in groups.items()
+                      if any(key in name.lower() for key in keys)), "other")
+        shares[group] += d
+        members[group].append((d, name[:110]))
+    out["profile"] = {
+        "window": "3 bf16 train steps, batch 64, WavLM-Large + ECAPA_TDNN_GLOB_c512",
+        "wall_ms": wall_us / 1e3, "device_ms": total / 1e3,
+        "device_idle_share": 1 - busy_us / wall_us if total else "not measured",
+        "shares": {g: d / total for g, d in shares.items()} if total else "not measured",
+        "group_top": {g: [f"{d / 1e3:.3f} ms {n}" for d, n in sorted(m, reverse=True)[:4]]
+                      for g, m in members.items()},
+    }
+    if total:
+        log(f"[train profile] 3 bf16 steps: device {total / 1e3:.2f} ms over {wall_us / 1e3:.2f} "
+            f"ms wall (idle share {1 - busy_us / wall_us:.4f}); shares "
+            + ", ".join(f"{g} {d / total:.3f}" for g, d in shares.items()))
+        for g in ("K2 flash_fwd", "K2 flash_bwd", "GEMM", "conv"):
+            log(f"[train profile]   {g}: " + "; ".join(out["profile"]["group_top"][g][:3]))
+    else:
+        log("[train profile] torch.profiler reported no device time: not measured")
+    a, b = out["f32_k2_vs_plain"], out["f32_card_vs_cpu"]
+    check(a["loss_rel"] <= 1e-5 and not a["failing"], "train (a): K2 step vs plain-attention step")
+    check(a["launches_flash"] == (24, 24, 24) and a["launches_einsum"] == (0, 0, 0),
+          f"train (a): launches {a['launches_flash']} / {a['launches_einsum']}")
+    check(b["loss_rel"] <= 1e-4 and not b["failing"], "train (b): card step vs CPU step")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs "
@@ -1026,13 +1606,19 @@ def main():
         k2_launches = timed("ssl extract", phase_ssl_extract, report, ssl_dir)
         if k2_launches is not None:
             timed("ssl timing", phase_ssl_timing, report, ssl_dir)
+    k2_bwd_row = timed("K2 bwd checks", phase_k2_bwd_checks, report)
+    with tempfile.TemporaryDirectory() as train_dir:
+        train_launches = timed("train", phase_train, report, train_dir)
+        if train_launches is not None:
+            timed("train checks", phase_train_checks, report, train_dir)
     report["wall_s"] = time.perf_counter() - t_start
     report["failures"] = failures
     log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items())
         + f"; total {report['wall_s']:.1f} s")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
-    if failures or k1 is None or launches is None or k2_row is None or k2_launches is None:
+    if (failures or k1 is None or launches is None or k2_row is None or k2_launches is None
+            or k2_bwd_row is None or train_launches is None):
         for f in failures:
             print(f"chip_smoke FAILED {f}", file=sys.stderr)
         return 1
@@ -1074,7 +1660,44 @@ def main():
         "library_ms": k2_row["library_ms"],
         "shape": k2_row["shape"],
         "dtype": k2_row["dtype"],
+        "launches_train": train_launches[0],
     }]
+    bwd_rows = [r for r in report["k2_bwd_checks"] if r["dtype"] == "bf16"]
+    for name, key, outputs, launched in (
+            ("flash_attention_bwd_dkv", "dkv", ("dk", "dv"), train_launches[1]),
+            ("flash_attention_bwd_dq", "dq", ("dq", "dbias"), train_launches[2])):
+        line = {
+            "name": name,
+            "route": "cuda",
+            "source": "wespeaker_hubert_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": ("jax/experimental/pallas/ops/tpu/flash_attention.py:"
+                         + ("941" if key == "dkv" else "1287")),
+            "called_from": "wespeaker_hubert_tpu/frontend/ssl_encoder.py:281",
+            "launches": launched,
+            "launches_per_train_step": 24,
+            "max_abs_err": max(r["max_abs_err"][o] for r in bwd_rows for o in outputs
+                               if o in r["max_abs_err"]),
+            "min_cosine": min(r["cosine"][o] for r in bwd_rows for o in outputs
+                              if o in r["cosine"]),
+            "max_abs_err_f32": max(r["max_abs_err"][o] for r in report["k2_bwd_checks"]
+                                   if r["dtype"] == "f32" for o in outputs
+                                   if o in r["max_abs_err"]),
+            "ms": k2_bwd_row[key + "_ms"],
+            "backward_ms": k2_bwd_row["ms"],
+            "plain_ms": k2_bwd_row["plain_ms"],
+            "plain_scope": "the whole plain backward (dq, dk, dv, dbias)",
+            "bound_ms": k2_bwd_row[key + "_bound_ms"],
+            "bound_by": k2_bwd_row[key + "_bound_by"],
+            "backward_bound_ms": k2_bwd_row["bound_ms"],
+            "library_ms": k2_bwd_row["library_ms"],
+            "library_scope": "scaled_dot_product_attention forward + backward",
+            "shape": k2_bwd_row["shape"],
+            "dtype": k2_bwd_row["dtype"],
+        }
+        if line["ms"] is None:  # the profiler traced no device time
+            line["ms"], line["ms_scope"] = k2_bwd_row["ms"], "the whole backward (both kernels)"
+        line["roofline_share"] = line["bound_ms"] / line["ms"]
+        kernels.append(line)
     log(json.dumps({"kernels": kernels}))
     log(f"[device] {smi}")
     log(json.dumps({"ok": True, "device": {

@@ -159,17 +159,21 @@ def test_full_width_glob_c512():
 
 
 def test_converter_takes_speaker_net_tree(case):
+    """A SpeakerNet tree gives the backbone's keys as the bare tree does,
+    plus the margin head's (D, C) weight as WeSpeaker's (C, D)
+    `projection.weight`."""
     variables = case["variables"]
+    head = np.arange(16, dtype=np.float32).reshape(8, 2)
     net_vars = {
-        "params": {"backbone": variables["params"],
-                   "projection": {"weight": np.zeros((8, 2), np.float32)}},
+        "params": {"backbone": variables["params"], "projection": {"weight": head}},
         "batch_stats": {"backbone": variables["batch_stats"]},
     }
     bare = from_jax_variables(case["name"], variables)
     wrapped = from_jax_variables(case["name"], net_vars)
-    assert set(bare) == set(wrapped)
+    assert set(wrapped) == set(bare) | {"projection.weight"}
     for k in bare:
         assert torch.equal(bare[k], wrapped[k])
+    assert torch.equal(wrapped["projection.weight"], torch.from_numpy(head.T.copy()))
 
 
 @pytest.mark.parametrize("masked", [False, True])

@@ -11,6 +11,7 @@ JAX's own bf16 arithmetic is held against the port's at the make_eval_embed
 level in tests/test_torch_port_ssl.py.
 """
 
+import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -50,11 +51,25 @@ def slice_files(tmp_path_factory):
     return root
 
 
+def _shape_only_init(init):
+    """flax `Module.init` giving zeros of the variables' shapes: the JAX
+    entry point's eager init (26 of its 37 s on the CPU) only supplies the
+    tree that the checkpoint then overwrites, every leaf of it here."""
+
+    def shaped(self, *args, **kwargs):
+        shapes = jax.eval_shape(lambda: init(self, *args, **kwargs))
+        return jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype), shapes)
+
+    return shaped
+
+
 @pytest.fixture(scope="module")
 def jax_slice_embeddings(slice_files):
     """The JAX entry point's float32 embeddings of the list."""
-    return jax_extract(slice_config(), str(slice_files / "wav.jsonl"),
-                       str(slice_files / "model.ckpt"), "", batch_size=4)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fnn.Module, "init", _shape_only_init(fnn.Module.init))
+        return jax_extract(slice_config(), str(slice_files / "wav.jsonl"),
+                           str(slice_files / "model.ckpt"), "", batch_size=4)
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])

@@ -9,8 +9,10 @@ package's Pallas fbank.  K2 (flash attention) against its plain version:
 float32 atol 1e-4 (float32 sums in another order); bf16 against the plain
 bf16 path compared in float32, atol 2e-2 and cosine >= 0.9999 (the kernel
 rounds the unnormalized probabilities to bf16 before P V, the plain version
-the normalized ones).  Float32 embeddings cosine >= 0.99999 against the CPU
-(TF32 off)."""
+the normalized ones).  K2's backward (dq, dk, dv, dbias) against its plain
+version: float32 atol 1e-4; bf16 cosine >= 0.9999 per gradient (the kernels
+round P and dS to bf16 as the A operand of their products).  Float32
+embeddings cosine >= 0.99999 against the CPU (TF32 off)."""
 
 import json
 
@@ -200,3 +202,153 @@ def test_wavlm_embedding_on_gpu_matches_cpu(cuda):
     got = got.cpu().numpy()
     cos = np.sum(got * want, 1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(want, axis=1))
     assert cos.min() >= 0.99999, cos
+
+
+def _cos(a, b):
+    return float(torch.nn.functional.cosine_similarity(
+        a.float().flatten(), b.float().flatten(), dim=0))
+
+
+BWD_CASES = [
+    # (B, T, h, bias shape, key lengths)
+    (4, 75, 16, "full", None),          # the training shape, narrowed in B
+    (3, 131, 4, "full", "random"),      # odd T, ragged tiles
+    (3, 200, 4, "padding", "random"),   # a broadcast (B, 1, 1, T) bias
+    (2, 64, 4, None, "random"),         # no bias
+    (3, 77, 4, "heads", "empty"),       # (1, h, T, T) bias, a row of no valid key
+    (2, 1, 2, "full", None),            # T = 1
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", BWD_CASES, ids=["train", "odd_T", "padding_bias", "no_bias",
+                                                 "head_bias_empty_row", "T_1"])
+def test_flash_backward_matches_plain(cuda, dtype, case):
+    b, t, h, bias_kind, len_kind = case
+    q, k, v, rng = _attn_inputs(1000 + t, b, t, h, dtype, cuda)
+    shape = {"full": (b, h, t, t), "padding": (b, 1, 1, t), "heads": (1, h, t, t),
+             None: None}[bias_kind]
+    bias = None if shape is None else torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(cuda, dtype)
+    key_len = None
+    if len_kind == "random":
+        key_len = torch.from_numpy(rng.integers(1, t + 1, b)).to(cuda)
+    elif len_kind == "empty":
+        key_len = torch.tensor([t, 0, t // 2], device=cuda)
+    out, lse = k2.flash_attention_fwd(q, k, v, bias, key_len, return_lse=True)
+    _, lse_ref = k2.flash_attention_reference(q, k, v, bias, key_len, return_lse=True)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4 if dtype == torch.float32 else 2e-2,
+                               rtol=0.0)
+    dout = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32)).to(cuda, dtype)
+    dkv, dq = k2.LAUNCHES_BWD_DKV, k2.LAUNCHES_BWD_DQ
+    got = k2.flash_attention_bwd(q, k, v, bias, key_len, None, out, lse, dout)
+    torch.cuda.synchronize()
+    assert (k2.LAUNCHES_BWD_DKV, k2.LAUNCHES_BWD_DQ) == (dkv + 1, dq + 1)
+    want = k2.flash_attention_bwd_reference(q, k, v, bias, key_len, None, out, lse, dout)
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        if w is None:
+            assert g is None
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=0.0, msg=name)
+        elif float(w.float().abs().max()) > 0:
+            assert _cos(g, w) >= 0.9999, (name, _cos(g, w))
+    if len_kind == "empty":  # row 1 has no valid key: every gradient of it is 0
+        assert float(got[0][1].abs().max()) == 0.0 and float(got[1][1].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_function_grads_match_autograd(cuda, dtype):
+    """The autograd Function (kernels both ways) against autograd through the
+    plain forward, with a broadcast bias summed back to its shape."""
+    b, t, h = 2, 90, 4
+    q, k, v, rng = _attn_inputs(7, b, t, h, dtype, cuda)
+    bias = torch.from_numpy(rng.standard_normal((b, 1, t, t)).astype(np.float32)).to(cuda, dtype)
+    key_len = torch.tensor([t, 50], device=cuda)
+    g = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32)).to(cuda, dtype)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v, bias)]
+    launches = (k2.LAUNCHES, k2.LAUNCHES_BWD_DKV, k2.LAUNCHES_BWD_DQ)
+    got = torch.autograd.grad(k2.flash_attention(*leaves, key_len=key_len), leaves, g)
+    assert (k2.LAUNCHES, k2.LAUNCHES_BWD_DKV, k2.LAUNCHES_BWD_DQ) == tuple(
+        n + 1 for n in launches)
+    ref = [x.clone().requires_grad_() for x in (q, k, v, bias)]
+    want = torch.autograd.grad(
+        k2.flash_attention_reference(*ref, key_len=key_len), ref, g)
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert a.shape == w.shape and a.dtype == w.dtype, name
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, w, atol=1e-4, rtol=0.0, msg=name)
+        else:
+            assert _cos(a, w) >= 0.9999, (name, _cos(a, w))
+
+
+@pytest.mark.cuda
+def test_flash_backward_rejects_bad_input(cuda):
+    q, k, v, _ = _attn_inputs(3, 2, 16, 2, torch.float32, cuda)
+    out, lse = k2.flash_attention_fwd(q, k, v, return_lse=True)
+    launches = (k2.LAUNCHES_BWD_DKV, k2.LAUNCHES_BWD_DQ)
+    with pytest.raises(ValueError, match="head dim 64"):
+        k2.flash_attention_bwd(q[..., :32], k[..., :32], v[..., :32], None, None, None,
+                               out[..., :32], lse, out[..., :32])
+    with pytest.raises(ValueError, match="dout"):
+        k2.flash_attention_bwd(q, k, v, None, None, None, out, lse, out.bfloat16())
+    with pytest.raises(ValueError):
+        k2.flash_attention_bwd(q, k, v.cpu(), None, None, None, out, lse, out)
+    with pytest.raises(ValueError, match="lse"):
+        k2.flash_attention_bwd(q, k, v, None, None, None, out, lse.cpu(), out)
+    with pytest.raises(ValueError, match="CPU"):
+        k2.flash_attention_bwd(q.cpu(), k.cpu(), v.cpu(), None, None, None, out.cpu(),
+                               lse.cpu(), out.cpu())
+    assert (k2.LAUNCHES_BWD_DKV, k2.LAUNCHES_BWD_DQ) == launches  # refusals never count
+
+
+@pytest.mark.cuda
+def test_train_step_bf16_on_gpu(cuda):
+    """One bf16 make_train_step of a small WavLM (head dim 64, the kernels')
+    + a narrow ECAPA + ArcMargin, with speed perturbation and packed
+    augmentation: K2's forward, dK/dV and dQ launch once per layer, the
+    loss is finite, the float32 master weights move, the BatchNorm
+    statistics stay float32."""
+    import dataclasses
+
+    from wespeaker_hubert_tpu_torch.frontend import SSLEncoderConfig, SSLFrontend
+    from wespeaker_hubert_tpu_torch.models.ecapa_tdnn import EcapaTdnn
+    from wespeaker_hubert_tpu_torch.models.projections import ArcMarginProduct
+    from wespeaker_hubert_tpu_torch.models.speaker_net import SpeakerNet
+    from wespeaker_hubert_tpu_torch.ops.pipeline import FeaturePipelineConfig
+    from wespeaker_hubert_tpu_torch.train.executor import make_train_step
+    from wespeaker_hubert_tpu_torch.train.state import TrainState, make_optimizer
+
+    cfg = dataclasses.replace(SSLEncoderConfig.tiny("wavlm", True), hidden_size=128,
+                              num_attention_heads=2, intermediate_size=256, attn_impl="flash")
+    torch.manual_seed(0)
+    net = SpeakerNet(EcapaTdnn(32, 128, 16, "ASTP", True), SSLFrontend(cfg, frozen=False),
+                     ArcMarginProduct(16, 6, 32.0)).to(cuda)
+    state = TrainState(net, make_optimizer(net), lambda step: 1e-3)
+    step = make_train_step(net, state.lr_schedule, lambda step: 0.2,
+                           feature_cfg=FeaturePipelineConfig(spec_aug=True),
+                           chunk_samples=8240, compute_dtype=torch.bfloat16)
+    rng = np.random.default_rng(4)
+    batch = {"wav": torch.from_numpy((rng.standard_normal((4, 9100)) * 0.1).astype(np.float32)),
+             "speed_idx": torch.tensor([0, 1, 2, 0], dtype=torch.int32),
+             "label": torch.tensor([0, 3, 5, 1], dtype=torch.int32),
+             "rir": torch.from_numpy((rng.standard_normal((1, 400)) * 0.1).astype(np.float32)),
+             "noise": torch.from_numpy((rng.standard_normal((1, 8240)) * 0.1).astype(np.float32)),
+             "snr": torch.tensor([5.0])}
+    batch = {k: v.to(cuda) for k, v in batch.items()}
+    before = {k: v.detach().clone() for k, v in net.named_parameters()}
+    counts = (k2.LAUNCHES, k2.LAUNCHES_BWD_DKV, k2.LAUNCHES_BWD_DQ)
+    metrics = step(state, batch)
+    torch.cuda.synchronize()
+    assert (k2.LAUNCHES, k2.LAUNCHES_BWD_DKV, k2.LAUNCHES_BWD_DQ) == tuple(
+        n + cfg.num_hidden_layers for n in counts)
+    assert np.isfinite(float(metrics["loss"])) and state.step == 1
+    for name, p in net.named_parameters():
+        assert p.dtype == torch.float32, name
+    moved = [k for k, p in net.named_parameters() if not torch.equal(p, before[k])]
+    assert any("gru_rel_pos" in k for k in moved) and any("rel_attn_embed" in k for k in moved)
+    assert net.backbone.bn.running_var.dtype == torch.float32

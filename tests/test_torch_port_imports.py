@@ -47,6 +47,17 @@ def _module_names():
         yield ".".join(parts)
 
 
+@pytest.mark.parametrize("name", [
+    "bin.train", "train.state", "train.schedulers", "ops.augment", "models.projections",
+    "data.aug_store", "utils.checkpoint",
+])
+def test_training_modules_are_checked(name):
+    """The training slice's modules are among those the checks above and
+    the no-JAX process below import."""
+    assert "wespeaker_hubert_tpu_torch." + name in set(_module_names())
+    assert not FORBIDDEN.intersection(_imported_roots(PORT / (name.replace(".", "/") + ".py")))
+
+
 def test_cpu_service_runs_without_jax(tmp_path):
     script = textwrap.dedent(f"""
         import importlib, json, os, sys

@@ -25,7 +25,8 @@
 // The block stages the tile's queries, then walks the key tiles below the
 // row's key length: each tile of keys and values is staged in shared memory,
 // the scores and the running max and sum of the online softmax stay in
-// registers in float32, and only the output is written.  The bias is read
+// registers in float32, and only the output is written (with, when training,
+// each row's log-sum-exp for csrc/flash_attention_bwd.cu).  The bias is read
 // once per valid (query, key) pair, with arbitrary (broadcast) strides.
 //   bf16: 4 warps, 16 query rows each; Q K^T and P V run on the tensor cores
 //         as mma.sync m16n8k16 (bf16 in, float32 accumulators).  The scores'
@@ -60,6 +61,7 @@ struct Params {
   const void* bias;     // null: no bias
   const int* key_len;   // null: every key is valid
   void* out;
+  float* lse;           // null: not written; else (B, h, T) row log-sum-exp
   // element strides of the (B, T, h) axes; the head dim is contiguous
   long long q_sb, q_st, q_sh;
   long long k_sb, k_st, k_sh;
@@ -70,6 +72,12 @@ struct Params {
   int T;
   float scale;
 };
+
+// the natural-log log-sum-exp of a row for the backward (ops/flash_attention
+// .py:flash_attention_bwd); -inf for a row with no valid key
+__device__ __forceinline__ void store_lse(const Params& p, int b, int h, int t, float lse) {
+  if (p.lse != nullptr && t < p.T) p.lse[((long long)b * gridDim.y + h) * p.T + t] = lse;
+}
 
 __device__ __forceinline__ int valid_keys(const Params& p, int b) {
   if (p.key_len == nullptr) return p.T;
@@ -247,6 +255,9 @@ __global__ void __launch_bounds__(128) flash_fwd_bf16(const Params p) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;  // no valid key: 0
     const int t = q0 + r0 + 8 * i;
+    // m is in the log2 domain; one lane of the quad writes the row's value
+    if ((lane & 3) == 0)
+      store_lse(p, b, h, t, l[i] > 0.f ? (m[i] + log2f(l[i])) / LOG2E : -CUDART_INF_F);
     if (t < T) {
 #pragma unroll
       for (int dt = 0; dt < 8; ++dt) {
@@ -341,6 +352,7 @@ __global__ void __launch_bounds__(BM) flash_fwd_f32(const Params p) {
     }
   }
 
+  store_lse(p, b, h, t, l > 0.f ? m + logf(l) : -CUDART_INF_F);
   if (t < T) {
     const float inv = l > 0.f ? 1.f / l : 0.f;  // no valid key: 0
     float* out = static_cast<float*>(p.out) + b * p.o_sb + h * p.o_sh + t * p.o_st;
@@ -359,11 +371,13 @@ extern "C" {
 // dtype 0: float32, 1: bfloat16 (q, k, v, bias and out alike).  q, k, v, out
 // (B, T, H, 64) with a contiguous head dim; `strides` (host memory) holds
 // the element strides q_sb, q_st, q_sh, k_*, v_*, out_*, then the bias's
-// (b, h, query, key) strides.  bias and key_len (B int32) may be null.
-// Launches on `stream` and returns cudaGetLastError().
+// (b, h, query, key) strides.  bias and key_len (B int32) may be null; so
+// may lse, a contiguous (B, H, T) float32 output of each row's log-sum-exp
+// (natural log) for the backward.  Launches on `stream` and returns
+// cudaGetLastError().
 int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
-                        const void* bias, const int* key_len, void* out, int B,
-                        int T, int H, const long long* strides, float scale,
+                        const void* bias, const int* key_len, void* out, float* lse,
+                        int B, int T, int H, const long long* strides, float scale,
                         void* stream) {
   if (B <= 0 || T <= 0 || H <= 0) return 0;
   Params p;
@@ -373,6 +387,7 @@ int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
   p.bias = bias;
   p.key_len = key_len;
   p.out = out;
+  p.lse = lse;
   p.q_sb = strides[0];
   p.q_st = strides[1];
   p.q_sh = strides[2];

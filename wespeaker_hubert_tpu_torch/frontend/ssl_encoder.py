@@ -18,11 +18,15 @@ WavLM adds gated relative-position-bias attention: a bucketed relative
 position embedding (first layer only, passed down the stack) scaled by a
 per-head gate computed from the layer input.
 
-`attn_impl='flash'` runs attention through the hand-written CUDA kernel on
-CUDA tensors (ops/flash_attention.py; its plain version on CPU tensors)
-with the padded keys masked by length; 'einsum' is the JAX package's
-default path: scores stored in the compute dtype, a -1e9 padding bias,
-float32 softmax.  Norms take float32 statistics and return the input dtype
+`attn_impl='flash'` runs attention through the hand-written CUDA kernels on
+CUDA tensors (ops/flash_attention.py; its plain versions on CPU tensors)
+with the padded keys masked by length; under autograd it goes through the
+`FlashAttention` Function, whose backward kernels also return the gated
+bias's gradient, so `rel_attn_embed`, `gru_rel_pos_linear` and
+`gru_rel_pos_const` train.  'einsum' is the JAX package's default path:
+scores stored in the compute dtype, a -1e9 padding bias, float32 softmax.
+There is no dropout, as in the JAX package, so training and inference run
+the same function.  Norms take float32 statistics and return the input dtype
 (models/norm.py).  The sequence-parallel `act_constraint` of the JAX config
 is a multi-chip feature and is not ported.
 """

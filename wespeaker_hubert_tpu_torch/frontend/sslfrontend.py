@@ -3,7 +3,9 @@
 Counterpart of `wespeaker_hubert_tpu/frontend/sslfrontend.py`: an upstream
 encoder (WavLM / HuBERT / wav2vec2) whose 1 + N hidden states are mixed with
 learned softmax weights (`featurizer_weights`), or one state selected by
-`layer`.  `frozen` runs the upstream without gradients.
+`layer`.  `frozen` runs the upstream outside autograd (the featurizer
+weights still train; bin/train also turns the upstream's `requires_grad`
+off); `frozen=False` trains it, joint fine-tuning.
 """
 
 from __future__ import annotations

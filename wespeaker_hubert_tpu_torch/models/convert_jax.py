@@ -8,7 +8,8 @@ WeSpeaker names of the port's modules: the backbone's keys unprefixed, the
 frontend's under `frontend.` with HuggingFace's encoder names
 (`frontend.upstream.encoder.layers.0.attention.q_proj.weight`, ...) and
 `frontend.featurizer_weights` (`frontend_from_jax` is the inverse of the
-JAX package's `frontend/convert.py:convert_hf_state_dict`).
+JAX package's `frontend/convert.py:convert_hf_state_dict`), and a
+SpeakerNet's margin head under `projection.` in WeSpeaker's layout.
 
 Layout rules:
   Conv    kernel (K, Cin, Cout)  -> weight (Cout, Cin, K)
@@ -16,6 +17,7 @@ Layout rules:
                                     the port holds it as a 1x1 Conv1d
   BN      scale / bias + batch_stats mean / var
                                  -> weight / bias / running_mean / running_var
+  head    projection/weight (D, C) -> projection.weight (C, D)
 """
 
 from __future__ import annotations
@@ -112,9 +114,13 @@ def from_jax_variables(model_name: str, variables: Dict) -> Dict[str, torch.Tens
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     frontend: Dict[str, np.ndarray] = {}
+    head: Dict[str, np.ndarray] = {}
     if "backbone" in params:  # SpeakerNet
         if "frontend" in params:
             frontend = frontend_from_jax(params["frontend"])
+        proj = params.get("projection", {})
+        if set(proj) == {"weight"}:  # the margin heads; other heads are not ported
+            head["projection.weight"] = np.asarray(proj["weight"]).T
         params = params["backbone"]
         stats = stats.get("backbone", {})
 
@@ -142,6 +148,7 @@ def from_jax_variables(model_name: str, variables: Dict) -> Dict[str, torch.Tens
         sd[f"{module}.running_{name}"] = leaf
         sd[f"{module}.num_batches_tracked"] = np.zeros((), np.int64)
     sd.update({f"frontend.{k}": v for k, v in frontend.items()})
+    sd.update(head)
     return {
         k: torch.from_numpy(
             np.asarray(v, np.int64 if k.endswith("tracked") else np.float32).copy()

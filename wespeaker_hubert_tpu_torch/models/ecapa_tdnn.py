@@ -9,9 +9,11 @@ are: `layer1.conv/bn`, `layerN.se_res2block.{0,1,2,3}` with
 `.1.convs.i` / `.1.bns.i` and `.3.linear1/2`, `conv`, `pool.linear1/2`,
 `bn`, `linear` and, with `emb_bn`, `bn2`.
 
-BatchNorm is `nn.BatchNorm1d(eps=1e-5, momentum=0.1)`: torch's momentum is
-the weight of the new batch, so it is flax's `momentum=0.9`.  In eval it
-returns the input dtype, as the JAX package's dtype-preserving BatchNorm.
+BatchNorm is `models/norm.py:BatchNorm1d(eps=1e-5, momentum=0.1)`: torch's
+momentum is the weight of the new batch, so it is flax's `momentum=0.9`, and
+in train mode the running variance takes the biased batch variance, as
+flax's does.  In eval it is torch's BatchNorm1d and returns the input dtype,
+as the JAX package's dtype-preserving BatchNorm.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .norm import BatchNorm1d
 from .pooling import POOLING_LAYERS, pooling_output_dim
 
 __all__ = [
@@ -37,8 +40,8 @@ __all__ = [
 ]
 
 
-def _bn(channels: int) -> nn.BatchNorm1d:
-    return nn.BatchNorm1d(channels, eps=1e-5, momentum=0.1)
+def _bn(channels: int) -> BatchNorm1d:
+    return BatchNorm1d(channels, eps=1e-5, momentum=0.1)
 
 
 class ConvReluBn(nn.Module):

@@ -3,7 +3,14 @@
 Counterpart of `wespeaker_hubert_tpu/models/norm.py`: statistics and the
 affine transform in float32, the result in the input's dtype, so a bf16
 forward stays bf16 and keeps float32 statistics.  Parameter names are
-torch's (`weight`, `bias`), as HuggingFace's encoders use them.
+torch's (`weight`, `bias`, `running_mean`, `running_var`), as WeSpeaker's
+and HuggingFace's modules use them.
+
+`BatchNorm1d` in train mode follows flax's `BatchNorm`: batch statistics in
+float32 (the variance as E[x^2] - E[x]^2, clipped at 0), the running mean and variance updated as `momentum * running + (1 -
+momentum) * batch` with flax's momentum 0.9 (torch's momentum 0.1, the
+weight of the new batch) and the *biased* batch variance, where torch's own
+BatchNorm stores the unbiased one.  In eval it is torch's BatchNorm1d.
 """
 
 from __future__ import annotations
@@ -12,7 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-__all__ = ["LayerNorm", "GroupNorm"]
+__all__ = ["BatchNorm1d", "LayerNorm", "GroupNorm"]
 
 
 def _f32(p):
@@ -35,3 +42,32 @@ class GroupNorm(nn.GroupNorm):
         return F.group_norm(
             x.float(), self.num_groups, _f32(self.weight), _f32(self.bias), self.eps
         ).to(x.dtype)
+
+
+class BatchNorm1d(nn.BatchNorm1d):
+    """nn.BatchNorm1d over (B, C) or (B, C, T) whose train mode gives flax's
+    output and running statistics (float32 statistics, biased running
+    variance); the running statistics stay float32 under a bf16 forward."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        x32 = x.float()
+        mean = x32.mean(dims)
+        # flax's fast variance E[x^2] - E[x]^2, clipped at 0
+        var = torch.clamp_min((x32 * x32).mean(dims) - mean * mean, 0.0)
+        mul = torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            mul = mul * self.weight.float()
+        y = (x32 - mean.view(shape)) * mul.view(shape)
+        if self.bias is not None:
+            y = y + self.bias.float().view(shape)
+        if self.track_running_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
+                self.running_var.copy_((1.0 - m) * self.running_var + m * var)
+                self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)

@@ -1,10 +1,16 @@
-"""SpeakerNet: the optional SSL frontend and the backbone behind one
-embedding entry point.
+"""SpeakerNet: the optional SSL frontend, the backbone and the optional
+margin-softmax projection.
 
-Counterpart of `wespeaker_hubert_tpu/models/speaker_net.py`.  The
-margin-softmax projection belongs to the training slice, so `embed` is the
-whole backbone.  A state_dict in the port's names follows WeSpeaker's
-layout: the backbone's keys unprefixed, the frontend's under `frontend.`.
+Counterpart of `wespeaker_hubert_tpu/models/speaker_net.py`, with its entry
+points:
+
+  * forward(feats, label, margin, mask) -> (embed, logits, aux_loss)  [training]
+  * embed(feats, mask)                  -> embedding                  [inference]
+  * features(wav, lengths)              -> SSL frontend features
+
+A state_dict in the port's names follows WeSpeaker's layout: the backbone's
+keys unprefixed, the frontend's under `frontend.`, the projection's under
+`projection.` (`speaker_state_dict`, `load_speaker_state`).
 """
 
 from __future__ import annotations
@@ -17,16 +23,23 @@ import torch.nn as nn
 
 from .registry import embedding_from_outputs, get_speaker_model
 
-__all__ = ["SpeakerNet", "build_speaker_net", "load_speaker_state"]
+__all__ = ["SpeakerNet", "build_speaker_net", "load_speaker_state", "speaker_state_dict"]
 
 FRONTEND_PREFIX = "frontend."
+PROJECTION_PREFIX = "projection."
 
 
 class SpeakerNet(nn.Module):
-    def __init__(self, backbone: nn.Module, frontend: Optional[nn.Module] = None):
+    def __init__(
+        self,
+        backbone: nn.Module,
+        frontend: Optional[nn.Module] = None,
+        projection: Optional[nn.Module] = None,
+    ):
         super().__init__()
         self.backbone = backbone
         self.frontend = frontend
+        self.projection = projection
 
     def features(
         self, wav: torch.Tensor, lengths: Optional[torch.Tensor] = None
@@ -40,13 +53,24 @@ class SpeakerNet(nn.Module):
     ) -> torch.Tensor:
         return embedding_from_outputs(self.backbone(feats, mask=mask))
 
-    forward = embed
+    def forward(
+        self,
+        feats: torch.Tensor,
+        label: torch.Tensor,
+        margin=0.0,
+        mask: Optional[torch.Tensor] = None,
+    ):
+        """Training: (embedding, logits, aux loss or None)."""
+        assert self.projection is not None, "a SpeakerNet built without num_class has no head"
+        emb = self.embed(feats, mask=mask)
+        logits, aux = self.projection(emb, label, margin)
+        return emb, logits, aux
 
 
-def build_speaker_net(config: dict) -> SpeakerNet:
-    """Frontend (optional) and backbone from a training config (the YAML
-    schema as a dict), as the JAX package's bin/train.py:build_speaker_net
-    assembles them."""
+def build_speaker_net(config: dict, num_class: Optional[int] = None) -> SpeakerNet:
+    """Frontend (optional), backbone and, given `num_class`, the projection
+    from a training config (the YAML schema as a dict), as the JAX
+    package's bin/train.py:build_speaker_net assembles them."""
     from ..frontend import SSLEncoderConfig, frontend_class_dict
 
     model_args = dict(config.get("model_args", {}))
@@ -69,27 +93,45 @@ def build_speaker_net(config: dict) -> SpeakerNet:
         model_args["feat_dim"] = enc_cfg.hidden_size
     elif name != "fbank":
         frontend_class_dict[name](**dataset_args.get(f"{name}_args", {}))
-    return SpeakerNet(get_speaker_model(config["model"])(**model_args), frontend)
+    backbone = get_speaker_model(config["model"])(**model_args)
+    projection = None
+    if num_class is not None:
+        from .projections import get_projection
+
+        proj_conf = dict(config.get("projection_args", {}))
+        proj_conf.setdefault("embed_dim", model_args.get("embed_dim", 192))
+        proj_conf["num_class"] = num_class
+        projection = get_projection(proj_conf)
+    return SpeakerNet(backbone, frontend, projection)
+
+
+def speaker_state_dict(net: SpeakerNet) -> Dict[str, torch.Tensor]:
+    """The net's state_dict in the port's names (see the module doc)."""
+    sd = dict(net.backbone.state_dict())
+    for prefix, sub in ((FRONTEND_PREFIX, net.frontend), (PROJECTION_PREFIX, net.projection)):
+        if sub is not None:
+            sd.update({prefix + k: v for k, v in sub.state_dict().items()})
+    return sd
 
 
 def load_speaker_state(
     net: SpeakerNet, state: Dict[str, torch.Tensor]
 ) -> Tuple[List[str], List[str]]:
     """Load a state_dict in the port's names (backbone keys unprefixed,
-    frontend keys under `frontend.`) where names match.  Returns (missing,
-    unexpected) keys in the same naming; BatchNorm's `num_batches_tracked`
-    is never reported missing."""
-    backbone_sd = {k: v for k, v in state.items() if not k.startswith(FRONTEND_PREFIX)}
-    frontend_sd = {
-        k[len(FRONTEND_PREFIX):]: v for k, v in state.items() if k.startswith(FRONTEND_PREFIX)
-    }
+    frontend keys under `frontend.`, projection keys under `projection.`)
+    where names match.  Returns (missing, unexpected) keys in the same
+    naming; BatchNorm's `num_batches_tracked` is never reported missing."""
+    prefixed = (FRONTEND_PREFIX, PROJECTION_PREFIX)
+    backbone_sd = {k: v for k, v in state.items() if not k.startswith(prefixed)}
     missing, unexpected = net.backbone.load_state_dict(backbone_sd, strict=False)
     missing, unexpected = list(missing), list(unexpected)
-    if net.frontend is not None:
-        fm, fu = net.frontend.load_state_dict(frontend_sd, strict=False)
-        missing += [FRONTEND_PREFIX + k for k in fm]
-        unexpected += [FRONTEND_PREFIX + k for k in fu]
-    else:
-        unexpected += [FRONTEND_PREFIX + k for k in frontend_sd]
+    for prefix, sub in ((FRONTEND_PREFIX, net.frontend), (PROJECTION_PREFIX, net.projection)):
+        sub_sd = {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
+        if sub is not None:
+            sm, su = sub.load_state_dict(sub_sd, strict=False)
+            missing += [prefix + k for k in sm]
+            unexpected += [prefix + k for k in su]
+        else:
+            unexpected += [prefix + k for k in sub_sd]
     missing = [k for k in missing if not k.endswith("num_batches_tracked")]
     return missing, unexpected

@@ -1,7 +1,8 @@
 """Feature pipeline: waveform batch -> CMN'd fbank features (eval).
 
 Counterpart of `wespeaker_hubert_tpu/ops/pipeline.py`.  Only the eval
-branch is ported; dither and SpecAug belong to the training path.
+branch is ported; the training branch (dithered fbank, then SpecAug) is
+queued.
 """
 
 from __future__ import annotations
@@ -41,7 +42,9 @@ def wav_to_features(
     Eval only: no dither, no SpecAug, whatever `cfg` says about them.
     """
     if train:
-        raise NotImplementedError("training slice")
+        raise NotImplementedError(
+            "the dithered-fbank training branch is not ported yet (ROADMAP.md queue 1a)"
+        )
     feats, feat_lengths = fbank(wav, cfg.fbank, lengths=lengths)
     feats = apply_cmvn(
         feats,

@@ -1,13 +1,16 @@
-"""Throughput accounting: a copy of `ThroughputMeter` from
+"""Throughput accounting and the metrics stream: copies of
+`ThroughputMeter` and `MetricsLogger` from
 `wespeaker_hubert_tpu/utils/observability.py`."""
 
 from __future__ import annotations
 
+import json
+import os
 import time
 from collections import deque
 from typing import Dict
 
-__all__ = ["ThroughputMeter"]
+__all__ = ["MetricsLogger", "ThroughputMeter"]
 
 
 class ThroughputMeter:
@@ -54,3 +57,23 @@ class ThroughputMeter:
             "wall_seconds": wall,
             "avg_audio_seconds_per_s": self._total_audio / max(wall, 1e-9),
         }
+
+
+class MetricsLogger:
+    """Append-only JSONL metrics stream."""
+
+    def __init__(self, path: str):
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        self._f = open(path, "a", buffering=1)
+
+    def log(self, step: int, **metrics):
+        rec = {"step": step, "time": time.time()}
+        for k, v in metrics.items():
+            try:
+                rec[k] = float(v)
+            except (TypeError, ValueError):
+                rec[k] = v
+        self._f.write(json.dumps(rec) + "\n")
+
+    def close(self):
+        self._f.close()
