@@ -11,8 +11,10 @@ bf16 path compared in float32, atol 2e-2 and cosine >= 0.9999 (the kernel
 rounds the unnormalized probabilities to bf16 before P V, the plain version
 the normalized ones).  K2's backward (dq, dk, dv, dbias) against its plain
 version: float32 atol 1e-4; bf16 cosine >= 0.9999 per gradient (the kernels
-round P and dS to bf16 as the A operand of their products).  Float32
-embeddings cosine >= 0.99999 against the CPU (TF32 off)."""
+round P and dS to bf16 as the A operand of their products).  WavLM's gated
+bias in factored form (an (h, T, T) table, a (B, h, T) gate) at the bars
+above, T in {75, 99, 131, 499, 1599}.  Float32 embeddings cosine >= 0.99999
+against the CPU (TF32 off)."""
 
 import json
 
@@ -146,6 +148,37 @@ def test_flash_kernel_matches_plain(cuda, dtype, t, bias_shape, with_len):
     assert float(cos) >= 0.9999
 
 
+GATED_T = [75, 99, 131, 499, 1599]
+
+
+def _gated(rng, b, t, h, dtype, device, padded=True):
+    """The (h, T, T) table (rows padded to 16 bytes, as the encoder builds
+    it) and a (B, h, T) gate in [1, 3)."""
+    tp = t + (-t % 8) if padded else t
+    table = torch.from_numpy(rng.standard_normal((h, t, tp)).astype(np.float32)).to(device, dtype)
+    gate = torch.from_numpy(rng.uniform(1.0, 3.0, (b, h, t)).astype(np.float32)).to(device, dtype)
+    return table[..., :t], gate
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("t", GATED_T)
+def test_flash_kernel_factored_bias_matches_plain(cuda, dtype, t):
+    """The gated bias formed in the kernel, random key lengths; no bias is
+    copied (the table is TMA-readable as it is)."""
+    b, h = 3, 4
+    q, k, v, rng = _attn_inputs(50 + t, b, t, h, dtype, cuda)
+    table, gate = _gated(rng, b, t, h, dtype, cuda)
+    key_len = torch.from_numpy(rng.integers(1, t + 1, b)).to(cuda)
+    launches, relayouts = k2.LAUNCHES, k2.BIAS_RELAYOUTS
+    got = k2.flash_attention(q, k, v, bias=table, key_len=key_len, bias_gate=gate)
+    torch.cuda.synchronize()
+    assert (k2.LAUNCHES, k2.BIAS_RELAYOUTS) == (launches + 1, relayouts)
+    want = k2.flash_attention_reference(q, k, v, table, key_len, bias_gate=gate)
+    torch.testing.assert_close(got.float(), want.float(), **K2_TOL[dtype])
+    assert _cos(got, want) >= 0.9999
+
+
 @pytest.mark.cuda
 def test_flash_kernel_strided_views(cuda):
     """q, k, v as views of one fused (B, T, 3, h, 64) projection: the kernel
@@ -172,6 +205,13 @@ def test_flash_kernel_rejects_bad_input(cuda):
     with pytest.raises(ValueError, match="aligned"):
         shifted = torch.empty(v.numel() + 1, device=cuda)[1:].view(v.shape)  # 4-byte offset
         k2.flash_attention(q, k, shifted)
+    # bf16 goes through TMA: a row stride that is not a multiple of 16 bytes
+    wide = torch.zeros(2, 16, 2, 68, device=cuda, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="aligned"):
+        k2.flash_attention(wide, k.bfloat16(), v.bfloat16())
+    shifted = torch.empty(v.numel() + 1, device=cuda, dtype=torch.bfloat16)[1:].view(v.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        k2.flash_attention(q.bfloat16(), k.bfloat16(), shifted)  # a 2-byte offset
     launches = k2.LAUNCHES
     k2.flash_attention(q, k, v, key_len=torch.tensor([16, 3], device=cuda))
     assert k2.LAUNCHES == launches + 1  # refusals never count
@@ -262,6 +302,51 @@ def test_flash_backward_matches_plain(cuda, dtype, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("t", GATED_T[:4])
+def test_flash_backward_factored_bias_matches_plain(cuda, dtype, t):
+    b, h = 3, 4
+    q, k, v, rng = _attn_inputs(70 + t, b, t, h, dtype, cuda)
+    table, gate = _gated(rng, b, t, h, dtype, cuda)
+    key_len = torch.from_numpy(rng.integers(1, t + 1, b)).to(cuda)
+    out, lse = k2.flash_attention_fwd(q, k, v, table, key_len, return_lse=True, bias_gate=gate)
+    dout = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32)).to(cuda, dtype)
+    got = k2.flash_attention_bwd(q, k, v, table, key_len, None, out, lse, dout, bias_gate=gate)
+    torch.cuda.synchronize()
+    want = k2.flash_attention_bwd_reference(q, k, v, table, key_len, None, out, lse, dout,
+                                            bias_gate=gate)
+    for name, g, w in zip(("dq", "dk", "dv", "ds"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=0.0, msg=name)
+        else:
+            assert _cos(g, w) >= 0.9999, (name, _cos(g, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_function_factored_grads_match_autograd(cuda, dtype):
+    """The table's and the gate's gradients from the kernels' dS against
+    autograd through the plain forward with the bias materialized."""
+    b, t, h = 2, 75, 4
+    q, k, v, rng = _attn_inputs(8, b, t, h, dtype, cuda)
+    table, gate = _gated(rng, b, t, h, dtype, cuda)
+    g = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32)).to(cuda, dtype)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v, table, gate)]
+    got = torch.autograd.grad(
+        k2.flash_attention(*leaves[:4], bias_gate=leaves[4]), leaves, g)
+    ref = [x.clone().requires_grad_() for x in (q, k, v, table, gate)]
+    want = torch.autograd.grad(
+        k2.flash_attention_reference(*ref[:3], ref[4][..., None] * ref[3][None]), ref, g)
+    for name, a, w in zip(("dq", "dk", "dv", "dtable", "dgate"), got, want):
+        assert a.shape == w.shape and a.dtype == w.dtype, name
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, w, atol=1e-4, rtol=1e-4, msg=name)
+        else:
+            assert _cos(a, w) >= 0.999, (name, _cos(a, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_flash_function_grads_match_autograd(cuda, dtype):
     """The autograd Function (kernels both ways) against autograd through the
     plain forward, with a broadcast bias summed back to its shape."""
@@ -342,8 +427,10 @@ def test_train_step_bf16_on_gpu(cuda):
     batch = {k: v.to(cuda) for k, v in batch.items()}
     before = {k: v.detach().clone() for k, v in net.named_parameters()}
     counts = (k2.LAUNCHES, k2.LAUNCHES_BWD_DKV, k2.LAUNCHES_BWD_DQ)
+    relayouts = k2.BIAS_RELAYOUTS
     metrics = step(state, batch)
     torch.cuda.synchronize()
+    assert k2.BIAS_RELAYOUTS == relayouts  # the gated bias went in factored, TMA-readable
     assert (k2.LAUNCHES, k2.LAUNCHES_BWD_DKV, k2.LAUNCHES_BWD_DQ) == tuple(
         n + cfg.num_hidden_layers for n in counts)
     assert np.isfinite(float(metrics["loss"])) and state.step == 1

@@ -130,6 +130,92 @@ def test_flash_plain_matches_jax_flash_kernel(case):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
 
 
+def _gated_inputs(seed, b=2, t=75, h=2):
+    """WavLM's factored bias: an (h, T, T) table and a (B, h, T, 1) gate in
+    [1, 3) (gate_a * (gate_b * const - 1) + 2 with sigmoid gates)."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((b, t, h, 64)).astype(np.float32) for _ in range(3))
+    table = rng.standard_normal((h, t, t)).astype(np.float32)
+    gate = rng.uniform(1.0, 3.0, (b, h, t, 1)).astype(np.float32)
+    return q, k, v, table, gate
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_plain_factored_bias_matches_jax_flash_kernel(dtype):
+    """The gated bias in factored form (table + gate) through the plain
+    forward against `_flash_mha(q, k, v, ab=gate_output * position_bias[None])`
+    (the Pallas TPU kernel in interpret mode).  The bf16 effective bias is
+    bit for bit JAX's bf16 product.  float32 with key lengths (JAX: a -1e9
+    padding added to ab): atol 1e-5; bf16 with full lengths: atol 2e-2 and
+    cosine >= 0.9999 (P is rounded to bf16 at other places)."""
+    q, k, v, table, gate = _gated_inputs(11)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "f32" else (jnp.bfloat16, torch.bfloat16)
+    jq, jk, jv, jtab, jgate = (jnp.asarray(x, jdt) for x in (q, k, v, table, gate))
+    ab = jgate * jtab[None]
+    key_len = np.array([75, 50], np.int32) if dtype == "f32" else None
+    if key_len is not None:
+        pad = np.where(np.arange(75)[None, :] < key_len[:, None], 0.0, -1e9).astype(np.float32)
+        ab = ab + jnp.asarray(pad)[:, None, None, :]
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(_flash_mha(jq, jk, jv, ab, 0.125).astype(jnp.float32))
+    tq, tk, tv, ttab, tgate = (torch.from_numpy(np.array(x.astype(jnp.float32))).to(tdt)
+                               for x in (jq, jk, jv, jtab, jgate))
+    eff = k2.effective_bias(ttab, tgate)
+    np.testing.assert_array_equal(eff.float().numpy(),
+                                  np.asarray((jgate * jtab[None]).astype(jnp.float32)))
+    got = k2.flash_attention(tq, tk, tv, bias=ttab, bias_gate=tgate[..., 0],
+                             key_len=None if key_len is None else torch.from_numpy(key_len),
+                             scale=0.125).float().numpy()
+    if dtype == "f32":
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        np.testing.assert_allclose(got, want, atol=2e-2, rtol=0.0)
+        assert cosines(got.reshape(1, -1), want.reshape(1, -1)).min() >= 0.9999
+
+
+def test_flash_tma_bias_layout():
+    """The bf16 kernels read the bias by TMA: a view with a unit key stride
+    and 16-byte strides passes as it is; a broadcast query axis or an odd
+    row stride becomes a padded copy of the same values."""
+    rng = np.random.default_rng(12)
+    table = torch.from_numpy(rng.standard_normal((2, 75, 80)).astype(np.float32)).bfloat16()
+    view = table[..., :75].expand(3, 2, 75, 75)
+    before = k2.BIAS_RELAYOUTS
+    assert k2._tma_bias(view) is view and k2.BIAS_RELAYOUTS == before
+    for bias in (torch.from_numpy(rng.standard_normal((3, 1, 1, 75)).astype(np.float32)).bfloat16(),
+                 table[..., :75].contiguous()):
+        full = bias.expand(3, 2, 75, 75)
+        laid = k2._tma_bias(full)
+        assert laid.stride(3) == 1 and laid.stride(2) % 8 == 0 and laid.data_ptr() % 16 == 0
+        assert torch.equal(laid, full)
+    assert k2.BIAS_RELAYOUTS == before + 2
+    q, kk, v, _, gate = (torch.from_numpy(x) for x in _gated_inputs(13, t=20))
+    tab = torch.zeros(2, 20, 20)
+    with pytest.raises(ValueError, match="bias_gate"):
+        k2.kernel_strides(q, kk, v, tab, bias_gate=gate[:, :1])
+    with pytest.raises(ValueError, match="table"):
+        k2.kernel_strides(q, kk, v, None, bias_gate=gate)
+    with pytest.raises(TypeError, match="bias_gate"):
+        k2.kernel_strides(q, kk, v, tab, bias_gate=gate.double())
+    assert k2.key_tile(75) == 80 and k2.key_tile(81) == 64 and k2.key_tile(499) == 64
+
+
+def test_wavlm_flash_passes_the_table_padded():
+    """Layer 0 builds the (h, T, T) table once with rows padded to 16 bytes
+    (TMA's stride rule) and hands the same table to every layer."""
+    import dataclasses
+
+    cfg = dataclasses.replace(SSLEncoderConfig.tiny("wavlm"), attn_impl="flash")
+    enc = SSLEncoder(cfg).eval()
+    seen = []
+    for layer in enc.encoder.layers:
+        layer.attention.register_forward_hook(lambda m, a, out: seen.append(out[1]))
+    with torch.no_grad():
+        enc(torch.from_numpy(np.random.default_rng(0).standard_normal((1, 4000)).astype(np.float32)))
+    t = seen[0].shape[-1]
+    assert all(x is seen[0] for x in seen) and seen[0].stride() == (t * (t + (-t % 8)), t + (-t % 8), 1)
+
+
 def test_flash_plain_broadcast_bias_and_empty_rows():
     """A (B, 1, 1, T) bias broadcasts like the materialized one; a row with
     no valid key gives 0."""

@@ -133,6 +133,30 @@ def test_flash_function_matches_autograd(case):
             assert float(cos) >= 0.999, (name, float(cos))
 
 
+@pytest.mark.parametrize("with_len", [False, True], ids=["full", "key_len"])
+def test_flash_function_factored_bias_grads(with_len):
+    """WavLM's gated bias in factored form: the Function's plain backward
+    returns the (h, T, T) table's and the (B, h, T, 1) gate's gradients
+    from dS; against autograd through the plain forward with the bias
+    materialized as gate * table (float32, atol 1e-5)."""
+    rng = np.random.default_rng(21)
+    b, t, h = 2, 37, 3
+    q, k, v, g = (T(rng.standard_normal((b, t, h, 64)).astype(np.float32)) for _ in range(4))
+    table = T(rng.standard_normal((h, t, t)).astype(np.float32))
+    gate = T(rng.uniform(1.0, 3.0, (b, h, t, 1)).astype(np.float32))
+    key_len = torch.tensor([t, 20]) if with_len else None
+    leaves = [x.clone().requires_grad_() for x in (q, k, v, table, gate)]
+    out = k2.flash_attention(*leaves[:4], key_len=key_len, bias_gate=leaves[4])
+    got = torch.autograd.grad(out, leaves, g)
+    ref = [x.clone().requires_grad_() for x in (q, k, v, table, gate)]
+    want_out = k2.flash_attention_reference(*ref[:3], ref[4] * ref[3][None], key_len)
+    want = torch.autograd.grad(want_out, ref, g)
+    torch.testing.assert_close(out, want_out, atol=1e-5, rtol=1e-5)
+    for name, a, w in zip(("dq", "dk", "dv", "dtable", "dgate"), got, want):
+        assert a.shape == w.shape and a.dtype == w.dtype, name
+        torch.testing.assert_close(a, w, atol=1e-5, rtol=1e-5, msg=name)
+
+
 # ------------------------------------------------------------ augmentation
 def test_augment_matches_jax():
     rng = np.random.default_rng(1)

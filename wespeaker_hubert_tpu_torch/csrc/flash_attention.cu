@@ -1,7 +1,12 @@
 // Flash-attention forward for Hopper (sm_90a), head dim 64:
 //     out = softmax(q k^T * scale + bias, keys >= key_len masked) v
 // per (batch, head), with q, k, v and out in the JAX layout (B, T, h, 64),
-// read and written through their strides (no transposes).
+// read and written through their strides (no transposes).  The bias is
+// either anything that broadcasts to (B, h, T, T), or WavLM's gated position
+// bias in factored form: a (h, T, T) table and a (B, h, T) gate, the
+// effective bias round_to_bias_dtype(gate[b, h, query] * table[h, query, key]),
+// formed in the kernel (the product of two bf16 values is exact in float32,
+// so this is the bias the encoder would have materialized).
 //
 // Replaces the TPU kernel that wespeaker_hubert_tpu/frontend/ssl_encoder.py
 // :_flash_mha reaches: the upstream Pallas kernel
@@ -9,56 +14,273 @@
 // _flash_attention_impl).  There, padded keys are masked by an additive
 // -1e9 in `ab` or by SegmentIds and T is padded to a multiple of 128; here a
 // per-row key length masks them (the same softmax: exp(-1e9 - max) is 0 in
-// float32) and the last tile is masked in place, so nothing is padded.
+// float32) and key tiles at or past it are skipped.
 //
 // What bounds it.  WavLM-Large at 16 x 10 s (B = 16, T = 499, h = 16, bf16)
 // does 4 B h T^2 64 = 16.3 GFLOP per launch, 0.0165 ms at 989 TFLOP/s of
-// dense bf16, and moves q, k, v and out (65.4 MB) plus the materialized
-// (B, h, T, T) gated position bias (127.5 MB): 0.0576 ms at 3.35 TB/s.  So
-// as it is called it is bound by bytes, and by the bias above all; forming
-// the gated bias in the kernel from the (h, T, T) table and a (B, h, T) gate
-// would cut the bytes to about 73 MB (0.022 ms).  In float32 the products run
-// in FP32 FMA (no TF32: the JAX flash path does not round to TF32), 0.24 ms at
-// 67 TFLOP/s, bound by operations.
+// dense bf16, and must move q, k, v and out (65.4 MB), the (h, T, T) table
+// (8.0 MB) and the gate (0.26 MB): 0.022 ms at 3.35 TB/s, a byte bound.  The
+// materialized (B, h, T, T) gated bias it replaces was 127.5 MB more.
 //
-// What this design does.  One block per (64-query tile, head, batch row).
-// The block stages the tile's queries, then walks the key tiles below the
-// row's key length: each tile of keys and values is staged in shared memory,
-// the scores and the running max and sum of the online softmax stay in
-// registers in float32, and only the output is written (with, when training,
-// each row's log-sum-exp for csrc/flash_attention_bwd.cu).  The bias is read
-// once per valid (query, key) pair, with arbitrary (broadcast) strides.
-//   bf16: 4 warps, 16 query rows each; Q K^T and P V run on the tensor cores
-//         as mma.sync m16n8k16 (bf16 in, float32 accumulators).  The scores'
-//         accumulator layout is the A-operand layout of P V, so P goes from
-//         registers to the tensor cores without shared memory.
-//   f32:  one thread per query row (q row and output row in registers), 32
-//         keys per tile read as shared-memory broadcasts, FP32 FMA.
-// TMA, wgmma, a pipelined K/V ring and the in-kernel gated bias are later
-// work; this is the simple form, held against its plain PyTorch version
-// (ops/flash_attention.py:flash_attention_reference).
+// bf16 design (flash_fwd_bf16_sm90).  One block per (64-query tile, head,
+// batch row): one consumer warpgroup owns the 64 query rows, one producer
+// warp keeps a 2-stage ring of K, V and bias tiles in flight.
+//   - Q, K, V come in by TMA through rank-4 tensor maps of the (B, T, h, 64)
+//     tensors (128B swizzle; rows past T arrive as zeros), the bias tile
+//     (64 queries x BN keys of the table, or of a broadcast bias) by TMA too:
+//     the table is read by every batch row and all 24 layers, so it stays in
+//     L2.  Each stage completes on an mbarrier; the consumers release it on
+//     another.
+//   - S = Q K^T runs as wgmma m64nBNk16 from shared memory; the bias tile
+//     is read from shared memory while it runs, gated by the row's gate (one
+//     register per row) and rounded to bf16.  P stays in registers: the
+//     accumulator layout is wgmma's A-register layout, so O += P V runs as
+//     wgmma with P from registers and V as the transposed (MN-major) B.
+//   - The online softmax is float32 in registers (log2 domain); the output
+//     goes out through shared memory by a TMA store, which clips rows past T;
+//     the row log-sum-exp (for csrc/flash_attention_bwd.cu) by plain stores.
+//   - The key tile width BN is a compile-time choice; the wrapper picks it
+//     per T (ops/flash_attention.py:key_tile) and passes it as `tile`: 80
+//     when all keys fit one tile (T <= 80, the training shape T = 75), else
+//     64 (128-byte bias rows, swizzled like the other tiles).
+// f32 design (flash_fwd_f32, the checking path): one thread per query row
+// (q row and output row in registers), 32 keys per tile read as
+// shared-memory broadcasts, FP32 FMA (no TF32: the JAX flash path does not
+// round to TF32); bias and gate read through their strides.
 
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "flash_sm90.cuh"
+
 namespace {
 
-constexpr int HD = 64;       // head dim, the kernel's only one
-constexpr int BM = 64;       // query rows per block
-constexpr int BN = 64;       // keys per shared-memory tile, bf16
-constexpr int BN_F32 = 32;   // keys per shared-memory tile, f32
-constexpr int LDS = HD + 8;  // bf16 row stride in shared memory (144 B): the
-                             // 8 rows a fragment load touches fall on
-                             // distinct banks
-constexpr float LOG2E = 1.4426950408889634f;
+using namespace sm90;
 
+constexpr int HD = 64;       // head dim, the kernels' only one
+constexpr int BM = 64;       // query rows per block
+constexpr int BN_F32 = 32;   // keys per shared-memory tile, f32
+
+// ------------------------------------------------------------------- bf16
+struct FwdParams {
+  CUtensorMap tq, tk, tv, to, tbias;
+  const __nv_bfloat16* gate;  // null: the bias is used as it is
+  long long gate_sb, gate_sh, gate_st;
+  const int* key_len;         // null: every key is valid
+  float* lse;                 // null: not written; else (B, h, T)
+  int T, H;
+  int has_bias, bias_bcast_b, bias_bcast_h;
+  float scale;
+};
+
+template <int BN>
+struct FwdTile {
+  static constexpr int STAGES = 2;
+  static constexpr int Q_BYTES = BM * 128;
+  static constexpr int KV_BYTES = BN * 128;
+  static constexpr int BIAS_BYTES = BM * BN * 2;  // a multiple of 1024
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES + BIAS_BYTES;
+  static constexpr int SMEM = 1024 + Q_BYTES + STAGES * STAGE_BYTES;
+  static constexpr int NACC = BN / 2;  // S accumulator registers per thread
+};
+
+// byte offset of bias element (query row r, key col) in a stage's tile
+template <int BN>
+__device__ __forceinline__ uint32_t bias_off(int r, int col) {
+  if constexpr (BN == 64) return swz128(r, col);
+  else return r * (BN * 2) + col * 2;
+}
+
+template <int BN>
+__global__ void __launch_bounds__(160) flash_fwd_bf16_sm90(const __grid_constant__ FwdParams p) {
+  using C = FwdTile<BN>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[C::STAGES], empty_bar[C::STAGES], q_bar;
+  uint8_t* const sq = align1024(smem_raw);
+  uint8_t* const ring = sq + C::Q_BYTES;
+
+  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  const int T = p.T;
+  const int kv_len = p.key_len == nullptr ? T : min(max(p.key_len[b], 0), T);
+  const int n_tiles = (kv_len + BN - 1) / BN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&q_bar, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full_bar[s], 1);
+      mbar_init(&empty_bar[s], 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // the producer warp; one lane issues the copies
+    if (threadIdx.x == 128) {
+      prefetch_map(&p.tq);
+      prefetch_map(&p.tk);
+      prefetch_map(&p.tv);
+      if (p.has_bias) prefetch_map(&p.tbias);
+      mbar_arrive_expect_tx(&q_bar, C::Q_BYTES);
+      tma_load_4d(sq, &p.tq, &q_bar, 0, h, q0, b);
+      const int bb = p.bias_bcast_b ? 0 : b, bh = p.bias_bcast_h ? 0 : h;
+      const uint32_t bytes = 2 * C::KV_BYTES + (p.has_bias ? C::BIAS_BYTES : 0);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % C::STAGES;
+        uint8_t* st = ring + s * C::STAGE_BYTES;
+        mbar_wait(&empty_bar[s], ((i / C::STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full_bar[s], bytes);
+        tma_load_4d(st, &p.tk, &full_bar[s], 0, h, i * BN, b);
+        tma_load_4d(st + C::KV_BYTES, &p.tv, &full_bar[s], 0, h, i * BN, b);
+        if (p.has_bias)
+          tma_load_4d(st + 2 * C::KV_BYTES, &p.tbias, &full_bar[s], i * BN, q0, bh, bb);
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroup: rows r0 and r0 + 8 of the tile per thread
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  const int r0 = warp * 16 + g;
+  float gate[2] = {1.f, 1.f};
+  if (p.gate != nullptr) {
+    const __nv_bfloat16* gp = p.gate + b * p.gate_sb + h * p.gate_sh;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      gate[i] = __bfloat162float(gp[min(q0 + r0 + 8 * i, T - 1) * p.gate_st]);
+  }
+  const bool gated_bias = p.gate != nullptr;
+
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l[2] = {0.f, 0.f};
+  const float scale2 = p.scale * LOG2E;  // scores in the log2 domain
+  const uint64_t qdesc = desc_k(sq);
+
+  mbar_wait(&q_bar, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % C::STAGES;
+    const uint8_t* st = ring + s * C::STAGE_BYTES;
+    mbar_wait(&full_bar[s], (i / C::STAGES) & 1);
+
+    // S = Q K^T (64 x BN), four k16 steps over the head dim
+    float sacc[C::NACC];
+#pragma unroll
+    for (int j = 0; j < C::NACC; ++j) sacc[j] = 0.f;
+    const uint64_t kdesc = desc_k(st);
+    fence_regs(sacc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) wgmma_ss<BN>(sacc, qdesc + ks * K_STEP, kdesc + ks * K_STEP, ks);
+    wgmma_commit();
+    // the bias of this thread's pairs, read while the product runs
+    uint32_t bv[BN / 8][2];
+    if (p.has_bias) {
+      const uint8_t* sb = st + 2 * C::KV_BYTES;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii)
+          bv[j][ii] = *reinterpret_cast<const uint32_t*>(sb + bias_off<BN>(r0 + 8 * ii, 8 * j + c2));
+    }
+    wgmma_wait0();
+    fence_regs(sacc);
+
+    // scale, bias and key mask; the tile's row max
+    const int k0 = i * BN;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ii = e >> 1;
+        const int key = k0 + 8 * j + c2 + (e & 1);
+        float x = -CUDART_INF_F;
+        if (key < kv_len) {
+          x = sacc[4 * j + e] * scale2;
+          if (p.has_bias) {
+            const __nv_bfloat162 pair = *reinterpret_cast<const __nv_bfloat162*>(&bv[j][ii]);
+            float bias = __bfloat162float((e & 1) ? pair.y : pair.x);
+            if (gated_bias) bias = gated(gate[ii], bias);
+            x = fmaf(bias, LOG2E, x);
+          }
+        }
+        sacc[4 * j + e] = x;
+        mx[ii] = fmaxf(mx[ii], x);
+      }
+    }
+    // a row's columns are spread over the 4 lanes of its quad; key k0 is
+    // valid, so the max is finite
+#pragma unroll
+    for (int ii = 0; ii < 2; ++ii) {
+      mx[ii] = fmaxf(mx[ii], __shfl_xor_sync(0xffffffffu, mx[ii], 1));
+      mx[ii] = fmaxf(mx[ii], __shfl_xor_sync(0xffffffffu, mx[ii], 2));
+      const float alpha = exp2f(m[ii] - mx[ii]);  // 0 on the first tile
+      m[ii] = mx[ii];
+      l[ii] *= alpha;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        o[4 * j + 2 * ii] *= alpha;
+        o[4 * j + 2 * ii + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < C::NACC; ++j) {
+      sacc[j] = exp2f(sacc[j] - m[(j >> 1) & 1]);
+      l[(j >> 1) & 1] += sacc[j];  // this lane's part of the row sum
+    }
+
+    // O += P V: P from registers, V (BN keys x 64) as the MN-major B
+    uint32_t pa[BN / 16][4];
+#pragma unroll
+    for (int ks = 0; ks < BN / 16; ++ks) acc_to_a(pa[ks], sacc, ks);
+    const uint64_t vdesc = desc_mn(st + C::KV_BYTES);
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < BN / 16; ++ks) wgmma_rs_t64(o, pa[ks], vdesc + ks * MN_STEP);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(o);
+    fence_regs(pa);
+    mbar_arrive(&empty_bar[s]);
+  }
+
+  // the output tile through shared memory (Q's, no longer read) and a TMA store
+#pragma unroll
+  for (int ii = 0; ii < 2; ++ii) {
+    l[ii] += __shfl_xor_sync(0xffffffffu, l[ii], 1);
+    l[ii] += __shfl_xor_sync(0xffffffffu, l[ii], 2);
+    const float inv = l[ii] > 0.f ? 1.f / l[ii] : 0.f;  // no valid key: 0
+    const int r = r0 + 8 * ii, t = q0 + r;
+    // m is in the log2 domain; one lane of the quad writes the row's value
+    if (p.lse != nullptr && (lane & 3) == 0 && t < T)
+      p.lse[((long long)b * p.H + h) * T + t] =
+          l[ii] > 0.f ? (m[ii] + log2f(l[ii])) / LOG2E : -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(sq + swz128(r, 8 * j + c2)) =
+          __floats2bfloat162_rn(o[4 * j + 2 * ii] * inv, o[4 * j + 2 * ii + 1] * inv);
+  }
+  fence_proxy_async();
+  named_barrier(1, 128);
+  if (tid == 0) {
+    tma_store_4d(&p.to, sq, 0, h, q0, b);
+    tma_store_commit_and_wait();
+  }
+}
+
+// -------------------------------------------------------------------- f32
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   const void* bias;     // null: no bias
+  const void* gate;     // null: the bias is used as it is
   const int* key_len;   // null: every key is valid
   void* out;
   float* lse;           // null: not written; else (B, h, T) row log-sum-exp
@@ -69,204 +291,10 @@ struct Params {
   long long o_sb, o_st, o_sh;
   // element strides of the bias over (B, h, query, key); 0 broadcasts
   long long bias_sb, bias_sh, bias_sq, bias_sk;
+  long long gate_sb, gate_sh, gate_st;
   int T;
   float scale;
 };
-
-// the natural-log log-sum-exp of a row for the backward (ops/flash_attention
-// .py:flash_attention_bwd); -inf for a row with no valid key
-__device__ __forceinline__ void store_lse(const Params& p, int b, int h, int t, float lse) {
-  if (p.lse != nullptr && t < p.T) p.lse[((long long)b * gridDim.y + h) * p.T + t] = lse;
-}
-
-__device__ __forceinline__ int valid_keys(const Params& p, int b) {
-  if (p.key_len == nullptr) return p.T;
-  return min(max(p.key_len[b], 0), p.T);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* ptr) {
-  return *reinterpret_cast<const uint32_t*>(ptr);
-}
-
-// two bf16 in one register, `lo` in the low half (the lower column index)
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v = __halves2bfloat162(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a (16 x 16, row major) * b (16 x 8, column major); bf16 in, f32 out.
-// Lane l holds, with g = l / 4 and c = 2 * (l % 4):
-//   a: {A[g][c..c+1], A[g+8][c..c+1], A[g][c+8..c+9], A[g+8][c+8..c+9]}
-//   b: {B[c..c+1][g], B[c+8..c+9][g]}
-//   d: {D[g][c], D[g][c+1], D[g+8][c], D[g+8][c+1]}
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__global__ void __launch_bounds__(128) flash_fwd_bf16(const Params p) {
-  __shared__ __align__(16) __nv_bfloat16 sq[BM * LDS];
-  __shared__ __align__(16) __nv_bfloat16 sk[BN * LDS];
-  __shared__ __align__(16) __nv_bfloat16 sv[BN * LDS];
-
-  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, c2 = (lane & 3) * 2;
-  const int T = p.T;
-  const int kv_len = valid_keys(p, b);
-  const __nv_bfloat16* q =
-      static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* k =
-      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* v =
-      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const __nv_bfloat16* bias = static_cast<const __nv_bfloat16*>(p.bias);
-  if (bias != nullptr) bias += b * p.bias_sb + h * p.bias_sh;
-
-  // the query tile, 16 bytes per load; rows past T are zero
-  for (int c = tid; c < BM * HD / 8; c += blockDim.x) {
-    const int r = c >> 3, col = (c & 7) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < T) val = *reinterpret_cast<const uint4*>(q + (q0 + r) * p.q_st + col);
-    *reinterpret_cast<uint4*>(sq + r * LDS + col) = val;
-  }
-  __syncthreads();
-
-  // this thread's rows of the tile: r0 and r0 + 8
-  const int r0 = warp * 16 + g;
-  uint32_t qa[4][4];  // A fragments of the 4 k-steps over the head dim
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    const __nv_bfloat16* base = sq + r0 * LDS + ks * 16 + c2;
-    qa[ks][0] = ld_u32(base);
-    qa[ks][1] = ld_u32(base + 8 * LDS);
-    qa[ks][2] = ld_u32(base + 8);
-    qa[ks][3] = ld_u32(base + 8 * LDS + 8);
-  }
-  // bias rows (a tail row past T reads row T - 1; it is never stored)
-  const long long brow[2] = {min(q0 + r0, T - 1) * p.bias_sq,
-                             min(q0 + r0 + 8, T - 1) * p.bias_sq};
-
-  float o[8][4];
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
-  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
-  float l[2] = {0.f, 0.f};
-  const float scale2 = p.scale * LOG2E;  // scores in the log2 domain
-
-  for (int k0 = 0; k0 < kv_len; k0 += BN) {
-    __syncthreads();  // every warp is done with the previous tile
-    for (int c = tid; c < BN * HD / 8; c += blockDim.x) {
-      const int r = c >> 3, col = (c & 7) * 8;
-      uint4 kk = make_uint4(0u, 0u, 0u, 0u), vv = kk;
-      if (k0 + r < T) {
-        kk = *reinterpret_cast<const uint4*>(k + (k0 + r) * p.k_st + col);
-        vv = *reinterpret_cast<const uint4*>(v + (k0 + r) * p.v_st + col);
-      }
-      *reinterpret_cast<uint4*>(sk + r * LDS + col) = kk;
-      *reinterpret_cast<uint4*>(sv + r * LDS + col) = vv;
-    }
-    __syncthreads();
-
-    // S = Q K^T for 16 rows x 64 keys: 8 tiles of 8 keys
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        const __nv_bfloat16* kp = sk + (nt * 8 + g) * LDS + ks * 16 + c2;
-        mma_16816(s[nt], qa[ks], ld_u32(kp), ld_u32(kp + 8));
-      }
-    }
-
-    // scale, bias and key mask; the tile's row max
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const int key = k0 + nt * 8 + c2 + (e & 1);
-        float x = -CUDART_INF_F;
-        if (key < kv_len) {
-          x = s[nt][e] * scale2;
-          if (bias != nullptr)
-            x = fmaf(__bfloat162float(bias[brow[i] + key * p.bias_sk]), LOG2E, x);
-        }
-        s[nt][e] = x;
-        mx[i] = fmaxf(mx[i], x);
-      }
-    }
-    // a row's 64 columns are spread over the 4 lanes of its quad; key k0 is
-    // valid, so the max is finite
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float alpha = exp2f(m[i] - mx[i]);  // 0 on the first tile
-      m[i] = mx[i];
-      l[i] *= alpha;
-#pragma unroll
-      for (int dt = 0; dt < 8; ++dt) {
-        o[dt][2 * i] *= alpha;
-        o[dt][2 * i + 1] *= alpha;
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = exp2f(s[nt][e] - m[e >> 1]);
-        l[e >> 1] += s[nt][e];  // this lane's part of the row sum
-      }
-    }
-
-    // O += P V: the score tiles 2 ks and 2 ks + 1 are the A fragment of keys
-    // 16 ks .. 16 ks + 15
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      const uint32_t pa[4] = {
-          pack_f32(s[2 * ks][0], s[2 * ks][1]), pack_f32(s[2 * ks][2], s[2 * ks][3]),
-          pack_f32(s[2 * ks + 1][0], s[2 * ks + 1][1]),
-          pack_f32(s[2 * ks + 1][2], s[2 * ks + 1][3])};
-#pragma unroll
-      for (int dt = 0; dt < 8; ++dt) {
-        const __nv_bfloat16* vp = sv + (ks * 16 + c2) * LDS + dt * 8 + g;
-        mma_16816(o[dt], pa, pack_bf16(vp[0], vp[LDS]),
-                  pack_bf16(vp[8 * LDS], vp[9 * LDS]));
-      }
-    }
-  }
-
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) + b * p.o_sb + h * p.o_sh;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;  // no valid key: 0
-    const int t = q0 + r0 + 8 * i;
-    // m is in the log2 domain; one lane of the quad writes the row's value
-    if ((lane & 3) == 0)
-      store_lse(p, b, h, t, l[i] > 0.f ? (m[i] + log2f(l[i])) / LOG2E : -CUDART_INF_F);
-    if (t < T) {
-#pragma unroll
-      for (int dt = 0; dt < 8; ++dt) {
-        *reinterpret_cast<__nv_bfloat162*>(out + t * p.o_st + dt * 8 + c2) =
-            __floats2bfloat162_rn(o[dt][2 * i] * inv, o[dt][2 * i + 1] * inv);
-      }
-    }
-  }
-}
 
 __global__ void __launch_bounds__(BM) flash_fwd_f32(const Params p) {
   __shared__ __align__(16) float sk[BN_F32 * HD];
@@ -276,12 +304,14 @@ __global__ void __launch_bounds__(BM) flash_fwd_f32(const Params p) {
   const int tid = threadIdx.x;
   const int t = q0 + tid;
   const int T = p.T;
-  const int kv_len = valid_keys(p, b);
+  const int kv_len = p.key_len == nullptr ? T : min(max(p.key_len[b], 0), T);
   const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
   const float* bias = static_cast<const float*>(p.bias);
   if (bias != nullptr) bias += b * p.bias_sb + h * p.bias_sh + min(t, T - 1) * p.bias_sq;
+  const float gate = p.gate == nullptr ? 1.f
+      : static_cast<const float*>(p.gate)[b * p.gate_sb + h * p.gate_sh + min(t, T - 1) * p.gate_st];
 
   float qr[HD], o[HD];
 #pragma unroll
@@ -327,7 +357,7 @@ __global__ void __launch_bounds__(BM) flash_fwd_f32(const Params p) {
       float x = -CUDART_INF_F;
       if (key < kv_len) {
         x = acc * p.scale;
-        if (bias != nullptr) x += bias[key * p.bias_sk];
+        if (bias != nullptr) x += gate * bias[key * p.bias_sk];
       }
       s[j] = x;
       mx = fmaxf(mx, x);  // key k0 is valid: finite
@@ -352,7 +382,8 @@ __global__ void __launch_bounds__(BM) flash_fwd_f32(const Params p) {
     }
   }
 
-  store_lse(p, b, h, t, l > 0.f ? m + logf(l) : -CUDART_INF_F);
+  if (p.lse != nullptr && t < T)
+    p.lse[((long long)b * gridDim.y + h) * T + t] = l > 0.f ? m + logf(l) : -CUDART_INF_F;
   if (t < T) {
     const float inv = l > 0.f ? 1.f / l : 0.f;  // no valid key: 0
     float* out = static_cast<float*>(p.out) + b * p.o_sb + h * p.o_sh + t * p.o_st;
@@ -364,27 +395,78 @@ __global__ void __launch_bounds__(BM) flash_fwd_f32(const Params p) {
   }
 }
 
+template <int BN>
+int launch_bf16(FwdParams& p, const void* q, const void* k, const void* v, const void* bias,
+                void* out, int B, int T, int H, const long long* s, cudaStream_t stream) {
+  int rc = sm90_host::encode_rows(&p.tq, q, B, T, H, s + 0, BM);
+  if (rc == 0) rc = sm90_host::encode_rows(&p.tk, k, B, T, H, s + 3, BN);
+  if (rc == 0) rc = sm90_host::encode_rows(&p.tv, v, B, T, H, s + 6, BN);
+  if (rc == 0) rc = sm90_host::encode_rows(&p.to, out, B, T, H, s + 9, BM);
+  if (rc == 0 && bias != nullptr) rc = sm90_host::encode_bias(&p.tbias, bias, B, T, H, s + 12, BM, BN);
+  if (rc != 0) return rc;
+  using C = FwdTile<BN>;
+  static bool smem_set[sm90_host::MAX_DEVICES] = {};  // per device
+  const int dev = sm90_host::current_device();
+  if (dev < 0) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!smem_set[dev]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_bf16_sm90<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set[dev] = true;
+  }
+  const dim3 grid((T + BM - 1) / BM, H, B);
+  flash_fwd_bf16_sm90<BN><<<grid, 160, C::SMEM, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype 0: float32, 1: bfloat16 (q, k, v, bias and out alike).  q, k, v, out
-// (B, T, H, 64) with a contiguous head dim; `strides` (host memory) holds
-// the element strides q_sb, q_st, q_sh, k_*, v_*, out_*, then the bias's
-// (b, h, query, key) strides.  bias and key_len (B int32) may be null; so
-// may lse, a contiguous (B, H, T) float32 output of each row's log-sum-exp
-// (natural log) for the backward.  Launches on `stream` and returns
-// cudaGetLastError().
+// dtype 0: float32, 1: bfloat16 (q, k, v, bias, gate and out alike).  q, k,
+// v, out (B, T, H, 64) with a contiguous head dim; `strides` (host memory)
+// holds the element strides q_sb, q_st, q_sh, k_*, v_*, out_*, then the
+// bias's (b, h, query, key) strides (0 broadcasts), then the gate's (b, h,
+// query).  bias, gate and key_len (B int32) may be null; with a gate the
+// effective bias is round(gate * bias).  lse may be null, or a contiguous
+// (B, H, T) float32 output of each row's log-sum-exp (natural log) for the
+// backward.  bf16 needs what TMA takes: 16-byte aligned bases, strides of
+// multiples of 8 elements, the bias's key stride 1 and its b and h strides
+// 0 or multiples of 8.  `tile` is the bf16 kernel's key-tile width, 64 or 80
+// (ops/flash_attention.py:key_tile picks it per T); float32 ignores it.
+// Launches on `stream` and returns cudaGetLastError() or an encoding error
+// (flash_attention_error_string).
 int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
-                        const void* bias, const int* key_len, void* out, float* lse,
-                        int B, int T, int H, const long long* strides, float scale,
-                        void* stream) {
+                        const void* bias, const void* gate, const int* key_len, void* out,
+                        float* lse, int B, int T, int H, const long long* strides, float scale,
+                        int tile, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    FwdParams p;
+    p.gate = static_cast<const __nv_bfloat16*>(bias != nullptr ? gate : nullptr);
+    p.gate_sb = strides[16];
+    p.gate_sh = strides[17];
+    p.gate_st = strides[18];
+    p.key_len = key_len;
+    p.lse = lse;
+    p.T = T;
+    p.H = H;
+    p.has_bias = bias != nullptr;
+    p.bias_bcast_b = strides[12] == 0;
+    p.bias_bcast_h = strides[13] == 0;
+    p.scale = scale;
+    if (tile == 80) return launch_bf16<80>(p, q, k, v, bias, out, B, T, H, strides, s);
+    if (tile == 64) return launch_bf16<64>(p, q, k, v, bias, out, B, T, H, strides, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = q;
   p.k = k;
   p.v = v;
   p.bias = bias;
+  p.gate = bias != nullptr ? gate : nullptr;
   p.key_len = key_len;
   p.out = out;
   p.lse = lse;
@@ -404,21 +486,20 @@ int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
   p.bias_sh = strides[13];
   p.bias_sq = strides[14];
   p.bias_sk = strides[15];
+  p.gate_sb = strides[16];
+  p.gate_sh = strides[17];
+  p.gate_st = strides[18];
   p.T = T;
   p.scale = scale;
   const dim3 grid((T + BM - 1) / BM, H, B);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    flash_fwd_bf16<<<grid, 128, 0, s>>>(p);
-  } else if (dtype == 0) {
-    flash_fwd_f32<<<grid, BM, 0, s>>>(p);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  flash_fwd_f32<<<grid, BM, 0, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 const char* flash_attention_error_string(int code) {
+  if (code == sm90_host::ERR_NO_ENCODER)
+    return "the driver has no cuTensorMapEncodeTiled (TMA needs a Hopper driver)";
+  if (code == sm90_host::ERR_ENCODE) return "cuTensorMapEncodeTiled refused a tensor map";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -23,34 +23,56 @@
 // a row with no valid key (lse = -inf) gets 0 everywhere, as its forward
 // output is 0.  Key tiles at or past key_len are skipped (dBias is written 0).
 //
-// What bounds it.  WavLM-Large training (B = 64, T = 75, h = 16, bf16) must
-// read q, k, v, out, dO and write dq, dk, dv (8 x 9.83 MB) and read the
-// materialized gated bias and write its gradient (2 x 11.52 MB): 101.7 MB,
-// 0.0304 ms at 3.35 TB/s.  The work it needs is 10 T^2 64 per (b, h): 3.69
-// GFLOP, 0.0037 ms at 989 TFLOP/s of dense bf16.  So it is set by bytes, a
-// quarter of them the bias and its gradient.  At extraction's 16 x 10 s shape
-// (16, 499, 16, 64) the bound is 385.8 MB, 0.115 ms, two thirds of it bias.
-// What this design does about it: each input tile is read from device memory
-// once per block that needs it (q, dO once per key tile, k, v once per query
-// tile), the scores, P and dS never leave registers, and the bias is read and
-// its gradient written once per valid (query, key) pair.  It recomputes S and
-// dO v^T in both kernels (14 T^2 64 operations against the 10 needed), which
-// costs nothing at a byte bound.  TMA, wgmma, a pipelined tile ring and
-// coalesced dBias stores are later work; this is the simple form, held
-// against its plain PyTorch version
+// The bias is anything that broadcasts to (B, h, T, T) or, for WavLM, the
+// factored gated bias: a (h, T, T) table and a (B, h, T) gate, the effective
+// bias round(gate * table) formed in the kernels as in the forward; dbias is
+// then dS, the gradient of the effective bias, which the wrapper reduces to
+// the gate's and the table's gradients.
+//
+// What bounds it.  WavLM-Large training (B = 64, T = 75, h = 16, bf16) with
+// the factored bias: dK/dV must read q, k, v, dO (4 x 9.83 MB), lse and D
+// (2 x 0.31 MB), the table (0.18 MB) and the gate (0.15 MB) and write dk, dv
+// (2 x 9.83 MB): about 60 MB, 0.018 ms at 3.35 TB/s, against 4 T^2 64
+// operations per (b, h) (1.5 GFLOP, 0.0015 ms at 989 TFLOP/s): bytes.
+//
+// dK/dV, bf16 (flash_bwd_dkv_bf16_sm90).  Persistent blocks (as many as the
+// card holds at once) walk the work items, one 64-key tile of one (batch
+// row, head) each: a consumer warpgroup owns the item's 64 keys, a producer
+// warp runs ahead of it, K and V into a 2-slot ring (the next item's arrive
+// while this one computes) and query tiles into a 2-stage ring: Q, dO and
+// the bias block (BQ queries x 64 keys) by TMA, each row's lse, D and gate
+// loaded by the warp's 32 lanes into the same stage.  At the training shape
+// an item is one query tile, so a block per item would spend its life
+// waiting on its loads; the rings overlap them with the previous item.  S^T = K Q^T and
+// dP^T = V dO^T run as wgmma from shared memory (K, V the A operands); P^T and
+// dS^T stay in registers, are rounded to bf16 as the TPU kernel casts them to
+// dO's dtype, and feed dV += P^T dO and dK += dS^T Q as wgmma A operands from
+// registers, with dO and Q the transposed (MN-major) B.  The bias block is
+// read transposed from shared memory (128B-swizzled rows of 64 keys: the
+// four query rows a load touches fall on distinct banks).  dK and dV go out
+// by TMA stores through shared memory.  The query tile width BQ is a
+// compile-time choice made per T: 80 for T <= 80, so the training shape's 75
+// queries are one tile, else 64.  The key side is wgmma's M = 64: at T = 75 a
+// (b, h) takes two blocks, keys 0-63 and 64-74, so 53 of the 128 key rows
+// computed are empty (0.59 of M used); one 128-row block would compute the
+// same empty rows.
+// dQ + dBias, bf16 (flash_bwd_dq_bf16): 4 warps, 16 query rows each, the
+// products on mma.sync m16n8k16, tiles staged by 16-byte loads, dBias by
+// 2-byte stores; it reads the factored bias (gate x table, rounded) and is
+// otherwise the simple form, next in line for the same redesign.
+// f32 (the checking path): one thread per row of the block's tile, FP32 FMA
+// (no TF32); the thread's own q / dO (or k / v) row in padded shared memory,
+// the other side's tile read as shared-memory broadcasts.  Every version is
+// held against the plain PyTorch backward
 // (ops/flash_attention.py:flash_attention_bwd_reference).
-//   bf16: 4 warps, 16 rows of the block's tile each; all five products run
-//         on the tensor cores as mma.sync m16n8k16 (bf16 in, float32
-//         accumulators); P and dS are rounded to bf16 as the A operand of
-//         their products, as the TPU kernel casts them to dO's dtype.
-//   f32:  one thread per row of the block's tile, FP32 FMA (no TF32); the
-//         thread's own q / dO (or k / v) row in padded shared memory, the
-//         other side's tile read as shared-memory broadcasts.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "flash_sm90.cuh"
 
 namespace {
 
@@ -67,6 +89,7 @@ struct Params {
   const void* k;
   const void* v;
   const void* bias;     // null: no bias
+  const void* gate;     // null: the bias is used as it is
   const int* key_len;   // null: every key is valid
   const void* dout;
   const float* lse;     // (B, H, T), natural log
@@ -80,10 +103,20 @@ struct Params {
   long long v_sb, v_st, v_sh;
   long long o_sb, o_st, o_sh;  // of dout
   long long bias_sb, bias_sh, bias_sq, bias_sk;
+  long long gate_sb, gate_sh, gate_st;
   int T;
   int H;
   float scale;
 };
+
+// the gate of query row t of (b, h), 1 without a gate
+template <typename E>
+__device__ __forceinline__ float gate_of(const Params& p, int b, int h, int t) {
+  if (p.gate == nullptr) return 1.f;
+  const E x = static_cast<const E*>(p.gate)[b * p.gate_sb + h * p.gate_sh + t * p.gate_st];
+  if constexpr (sizeof(E) == 2) return __bfloat162float(x);
+  else return x;
+}
 
 __device__ __forceinline__ int valid_keys(const Params& p, int b) {
   if (p.key_len == nullptr) return p.T;
@@ -201,85 +234,6 @@ __device__ __forceinline__ void store_rows_bf16(const Params& p, void* dst, cons
   }
 }
 
-__global__ void __launch_bounds__(128) flash_bwd_dkv_bf16(const Params p) {
-  __shared__ __align__(16) __nv_bfloat16 sq[BM * LDS];   // K, then Q tiles
-  __shared__ __align__(16) __nv_bfloat16 sdo[BM * LDS];  // V, then dO tiles
-  __shared__ float slse[BM], sdelta[BM];
-
-  const int k0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, c2 = (lane & 3) * 2;
-  const int T = p.T;
-  const int kv_len = valid_keys(p, b);
-  const int r0 = warp * 16 + g;  // this thread's key rows: k0 + r0, k0 + r0 + 8
-
-  float dk[8][4], dv[8][4];
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[dt][e] = dv[dt][e] = 0.f;
-
-  if (k0 < kv_len) {  // else every key of the tile is masked: dK = dV = 0
-    const __nv_bfloat16* q =
-        static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const __nv_bfloat16* dout =
-        static_cast<const __nv_bfloat16*>(p.dout) + b * p.o_sb + h * p.o_sh;
-    const __nv_bfloat16* bias = static_cast<const __nv_bfloat16*>(p.bias);
-    if (bias != nullptr) bias += b * p.bias_sb + h * p.bias_sh;
-
-    // the tile's keys and values, kept as A fragments for the whole loop
-    stage_tile(sq, static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh,
-               p.k_st, k0, T);
-    stage_tile(sdo, static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh,
-               p.v_st, k0, T);
-    __syncthreads();
-    uint32_t ka[4][4], va[4][4];
-    row_fragments(ka, sq, r0, c2);
-    row_fragments(va, sdo, r0, c2);
-    const int key[2] = {k0 + r0, k0 + r0 + 8};
-    const float scale2 = p.scale * LOG2E;
-
-    for (int q0 = 0; q0 < T; q0 += BM) {
-      __syncthreads();  // every warp is done with the previous tiles
-      stage_tile(sq, q, p.q_st, q0, T);
-      stage_tile(sdo, dout, p.o_st, q0, T);
-      for (int r = tid; r < BM; r += blockDim.x) {
-        const bool in = q0 + r < T;
-        slse[r] = in ? p.lse[stat_row(p, b, h, q0 + r)] * LOG2E : -CUDART_INF_F;
-        sdelta[r] = in ? p.delta[stat_row(p, b, h, q0 + r)] : 0.f;
-      }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T: 16 keys x 64 queries per warp
-      float s[8][4], ds[8][4];
-      rows_times_tile_t(s, ka, sq, g, c2);
-      rows_times_tile_t(ds, va, sdo, g, c2);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1, col = nt * 8 + c2 + (e & 1);
-          const float lse2 = slse[col];  // -inf past T and for an empty row
-          float pr = 0.f;
-          if (key[i] < kv_len && lse2 != -CUDART_INF_F) {
-            float x = s[nt][e] * scale2;
-            if (bias != nullptr)
-              x = fmaf(__bfloat162float(bias[(q0 + col) * p.bias_sq + key[i] * p.bias_sk]),
-                       LOG2E, x);
-            pr = exp2f(x - lse2);
-          }
-          s[nt][e] = pr;                           // P^T
-          ds[nt][e] = pr * (ds[nt][e] - sdelta[col]);  // dS^T
-        }
-      }
-      acc_times_tile(dv, s, sdo, g, c2);   // dV += P^T dO
-      acc_times_tile(dk, ds, sq, g, c2);   // dK += dS^T Q
-    }
-  }
-  store_rows_bf16(p, p.dk, dk, b, h, k0 + r0, c2, p.scale);
-  store_rows_bf16(p, p.dv, dv, b, h, k0 + r0, c2, 1.f);
-}
-
 __global__ void __launch_bounds__(128) flash_bwd_dq_bf16(const Params p) {
   __shared__ __align__(16) __nv_bfloat16 sk[BM * LDS];  // Q, then K tiles
   __shared__ __align__(16) __nv_bfloat16 sv[BM * LDS];  // dO, then V tiles
@@ -308,7 +262,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_bf16(const Params p) {
   row_fragments(qa, sk, r0, c2);
   row_fragments(da, sv, r0, c2);
 
-  float lse2[2], delta[2];
+  float lse2[2], delta[2], gate[2];
   long long brow[2], drow[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -317,6 +271,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_bf16(const Params p) {
     delta[i] = in ? p.delta[stat_row(p, b, h, row[i])] : 0.f;
     brow[i] = min(row[i], T - 1) * p.bias_sq;
     drow[i] = stat_row(p, b, h, min(row[i], T - 1)) * T;
+    gate[i] = gate_of<__nv_bfloat16>(p, b, h, min(row[i], T - 1));
   }
   const float scale2 = p.scale * LOG2E;
 
@@ -355,8 +310,11 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_bf16(const Params p) {
         float pr = 0.f;
         if (key < kv_len && lse2[i] != -CUDART_INF_F) {
           float x = s[nt][e] * scale2;
-          if (bias != nullptr)
-            x = fmaf(__bfloat162float(bias[brow[i] + key * p.bias_sk]), LOG2E, x);
+          if (bias != nullptr) {
+            float bv = __bfloat162float(bias[brow[i] + key * p.bias_sk]);
+            if (p.gate != nullptr) bv = sm90::gated(gate[i], bv);
+            x = fmaf(bv, LOG2E, x);
+          }
           pr = exp2f(x - lse2[i]);
         }
         ds[nt][e] = pr * (ds[nt][e] - delta[i]);
@@ -375,7 +333,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_bf16(const Params p) {
 __global__ void __launch_bounds__(BM) flash_bwd_dkv_f32(const Params p) {
   __shared__ float sk[BM * LDF], sv[BM * LDF];
   __shared__ __align__(16) float sq[F32_TILE * HD], sdo[F32_TILE * HD];
-  __shared__ float slse[F32_TILE], sdelta[F32_TILE];
+  __shared__ float slse[F32_TILE], sdelta[F32_TILE], sgate[F32_TILE];
 
   const int k0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, key = k0 + tid;
@@ -424,6 +382,7 @@ __global__ void __launch_bounds__(BM) flash_bwd_dkv_f32(const Params p) {
         const bool in = q0 + r < T;
         slse[r] = in ? p.lse[stat_row(p, b, h, q0 + r)] : -CUDART_INF_F;
         sdelta[r] = in ? p.delta[stat_row(p, b, h, q0 + r)] : 0.f;
+        sgate[r] = in ? gate_of<float>(p, b, h, q0 + r) : 1.f;
       }
       __syncthreads();
       if (!valid) continue;  // a masked key: P = 0 for every query
@@ -439,7 +398,7 @@ __global__ void __launch_bounds__(BM) flash_bwd_dkv_f32(const Params p) {
           dp = fmaf(vr[d], oj[d], dp);
         }
         float x = s * p.scale;
-        if (bias != nullptr) x += bias[(q0 + j) * p.bias_sq];
+        if (bias != nullptr) x += sgate[j] * bias[(q0 + j) * p.bias_sq];
         const float pr = expf(x - lse);
         const float ds = pr * (dp - sdelta[j]);
 #pragma unroll
@@ -499,6 +458,7 @@ __global__ void __launch_bounds__(BM) flash_bwd_dq_f32(const Params p) {
   const bool in = t < T;
   const float lse = in ? p.lse[stat_row(p, b, h, t)] : -CUDART_INF_F;
   const float delta = in ? p.delta[stat_row(p, b, h, t)] : 0.f;
+  const float gate = gate_of<float>(p, b, h, min(t, T - 1));
   const bool live = lse != -CUDART_INF_F;
 
   float dq[HD];
@@ -537,7 +497,7 @@ __global__ void __launch_bounds__(BM) flash_bwd_dq_f32(const Params p) {
           dp = fmaf(dor[d], vj[d], dp);
         }
         float x = s * p.scale;
-        if (bias != nullptr) x += bias[key * p.bias_sk];
+        if (bias != nullptr) x += gate * bias[key * p.bias_sk];
         ds = expf(x - lse) * (dp - delta);
 #pragma unroll
         for (int d = 0; d < HD; ++d) dq[d] = fmaf(ds, kj[d], dq[d]);
@@ -554,8 +514,305 @@ __global__ void __launch_bounds__(BM) flash_bwd_dq_f32(const Params p) {
   }
 }
 
+// ------------------------------------------------ dK / dV, bf16 (TMA, wgmma)
+struct DkvParams {
+  CUtensorMap tq, tk, tv, tdo, tbias, tdk, tdv;
+  const __nv_bfloat16* gate;  // null: the bias is used as it is
+  long long gate_sb, gate_sh, gate_st;
+  const int* key_len;         // null: every key is valid
+  const float* lse;           // (B, H, T), natural log
+  const float* delta;         // (B, H, T)
+  int B, T, H;
+  int has_bias, bias_bcast_b, bias_bcast_h;
+  float scale;
+};
+
+template <int BQ>
+struct DkvTile {
+  static constexpr int STAGES = 2;
+  static constexpr int KV_BYTES = BM * 128;    // 64 keys of K or V
+  static constexpr int KV_SLOT = 2 * KV_BYTES; // K then V of one work item
+  static constexpr int OUT_BYTES = 2 * KV_BYTES;  // dK then dV, staged for the stores
+  static constexpr int Q_BYTES = BQ * 128;     // a query tile of Q or dO
+  static constexpr int BIAS_BYTES = BQ * 128;  // BQ queries x 64 keys
+  static constexpr int STAT_BYTES = 1024;      // lse (log2), D, gate: 3 x BQ floats
+  static constexpr int STAGE_BYTES = 2 * Q_BYTES + BIAS_BYTES + STAT_BYTES;
+  static constexpr int SMEM = 1024 + 2 * KV_SLOT + OUT_BYTES + STAGES * STAGE_BYTES;
+  static constexpr int NACC = BQ / 2;
+};
+
+// a work item: one 64-key tile of one (batch row, head)
+struct DkvItem {
+  int k0, h, b, kv_len;
+};
+
+__device__ __forceinline__ DkvItem dkv_item(const DkvParams& p, int item, int n_kt) {
+  DkvItem it;
+  it.k0 = (item % n_kt) * BM;
+  it.h = (item / n_kt) % p.H;
+  it.b = item / (n_kt * p.H);
+  it.kv_len = p.key_len == nullptr ? p.T : min(max(p.key_len[it.b], 0), p.T);
+  return it;
+}
+
+// two blocks per SM: left to itself ptxas takes 183 registers at BQ = 80,
+// and the card then holds one block per SM, too few to hide each work item's
+// latency
+template <int BQ>
+__global__ void __launch_bounds__(160, 2) flash_bwd_dkv_bf16_sm90(const __grid_constant__ DkvParams p) {
+  using C = DkvTile<BQ>;
+  static_assert(3 * BQ * 4 <= C::STAT_BYTES, "row statistics overflow their slot");
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[C::STAGES], empty_bar[C::STAGES];
+  __shared__ __align__(8) uint64_t kv_full[2], kv_empty[2];
+  uint8_t* const kv = sm90::align1024(smem_raw);  // two slots of K, V
+  uint8_t* const so = kv + 2 * C::KV_SLOT;        // dK, dV on their way out
+  uint8_t* const ring = so + C::OUT_BYTES;
+
+  const int T = p.T;
+  const int n_kt = (T + BM - 1) / BM, n_items = n_kt * p.H * p.B;
+  const int n_q = (T + BQ - 1) / BQ;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      sm90::mbar_init(&kv_full[s], 1);
+      sm90::mbar_init(&kv_empty[s], 128);
+    }
+    for (int s = 0; s < C::STAGES; ++s) {
+      sm90::mbar_init(&full_bar[s], 1 + 32);  // the copies' bytes + the warp's statistics
+      sm90::mbar_init(&empty_bar[s], 128);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // the producer warp: lane 0 issues the copies,
+                             // every lane loads row statistics
+    const int lane = threadIdx.x - 128;
+    if (lane == 0) {
+      sm90::prefetch_map(&p.tk);
+      sm90::prefetch_map(&p.tv);
+      sm90::prefetch_map(&p.tq);
+      sm90::prefetch_map(&p.tdo);
+      if (p.has_bias) sm90::prefetch_map(&p.tbias);
+    }
+    const uint32_t bytes = 2 * C::Q_BYTES + (p.has_bias ? C::BIAS_BYTES : 0);
+    int n_live = 0, gi = 0;  // live items and query tiles issued so far
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+      const DkvItem it = dkv_item(p, item, n_kt);
+      if (it.k0 >= it.kv_len) continue;  // a masked tile: nothing to load
+      const int slot = n_live & 1;
+      sm90::mbar_wait(&kv_empty[slot], ((n_live >> 1) & 1) ^ 1);
+      ++n_live;
+      if (lane == 0) {
+        uint8_t* dst = kv + slot * C::KV_SLOT;
+        sm90::mbar_arrive_expect_tx(&kv_full[slot], C::KV_SLOT);
+        sm90::tma_load_4d(dst, &p.tk, &kv_full[slot], 0, it.h, it.k0, it.b);
+        sm90::tma_load_4d(dst + C::KV_BYTES, &p.tv, &kv_full[slot], 0, it.h, it.k0, it.b);
+      }
+      const int bb = p.bias_bcast_b ? 0 : it.b, bh = p.bias_bcast_h ? 0 : it.h;
+      const long long srow = (static_cast<long long>(it.b) * p.H + it.h) * T;
+      const __nv_bfloat16* gp =
+          p.gate == nullptr ? nullptr : p.gate + it.b * p.gate_sb + it.h * p.gate_sh;
+      for (int i = 0; i < n_q; ++i, ++gi) {
+        const int s = gi % C::STAGES;
+        uint8_t* st = ring + s * C::STAGE_BYTES;
+        // every load first, then the stores: the loads' latencies overlap
+        constexpr int PER_LANE = (BQ + 31) / 32;
+        float lse2[PER_LANE], delta[PER_LANE], gate[PER_LANE];
+#pragma unroll
+        for (int j = 0; j < PER_LANE; ++j) {
+          const int r = lane + 32 * j, t = i * BQ + r;
+          const bool in = r < BQ && t < T;
+          lse2[j] = in ? __ldg(p.lse + srow + t) * LOG2E : -CUDART_INF_F;  // past T: P = 0
+          delta[j] = in ? __ldg(p.delta + srow + t) : 0.f;
+          gate[j] = gp != nullptr && in ? __bfloat162float(gp[t * p.gate_st]) : 1.f;
+        }
+        sm90::mbar_wait(&empty_bar[s], ((gi / C::STAGES) & 1) ^ 1);
+        if (lane == 0) {
+          sm90::mbar_arrive_expect_tx(&full_bar[s], bytes);
+          sm90::tma_load_4d(st, &p.tq, &full_bar[s], 0, it.h, i * BQ, it.b);
+          sm90::tma_load_4d(st + C::Q_BYTES, &p.tdo, &full_bar[s], 0, it.h, i * BQ, it.b);
+          if (p.has_bias)
+            sm90::tma_load_4d(st + 2 * C::Q_BYTES, &p.tbias, &full_bar[s], it.k0, i * BQ, bh, bb);
+        }
+        float* stats = reinterpret_cast<float*>(st + 2 * C::Q_BYTES + C::BIAS_BYTES);
+#pragma unroll
+        for (int j = 0; j < PER_LANE; ++j) {
+          const int r = lane + 32 * j;
+          if (r < BQ) {
+            stats[r] = lse2[j];
+            stats[BQ + r] = delta[j];
+            stats[2 * BQ + r] = gate[j];
+          }
+        }
+        sm90::mbar_arrive(&full_bar[s]);
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroup: key rows r0 and r0 + 8 of each item's tile
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  const int r0 = warp * 16 + g;
+  const float scale2 = p.scale * LOG2E;
+  int n_live = 0, gi = 0;
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const DkvItem it = dkv_item(p, item, n_kt);
+    float dk[32], dv[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+
+    if (it.k0 < it.kv_len) {  // else every key of the tile is masked: dK = dV = 0
+      const int slot = n_live & 1;
+      sm90::mbar_wait(&kv_full[slot], (n_live >> 1) & 1);
+      ++n_live;
+      const bool valid[2] = {it.k0 + r0 < it.kv_len, it.k0 + r0 + 8 < it.kv_len};
+      const uint64_t kdesc = sm90::desc_k(kv + slot * C::KV_SLOT);
+      const uint64_t vdesc = sm90::desc_k(kv + slot * C::KV_SLOT + C::KV_BYTES);
+      for (int i = 0; i < n_q; ++i, ++gi) {
+        const int s = gi % C::STAGES;
+        const uint8_t* sq = ring + s * C::STAGE_BYTES;
+        const uint8_t* sdo = sq + C::Q_BYTES;
+        const uint8_t* sb = sq + 2 * C::Q_BYTES;
+        const float* stats = reinterpret_cast<const float*>(sb + C::BIAS_BYTES);
+        sm90::mbar_wait(&full_bar[s], (gi / C::STAGES) & 1);
+
+        // S^T = K Q^T and dP^T = V dO^T (64 keys x BQ queries)
+        float st[C::NACC], dp[C::NACC];
+#pragma unroll
+        for (int j = 0; j < C::NACC; ++j) st[j] = dp[j] = 0.f;
+        const uint64_t qdesc = sm90::desc_k(sq), dodesc = sm90::desc_k(sdo);
+        sm90::fence_regs(st);
+        sm90::fence_regs(dp);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          sm90::wgmma_ss<BQ>(st, kdesc + ks * sm90::K_STEP, qdesc + ks * sm90::K_STEP, ks);
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          sm90::wgmma_ss<BQ>(dp, vdesc + ks * sm90::K_STEP, dodesc + ks * sm90::K_STEP, ks);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait0();
+        sm90::fence_regs(st);
+        sm90::fence_regs(dp);
+        if (i == n_q - 1) sm90::mbar_arrive(&kv_empty[slot]);  // K and V are read
+
+        // P^T = exp(S^T + bias^T - lse), dS^T = P^T (dP^T - D); the bias tile
+        // (queries x keys) read transposed
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int ii = e >> 1, col = 8 * j + c2 + (e & 1);
+            const float lse2 = stats[col];  // -inf past T and for an empty row
+            float pr = 0.f;
+            if (valid[ii] && lse2 != -CUDART_INF_F) {
+              float x = st[4 * j + e] * scale2;
+              if (p.has_bias) {
+                float bv = __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
+                    sb + sm90::swz128(col, r0 + 8 * ii)));
+                if (p.gate != nullptr) bv = sm90::gated(stats[2 * BQ + col], bv);
+                x = fmaf(bv, LOG2E, x);
+              }
+              pr = exp2f(x - lse2);
+            }
+            st[4 * j + e] = pr;
+            dp[4 * j + e] = pr * (dp[4 * j + e] - stats[BQ + col]);
+          }
+        }
+
+        // dV += P^T dO, dK += dS^T Q: the A operands from registers (rounded
+        // to bf16), dO and Q as the MN-major B
+        uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+        for (int ks = 0; ks < BQ / 16; ++ks) {
+          sm90::acc_to_a(pa[ks], st, ks);
+          sm90::acc_to_a(da[ks], dp, ks);
+        }
+        const uint64_t qdesc_t = sm90::desc_mn(sq), dodesc_t = sm90::desc_mn(sdo);
+        sm90::fence_regs(dv);
+        sm90::fence_regs(dk);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < BQ / 16; ++ks) {
+          sm90::wgmma_rs_t64(dv, pa[ks], dodesc_t + ks * sm90::MN_STEP);
+          sm90::wgmma_rs_t64(dk, da[ks], qdesc_t + ks * sm90::MN_STEP);
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait0();
+        sm90::fence_regs(dv);
+        sm90::fence_regs(dk);
+        sm90::fence_regs(pa);
+        sm90::fence_regs(da);
+        sm90::mbar_arrive(&empty_bar[s]);
+      }
+    }
+
+    // dK, dV through shared memory and TMA stores, which clip rows past T;
+    // the previous item's stores must have read the staging tiles first
+    if (tid == 0) sm90::tma_store_wait_read();
+    sm90::named_barrier(1, 128);
+#pragma unroll
+    for (int ii = 0; ii < 2; ++ii) {
+      const int r = r0 + 8 * ii;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(so + sm90::swz128(r, 8 * j + c2)) =
+            __floats2bfloat162_rn(dk[4 * j + 2 * ii] * p.scale, dk[4 * j + 2 * ii + 1] * p.scale);
+        *reinterpret_cast<__nv_bfloat162*>(so + C::KV_BYTES + sm90::swz128(r, 8 * j + c2)) =
+            __floats2bfloat162_rn(dv[4 * j + 2 * ii], dv[4 * j + 2 * ii + 1]);
+      }
+    }
+    sm90::fence_proxy_async();
+    sm90::named_barrier(1, 128);
+    if (tid == 0) {
+      sm90::tma_store_4d(&p.tdk, so, 0, it.h, it.k0, it.b);
+      sm90::tma_store_4d(&p.tdv, so + C::KV_BYTES, 0, it.h, it.k0, it.b);
+      sm90::tma_store_commit();
+    }
+  }
+  if (tid == 0) sm90::tma_store_wait_read();
+}
+
+template <int BQ>
+int launch_dkv_bf16(DkvParams& p, const void* q, const void* k, const void* v, const void* dout,
+                    const void* bias, void* dk, void* dv, int B, int T, int H,
+                    const long long* s, cudaStream_t stream) {
+  const long long out_strides[3] = {static_cast<long long>(T) * H * HD, H * HD, HD};
+  int rc = sm90_host::encode_rows(&p.tq, q, B, T, H, s + 0, BQ);
+  if (rc == 0) rc = sm90_host::encode_rows(&p.tk, k, B, T, H, s + 3, BM);
+  if (rc == 0) rc = sm90_host::encode_rows(&p.tv, v, B, T, H, s + 6, BM);
+  if (rc == 0) rc = sm90_host::encode_rows(&p.tdo, dout, B, T, H, s + 9, BQ);
+  if (rc == 0) rc = sm90_host::encode_rows(&p.tdk, dk, B, T, H, out_strides, BM);
+  if (rc == 0) rc = sm90_host::encode_rows(&p.tdv, dv, B, T, H, out_strides, BM);
+  if (rc == 0 && bias != nullptr)
+    rc = sm90_host::encode_bias(&p.tbias, bias, B, T, H, s + 12, BQ, BM);
+  if (rc != 0) return rc;
+  using C = DkvTile<BQ>;
+  static int resident[sm90_host::MAX_DEVICES] = {};  // blocks each card holds at once
+  const int dev = sm90_host::current_device();
+  if (dev < 0) return static_cast<int>(cudaErrorInvalidDevice);
+  if (resident[dev] == 0) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_dkv_bf16_sm90<BQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flash_bwd_dkv_bf16_sm90<BQ>, 160,
+                                                  C::SMEM);
+    resident[dev] = std::max(1, sms * per_sm);
+  }
+  // persistent blocks, each walking work items (key tile, head, batch row)
+  const long long items = static_cast<long long>((T + BM - 1) / BM) * H * B;
+  const int grid = static_cast<int>(std::min<long long>(items, resident[dev]));
+  flash_bwd_dkv_bf16_sm90<BQ><<<grid, 160, C::SMEM, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 Params make_params(const void* q, const void* k, const void* v, const void* bias,
-                   const int* key_len, const void* dout, const float* lse,
+                   const void* gate, const int* key_len, const void* dout, const float* lse,
                    const float* delta, void* dq, void* dk, void* dv, void* dbias, int T,
                    int H, const long long* strides, float scale) {
   Params p;
@@ -563,6 +820,7 @@ Params make_params(const void* q, const void* k, const void* v, const void* bias
   p.k = k;
   p.v = v;
   p.bias = bias;
+  p.gate = bias != nullptr ? gate : nullptr;
   p.key_len = key_len;
   p.dout = dout;
   p.lse = lse;
@@ -587,6 +845,9 @@ Params make_params(const void* q, const void* k, const void* v, const void* bias
   p.bias_sh = strides[13];
   p.bias_sq = strides[14];
   p.bias_sk = strides[15];
+  p.gate_sb = strides[16];
+  p.gate_sh = strides[17];
+  p.gate_st = strides[18];
   p.T = T;
   p.H = H;
   p.scale = scale;
@@ -597,41 +858,64 @@ Params make_params(const void* q, const void* k, const void* v, const void* bias
 
 extern "C" {
 
-// dtype 0: float32, 1: bfloat16 (q, k, v, bias, dout and the gradients
-// alike).  q, k, v, dout (B, T, H, 64) with a contiguous head dim; `strides`
-// (host memory) holds the element strides q_sb, q_st, q_sh, k_*, v_*,
-// dout_*, then the bias's (b, h, query, key) strides.  lse and delta are
-// contiguous (B, H, T) float32; dk, dv contiguous (B, T, H, 64).  bias and
-// key_len may be null.  Launches on `stream`; returns cudaGetLastError().
+// dtype 0: float32, 1: bfloat16 (q, k, v, bias, gate, dout and the
+// gradients alike).  q, k, v, dout (B, T, H, 64) with a contiguous head dim;
+// `strides` (host memory) holds the element strides q_sb, q_st, q_sh, k_*,
+// v_*, dout_*, then the bias's (b, h, query, key) strides (0 broadcasts),
+// then the gate's (b, h, query).  With a gate the effective bias is
+// round(gate * bias).  lse and delta are contiguous (B, H, T) float32; dk, dv
+// contiguous (B, T, H, 64).  bias, gate and key_len may be null.  bf16 needs
+// what TMA takes (csrc/flash_attention.cu:flash_attention_fwd).  `tile` is
+// the bf16 kernel's query-tile width, 64 or 80 (ops/flash_attention.py:
+// key_tile); float32 ignores it.  Launches on `stream`; returns
+// cudaGetLastError() or an encoding error.
 int flash_attention_bwd_dkv(int dtype, const void* q, const void* k, const void* v,
-                            const void* bias, const int* key_len, const void* dout,
-                            const float* lse, const float* delta, void* dk, void* dv,
-                            int B, int T, int H, const long long* strides, float scale,
-                            void* stream) {
+                            const void* bias, const void* gate, const int* key_len,
+                            const void* dout, const float* lse, const float* delta, void* dk,
+                            void* dv, int B, int T, int H, const long long* strides,
+                            float scale, int tile, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0) return 0;
-  const Params p = make_params(q, k, v, bias, key_len, dout, lse, delta, nullptr, dk, dv,
-                               nullptr, T, H, strides, scale);
-  const dim3 grid((T + BM - 1) / BM, H, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    flash_bwd_dkv_bf16<<<grid, 128, 0, s>>>(p);
-  } else if (dtype == 0) {
-    flash_bwd_dkv_f32<<<grid, BM, 0, s>>>(p);
-  } else {
+    DkvParams p;
+    p.gate = static_cast<const __nv_bfloat16*>(bias != nullptr ? gate : nullptr);
+    p.gate_sb = strides[16];
+    p.gate_sh = strides[17];
+    p.gate_st = strides[18];
+    p.key_len = key_len;
+    p.lse = lse;
+    p.delta = delta;
+    p.B = B;
+    p.T = T;
+    p.H = H;
+    p.has_bias = bias != nullptr;
+    p.bias_bcast_b = strides[12] == 0;
+    p.bias_bcast_h = strides[13] == 0;
+    p.scale = scale;
+    if (tile == 80)
+      return launch_dkv_bf16<80>(p, q, k, v, dout, bias, dk, dv, B, T, H, strides, s);
+    if (tile == 64)
+      return launch_dkv_bf16<64>(p, q, k, v, dout, bias, dk, dv, B, T, H, strides, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Params p = make_params(q, k, v, bias, gate, key_len, dout, lse, delta, nullptr, dk, dv,
+                               nullptr, T, H, strides, scale);
+  const dim3 grid((T + BM - 1) / BM, H, B);
+  flash_bwd_dkv_f32<<<grid, BM, 0, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // As flash_attention_bwd_dkv, writing dq (B, T, H, 64) and, unless null,
-// dbias (B, H, T, T), both contiguous and in the inputs' dtype.
+// dbias (B, H, T, T): dS, the gradient of the effective bias, both
+// contiguous and in the inputs' dtype.
 int flash_attention_bwd_dq(int dtype, const void* q, const void* k, const void* v,
-                           const void* bias, const int* key_len, const void* dout,
-                           const float* lse, const float* delta, void* dq, void* dbias,
-                           int B, int T, int H, const long long* strides, float scale,
-                           void* stream) {
+                           const void* bias, const void* gate, const int* key_len,
+                           const void* dout, const float* lse, const float* delta, void* dq,
+                           void* dbias, int B, int T, int H, const long long* strides,
+                           float scale, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0) return 0;
-  const Params p = make_params(q, k, v, bias, key_len, dout, lse, delta, dq, nullptr,
+  const Params p = make_params(q, k, v, bias, gate, key_len, dout, lse, delta, dq, nullptr,
                                nullptr, dbias, T, H, strides, scale);
   const dim3 grid((T + BM - 1) / BM, H, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -646,6 +930,9 @@ int flash_attention_bwd_dq(int dtype, const void* q, const void* k, const void* 
 }
 
 const char* flash_attention_bwd_error_string(int code) {
+  if (code == sm90_host::ERR_NO_ENCODER)
+    return "the driver has no cuTensorMapEncodeTiled (TMA needs a Hopper driver)";
+  if (code == sm90_host::ERR_ENCODE) return "cuTensorMapEncodeTiled refused a tensor map";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -20,9 +20,11 @@ per-head gate computed from the layer input.
 
 `attn_impl='flash'` runs attention through the hand-written CUDA kernels on
 CUDA tensors (ops/flash_attention.py; its plain versions on CPU tensors)
-with the padded keys masked by length; under autograd it goes through the
-`FlashAttention` Function, whose backward kernels also return the gated
-bias's gradient, so `rel_attn_embed`, `gru_rel_pos_linear` and
+with the padded keys masked by length.  WavLM's gated bias goes to them in
+factored form, the (h, T, T) table (built once, padded for TMA) and the
+(B, h, T, 1) gate, and is formed in the kernels, never materialized; under
+autograd the `FlashAttention` Function returns the table's and the gate's
+gradients, so `rel_attn_embed`, `gru_rel_pos_linear` and
 `gru_rel_pos_const` train.  'einsum' is the JAX package's default path:
 scores stored in the compute dtype, a -1e9 padding bias, float32 softmax.
 There is no dropout, as in the JAX package, so training and inference run
@@ -289,13 +291,18 @@ def _bucket_table(t: int, cfg: SSLEncoderConfig, device) -> torch.Tensor:
         return _BUCKETS[key]
 
 
-def _attend(cfg, q, k, v, bias, lengths):
-    """q, k, v (B, T, h, hd); bias (B, h, T, T) or None; lengths (B,) valid
-    frames or None -> (B, T, h * hd)."""
+def _attend(cfg, q, k, v, bias, lengths, gate=None):
+    """q, k, v (B, T, h, hd); bias (B, h, T, T), or with `gate` (B, h, T, 1)
+    the (h, T, T) table of the gated bias gate * bias, or None; lengths (B,)
+    valid frames or None -> (B, T, h * hd).  The flash path forms the gated
+    bias in the kernels; the einsum path materializes it."""
     b, t, h, hd = q.shape
     if cfg.attn_impl == "flash":
-        out = flash_attention(q, k, v, bias=bias, key_len=lengths, scale=1.0 / math.sqrt(hd))
+        out = flash_attention(q, k, v, bias=bias, key_len=lengths, scale=1.0 / math.sqrt(hd),
+                              bias_gate=gate)
         return out.reshape(b, t, h * hd)
+    if gate is not None:
+        bias = gate * bias[None]
     # scores stored in the compute dtype, float32 softmax, probabilities
     # back to the compute dtype (the JAX package's einsum path)
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
@@ -334,6 +341,12 @@ class WavLMAttention(nn.Module):
         if position_bias is None:
             buckets = _bucket_table(t, cfg, x.device)
             position_bias = self.rel_attn_embed.weight[buckets].permute(2, 0, 1)  # (h, T, T)
+            if cfg.attn_impl == "flash":
+                # contiguous once for all layers, rows padded to 16 bytes: the
+                # kernels read the table by TMA
+                pad = -t % 8
+                position_bias = F.pad(position_bias, (0, pad))[..., :t] if pad else (
+                    position_bias.contiguous())
 
         # the gate from the layer input (HF WavLMAttention.forward)
         gated_hidden = x.reshape(b, t, h, hd).transpose(1, 2)  # (B, h, T, hd)
@@ -341,12 +354,12 @@ class WavLMAttention(nn.Module):
         gate = torch.sigmoid(proj)
         gate_a, gate_b = gate[..., 0:1], gate[..., 1:2]
         gate_output = gate_a * (gate_b * self.gru_rel_pos_const - 1.0) + 2.0  # (B, h, T, 1)
-        gated_position_bias = gate_output * position_bias[None]  # (B, h, T, T)
 
         q = self.q_proj(x).reshape(b, t, h, hd)
         k = self.k_proj(x).reshape(b, t, h, hd)
         v = self.v_proj(x).reshape(b, t, h, hd)
-        out = _attend(cfg, q, k, v, gated_position_bias, lengths)
+        # the gated bias gate_output * position_bias[None] (B, h, T, T)
+        out = _attend(cfg, q, k, v, position_bias, lengths, gate=gate_output)
         return self.out_proj(out), position_bias
 
 

@@ -12,8 +12,13 @@ custom VJP (`_flash_attention_bwd_dkv`, `_flash_attention_bwd_dq`).  Per
 
 q, k, v: (B, T, h, hd) as the projections give them (the JAX layout);
 bias: optional and finite, anything that broadcasts to (B, h, T, T), such
-as WavLM's gated position bias (B, h, T, T) or a -1e9 padding bias
-(B, 1, 1, T);
+as a -1e9 padding bias (B, 1, 1, T);
+bias_gate: optional (B, h, T) or (B, h, T, 1), WavLM's gate: the effective
+bias is then round_to_bias_dtype(bias_gate[..., None] * bias), which the
+kernels form per (query, key) pair from the (h, T, T) position-bias table
+(`bias`), so the (B, h, T, T) gated bias is never materialized (the product
+of two bf16 values is exact in float32, so this is bit for bit the bias
+`gate_output * position_bias[None]` computes);
 key_len: optional (B,) valid key counts.  Masking keys past key_len gives
 the softmax of the JAX path's -1e9 additive padding bias.  Query rows past
 key_len are computed like any other, as in JAX.  A row with no valid key
@@ -23,12 +28,20 @@ gives 0, and gradients of 0.
 tensor to the kernels, which it launches or raises on.  When a gradient is
 needed it goes through `FlashAttention` (an autograd Function): the forward
 also writes each row's log-sum-exp, and the backward launches the dK/dV and
-the dQ (+ dBias) kernels, returning the bias's gradient in the bias's dtype
-summed to its (broadcast) shape, as JAX returns `ds` in `ab`'s dtype.
-`LAUNCHES`, `LAUNCHES_BWD_DKV` and `LAUNCHES_BWD_DQ` count kernel launches.
-The kernels take head dim 64, float32 or bf16, a bias of the inputs' dtype,
-and a contiguous head dim.  Scores and the softmax are float32 in every
-version; outputs have the inputs' dtype.
+the dQ (+ dBias) kernels; the dQ kernel writes dS, the effective bias's
+gradient, in the bias's dtype (as JAX returns `ds` in `ab`'s dtype), which
+the Function sums to the bias's (broadcast) shape or, with a gate, reduces to
+the gate's and the table's gradients by the torch expressions autograd uses
+for `gate * table`.  `LAUNCHES`, `LAUNCHES_BWD_DKV` and `LAUNCHES_BWD_DQ`
+count kernel launches.  The kernels take head dim 64, float32 or bf16, a
+bias and gate of the inputs' dtype, and a contiguous head dim.  The bf16
+forward and dK/dV kernels read through TMA: q, k, v and dout need 16-byte
+aligned bases and strides of multiples of 16 bytes (else the wrapper
+raises), and a bias TMA cannot read as it is (a row stride that is not a
+multiple of 16 bytes, a broadcast query or key axis) is copied once into a
+padded layout, counted by `BIAS_RELAYOUTS` (`frontend/ssl_encoder.py` builds
+WavLM's table padded, so its path makes none).  Scores and the softmax are
+float32 in every version; outputs have the inputs' dtype.
 """
 
 from __future__ import annotations
@@ -40,6 +53,7 @@ from typing import Optional, Tuple
 import torch
 
 __all__ = [
+    "BIAS_RELAYOUTS",
     "LAUNCHES",
     "LAUNCHES_BWD_DKV",
     "LAUNCHES_BWD_DQ",
@@ -50,18 +64,54 @@ __all__ = [
     "flash_attention_bwd_reference",
     "flash_attention_fwd",
     "flash_attention_reference",
+    "effective_bias",
+    "factored_bias_grads",
     "kernel_strides",
+    "key_tile",
 ]
 
 LAUNCHES = 0
 LAUNCHES_BWD_DKV = 0
 LAUNCHES_BWD_DQ = 0
+BIAS_RELAYOUTS = 0
 HEAD_DIM = 64
 
 _SOURCES = ["flash_attention.cu"]
 _BWD_SOURCES = ["flash_attention_bwd.cu"]
+_N_STRIDES = 19  # q, k, v, out or dout (3 each), bias (4), gate (3)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65535
+
+
+def key_tile(t: int) -> int:
+    """The tile width the bf16 forward takes over keys and the bf16 dK/dV
+    over queries for T frames (the kernels' `tile` argument; they take 64
+    or 80): one tile of 80 when it holds every frame, else 64."""
+    return 80 if t <= 80 else 64
+
+
+def _gate4(bias_gate: torch.Tensor) -> torch.Tensor:
+    return bias_gate if bias_gate.dim() == 4 else bias_gate[..., None]
+
+
+def effective_bias(bias: Optional[torch.Tensor], bias_gate: Optional[torch.Tensor]):
+    """The additive bias the kernels see: `bias`, or with a gate
+    round_to_bias_dtype(bias_gate[..., None] * bias), the product taken in
+    float32 (exact for two bf16 values)."""
+    if bias_gate is None or bias is None:
+        return bias
+    return (_gate4(bias_gate).float() * bias.float()).to(bias.dtype)
+
+
+def factored_bias_grads(ds, bias, bias_gate, need_bias=True, need_gate=True):
+    """The gradients of `bias` (the table) and `bias_gate` from dS, the
+    effective bias's gradient (B, h, T, T), by the expressions autograd uses
+    for `gate * table`: (dS * table) summed to the gate's shape and (dS *
+    gate) summed to the table's."""
+    g4 = _gate4(bias_gate)
+    d_bias = (ds * g4).sum_to_size(bias.shape) if need_bias else None
+    d_gate = (ds * bias).sum_to_size(g4.shape).reshape(bias_gate.shape) if need_gate else None
+    return d_bias, d_gate
 
 
 def _reference_scores(q, k, bias, key_len, scale):
@@ -88,13 +138,14 @@ def flash_attention_reference(
     key_len: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
     return_lse: bool = False,
+    bias_gate: Optional[torch.Tensor] = None,
 ):
-    """Plain PyTorch version of the forward kernel: float32 scores, bias,
-    key mask, float32 softmax; the probabilities in the inputs' dtype times
-    v.  With `return_lse`, also each row's float32 log-sum-exp (B, h, T)
-    (-inf for a row with no valid key), as the kernel writes it for the
-    backward."""
-    s = _reference_scores(q, k, bias, key_len, _scale(q, scale))
+    """Plain PyTorch version of the forward kernel: float32 scores, the
+    (effective) bias, key mask, float32 softmax; the probabilities in the
+    inputs' dtype times v.  With `return_lse`, also each row's float32
+    log-sum-exp (B, h, T) (-inf for a row with no valid key), as the kernel
+    writes it for the backward."""
+    s = _reference_scores(q, k, effective_bias(bias, bias_gate), key_len, _scale(q, scale))
     p = torch.softmax(s, dim=-1).nan_to_num(0.0)  # no valid key: 0
     out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v).to(q.dtype)
     if return_lse:
@@ -112,19 +163,21 @@ def flash_attention_bwd_reference(
     out: torch.Tensor,
     lse: torch.Tensor,
     dout: torch.Tensor,
+    bias_gate: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Plain PyTorch version of the backward kernels, their algebra step by
-    step in float32:
+    step in float32 (Bias the effective bias, gated when `bias_gate` is
+    given):
 
         P  = exp(S - lse)  (0 at masked keys and in rows with lse = -inf)
         D  = rowsum(out * dout)
         dV = P^T dout,  dS = P * (dout v^T - D)
         dQ = scale * dS k,  dK = scale * dS^T q,  dBias = dS
 
-    Returns (dq, dk, dv, dbias) in the inputs' dtypes; dbias is (B, h, T, T)
-    in the bias's dtype, or None without a bias."""
+    Returns (dq, dk, dv, dbias) in the inputs' dtypes; dbias is dS (B, h, T,
+    T) in the bias's dtype, or None without a bias."""
     scale = _scale(q, scale)
-    s = _reference_scores(q, k, bias, key_len, scale)
+    s = _reference_scores(q, k, effective_bias(bias, bias_gate), key_len, scale)
     lse = lse.float()[..., None]
     p = torch.where(torch.isinf(lse), torch.zeros_like(s), torch.exp(s - lse))
     do = dout.float()
@@ -144,11 +197,13 @@ def kernel_strides(
     v: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
     key_len: Optional[torch.Tensor] = None,
+    bias_gate: Optional[torch.Tensor] = None,
 ) -> Tuple[Optional[torch.Tensor], Tuple[int, ...]]:
-    """The kernel's checks: raises on what it does not take.  Returns the
-    bias expanded to (B, h, T, T) (a view, broadcast strides 0) and the
-    element strides of q, k, v over (B, T, h) and of the bias over
-    (B, h, query, key)."""
+    """The kernels' checks: raises on what they do not take.  q, k and v
+    need 16-byte aligned bases and strides of multiples of 16 bytes (TMA's
+    rule, and the float32 kernel's vector loads).  Returns the bias expanded
+    to (B, h, T, T) (a view, broadcast strides 0) and the element strides
+    of q, k, v over (B, T, h) and of the bias over (B, h, query, key)."""
     if q.dim() != 4:
         raise ValueError(f"q must be (B, T, h, hd), got {tuple(q.shape)}")
     b, t, h, hd = q.shape
@@ -161,17 +216,12 @@ def kernel_strides(
         )
     if q.dtype not in _DTYPES:
         raise TypeError(f"the flash-attention kernel takes float32 or bf16, got {q.dtype}")
-    # 16-byte vector loads: 8 bf16 or 4 float32 elements
-    vec = 16 // q.element_size()
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.dtype != q.dtype:
             raise TypeError(f"{name} is {x.dtype}, q is {q.dtype}")
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-        if x.stride(3) != 1:
-            raise ValueError(f"{name} needs a contiguous head dim (stride {x.stride(3)})")
-        if x.data_ptr() % 16 or any(s % vec for s in x.stride()[:3]):
-            raise ValueError(f"{name} must be 16-byte aligned in every row (strides {x.stride()})")
+        _check_rows(name, x)
     if b > _MAX_GRID_YZ or h > _MAX_GRID_YZ:
         raise ValueError(f"batch {b} or heads {h} exceed the kernel's grid (65535)")
     if bias is not None:
@@ -180,6 +230,15 @@ def kernel_strides(
         if bias.device != q.device:
             raise ValueError(f"bias is on {bias.device}, q on {q.device}")
         bias = bias.expand(b, h, t, t)
+    if bias_gate is not None:
+        if bias is None:
+            raise ValueError("bias_gate gates a bias: pass the table as `bias`")
+        if tuple(_gate4(bias_gate).shape) != (b, h, t, 1):
+            raise ValueError(f"bias_gate must be ({b}, {h}, {t}) or ({b}, {h}, {t}, 1), "
+                             f"got {tuple(bias_gate.shape)}")
+        if bias_gate.dtype != q.dtype or bias_gate.device != q.device:
+            raise TypeError(f"bias_gate is {bias_gate.dtype} on {bias_gate.device}, "
+                            f"q {q.dtype} on {q.device}")
     if key_len is not None:
         if key_len.shape != (b,):
             raise ValueError(f"key_len must be ({b},), got {tuple(key_len.shape)}")
@@ -190,6 +249,49 @@ def kernel_strides(
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     strides += bias.stride() if bias is not None else (0, 0, 0, 0)
     return bias, strides
+
+
+def _check_rows(name: str, x: torch.Tensor) -> None:
+    """TMA's rule for a (B, T, h, 64) operand: a unit head-dim stride, a
+    16-byte aligned base, strides of multiples of 16 bytes."""
+    vec = 16 // x.element_size()
+    if x.stride(3) != 1:
+        raise ValueError(f"{name} needs a contiguous head dim (stride {x.stride(3)})")
+    if x.data_ptr() % 16 or any(s % vec for s in x.stride()[:3]):
+        raise ValueError(f"{name} must be 16-byte aligned in every row (strides {x.stride()})")
+
+
+def _tma_bias(bias: torch.Tensor) -> torch.Tensor:
+    """A (B, h, T, T) bias view TMA reads as it is (unit key stride, other
+    strides multiples of 16 bytes or 0 on the batch and head axes, a 16-byte
+    aligned base), or a padded copy of it: the bf16 kernels' bias."""
+    global BIAS_RELAYOUTS
+    vec = 16 // bias.element_size()
+    sb, sh, sq, sk = bias.stride()
+    if (sk == 1 and sq > 0 and sq % vec == 0 and sh % vec == 0 and sb % vec == 0
+            and bias.data_ptr() % 16 == 0):
+        return bias
+    b, h, t, _ = bias.shape
+    rows = bias[: 1 if sb == 0 else b, : 1 if sh == 0 else h]
+    padded = torch.empty((*rows.shape[:3], -(-t // vec) * vec), dtype=bias.dtype,
+                         device=bias.device)[..., :t]
+    padded.copy_(rows)
+    BIAS_RELAYOUTS += 1
+    return padded.expand(b, h, t, t)
+
+
+def _operands(q, k, v, bias, key_len, bias_gate):
+    """`kernel_strides`, then the bias as the kernels read it (`_tma_bias`
+    for bf16) and the gate as a (B, h, T) view: (bias, gate, the strides of
+    q, k, v, the strides of the bias and the gate)."""
+    bias, strides = kernel_strides(q, k, v, bias, key_len, bias_gate)
+    if bias is not None and q.dtype == torch.bfloat16:
+        bias = _tma_bias(bias)
+    b, t, h, _ = q.shape
+    gate = None if bias_gate is None else _gate4(bias_gate)[..., 0].expand(b, h, t)
+    bias_strides = bias.stride() if bias is not None else (0, 0, 0, 0)
+    gate_strides = gate.stride() if gate is not None else (0, 0, 0)
+    return bias, gate, strides[:9], (*bias_strides, *gate_strides)
 
 
 _LIB = None
@@ -204,8 +306,8 @@ def _library():
         lib = load_library("flash_attention", _SOURCES)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.flash_attention_fwd.argtypes = [
-            i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-            ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ptr,
+            i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i32, ptr,
         ]
         lib.flash_attention_fwd.restype = i32
         lib.flash_attention_error_string.argtypes = [i32]
@@ -221,12 +323,11 @@ def _bwd_library():
 
         lib = load_library("flash_attention_bwd", _BWD_SOURCES)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.flash_attention_bwd_dkv, lib.flash_attention_bwd_dq):
-            fn.argtypes = [
-                i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-                ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ptr,
-            ]
-            fn.restype = i32
+        head = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                ctypes.POINTER(ctypes.c_longlong), ctypes.c_float]
+        lib.flash_attention_bwd_dkv.argtypes = [*head, i32, ptr]  # ..., tile, stream
+        lib.flash_attention_bwd_dq.argtypes = [*head, ptr]
+        lib.flash_attention_bwd_dkv.restype = lib.flash_attention_bwd_dq.restype = i32
         lib.flash_attention_bwd_error_string.argtypes = [i32]
         lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
         _BWD_LIB = lib
@@ -250,26 +351,28 @@ def flash_attention_fwd(
     key_len: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
     return_lse: bool = False,
+    bias_gate: Optional[torch.Tensor] = None,
 ):
     """The forward kernel on CUDA tensors: (B, T, h, hd) attention output
     and, with `return_lse`, each row's float32 log-sum-exp (B, h, T)."""
     global LAUNCHES
     if not q.is_cuda:
         raise ValueError("flash_attention_fwd launches the CUDA kernel: q is on the CPU")
-    bias, strides = kernel_strides(q, k, v, bias, key_len)
+    bias, gate, qkv_strides, bias_strides = _operands(q, k, v, bias, key_len, bias_gate)
     b, t, h, hd = q.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device) if return_lse else None
     if key_len is not None:
         key_len = key_len.to(torch.int32).contiguous()
-    all_strides = (*strides[:9], *out.stride()[:3], *strides[9:])
+    all_strides = (*qkv_strides, *out.stride()[:3], *bias_strides)
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_fwd(
-            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), _ptr(gate),
             _ptr(key_len), out.data_ptr(), _ptr(lse), b, t, h,
-            (ctypes.c_longlong * 16)(*all_strides), _scale(q, scale), stream,
+            (ctypes.c_longlong * _N_STRIDES)(*all_strides), _scale(q, scale), key_tile(t),
+            stream,
         )
     _raise_on(rc, "flash-attention", lib.flash_attention_error_string)
     LAUNCHES += 1
@@ -287,16 +390,17 @@ def flash_attention_bwd(
     lse: torch.Tensor,
     dout: torch.Tensor,
     bias_grad: bool = True,
+    bias_gate: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """The backward kernels on CUDA tensors: (dq, dk, dv, dbias), dq/dk/dv
-    contiguous (B, T, h, hd), dbias contiguous (B, h, T, T) in the bias's
-    dtype, or None without a bias or when `bias_grad` is False.  D =
-    rowsum(out * dout) is computed here in float32, as JAX computes it
-    outside its kernels."""
+    contiguous (B, T, h, hd), dbias dS, the effective bias's gradient,
+    contiguous (B, h, T, T) in the bias's dtype, or None without a bias or
+    when `bias_grad` is False.  D = rowsum(out * dout) is computed here in
+    float32, as JAX computes it outside its kernels."""
     global LAUNCHES_BWD_DKV, LAUNCHES_BWD_DQ
     if not q.is_cuda:
         raise ValueError("flash_attention_bwd launches the CUDA kernels: q is on the CPU")
-    bias, strides = kernel_strides(q, k, v, bias, key_len)
+    bias, gate, qkv_strides, bias_strides = _operands(q, k, v, bias, key_len, bias_gate)
     b, t, h, hd = q.shape
     if dout.shape != q.shape or dout.dtype != q.dtype or dout.device != q.device:
         raise ValueError(
@@ -309,7 +413,7 @@ def flash_attention_bwd(
         raise ValueError(f"lse must be ({b}, {h}, {t}) float32 on {q.device}")
     vec = 16 // dout.element_size()
     if dout.stride(3) != 1 or dout.data_ptr() % 16 or any(x % vec for x in dout.stride()[:3]):
-        dout = dout.contiguous()
+        dout = dout.contiguous()  # the incoming gradient, laid out as TMA reads it
     lse = lse.contiguous()
     delta = (out.float() * dout.float()).sum(-1).transpose(1, 2).contiguous()  # (B, h, T)
     if key_len is not None:
@@ -319,15 +423,15 @@ def flash_attention_bwd(
     dbias = None
     if bias is not None and bias_grad:
         dbias = torch.empty((b, h, t, t), dtype=bias.dtype, device=q.device)
-    all_strides = (ctypes.c_longlong * 16)(*strides[:9], *dout.stride()[:3], *strides[9:])
+    all_strides = (ctypes.c_longlong * _N_STRIDES)(*qkv_strides, *dout.stride()[:3], *bias_strides)
     dt, sc = _DTYPES[q.dtype], _scale(q, scale)
     lib = _bwd_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        args = (dt, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), _ptr(key_len),
-                dout.data_ptr(), lse.data_ptr(), delta.data_ptr())
+        args = (dt, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), _ptr(gate),
+                _ptr(key_len), dout.data_ptr(), lse.data_ptr(), delta.data_ptr())
         rc = lib.flash_attention_bwd_dkv(*args, dk.data_ptr(), dv.data_ptr(), b, t, h,
-                                         all_strides, sc, stream)
+                                         all_strides, sc, key_tile(t), stream)
         _raise_on(rc, "flash-attention dK/dV", lib.flash_attention_bwd_error_string)
         LAUNCHES_BWD_DKV += 1
         rc = lib.flash_attention_bwd_dq(*args, dq.data_ptr(), _ptr(dbias), b, t, h,
@@ -340,35 +444,42 @@ def flash_attention_bwd(
 class FlashAttention(torch.autograd.Function):
     """Flash attention with its backward: the kernels on CUDA tensors, the
     plain versions on CPU tensors.  The backward never falls back to the
-    plain path or to autograd through the plain forward."""
+    plain path or to autograd through the plain forward.  Gradients: q, k,
+    v, and the bias summed to its shape or, with a gate, the table's and
+    the gate's (`factored_bias_grads`)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, key_len, scale):
+    def forward(ctx, q, k, v, bias, key_len, scale, bias_gate=None):
         if q.is_cuda:
-            out, lse = flash_attention_fwd(q, k, v, bias, key_len, scale, return_lse=True)
+            out, lse = flash_attention_fwd(q, k, v, bias, key_len, scale, return_lse=True,
+                                           bias_gate=bias_gate)
         else:
-            out, lse = flash_attention_reference(q, k, v, bias, key_len, scale, return_lse=True)
-        ctx.save_for_backward(q, k, v, bias, key_len, out, lse)
+            out, lse = flash_attention_reference(q, k, v, bias, key_len, scale, return_lse=True,
+                                                 bias_gate=bias_gate)
+        ctx.save_for_backward(q, k, v, bias, key_len, out, lse, bias_gate)
         ctx.scale = scale
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, bias, key_len, out, lse = ctx.saved_tensors
-        bias_grad = bias is not None and ctx.needs_input_grad[3]
+        q, k, v, bias, key_len, out, lse, bias_gate = ctx.saved_tensors
+        need_bias = bias is not None and ctx.needs_input_grad[3]
+        need_gate = bias_gate is not None and ctx.needs_input_grad[6]
         if q.is_cuda:
-            dq, dk, dv, dbias = flash_attention_bwd(
-                q, k, v, bias, key_len, ctx.scale, out, lse, dout, bias_grad=bias_grad
+            dq, dk, dv, ds = flash_attention_bwd(
+                q, k, v, bias, key_len, ctx.scale, out, lse, dout,
+                bias_grad=need_bias or need_gate, bias_gate=bias_gate,
             )
         else:
-            dq, dk, dv, dbias = flash_attention_bwd_reference(
-                q, k, v, bias, key_len, ctx.scale, out, lse, dout
+            dq, dk, dv, ds = flash_attention_bwd_reference(
+                q, k, v, bias, key_len, ctx.scale, out, lse, dout, bias_gate=bias_gate
             )
-        if bias_grad:
-            dbias = dbias.sum_to_size(bias.shape)  # a broadcast bias
-        else:
-            dbias = None
-        return dq, dk, dv, dbias, None, None
+        dbias = dgate = None
+        if bias_gate is not None and (need_bias or need_gate):
+            dbias, dgate = factored_bias_grads(ds, bias, bias_gate, need_bias, need_gate)
+        elif need_bias:
+            dbias = ds.sum_to_size(bias.shape)  # a broadcast bias
+        return dq, dk, dv, dbias, None, None, dgate
 
 
 def flash_attention(
@@ -378,16 +489,17 @@ def flash_attention(
     bias: Optional[torch.Tensor] = None,
     key_len: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
+    bias_gate: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """(B, T, h, hd) q, k, v -> (B, T, h, hd) attention output.  CPU
     tensors run the plain versions; CUDA tensors launch the kernels.  When
-    autograd needs a gradient of q, k, v or the bias, the call goes through
-    `FlashAttention`."""
+    autograd needs a gradient of q, k, v, the bias or the gate, the call
+    goes through `FlashAttention`."""
     needs_grad = torch.is_grad_enabled() and any(
-        x is not None and x.requires_grad for x in (q, k, v, bias)
+        x is not None and x.requires_grad for x in (q, k, v, bias, bias_gate)
     )
     if needs_grad:
-        return FlashAttention.apply(q, k, v, bias, key_len, scale)
+        return FlashAttention.apply(q, k, v, bias, key_len, scale, bias_gate)
     if not q.is_cuda:
-        return flash_attention_reference(q, k, v, bias, key_len, scale)
-    return flash_attention_fwd(q, k, v, bias, key_len, scale)
+        return flash_attention_reference(q, k, v, bias, key_len, scale, bias_gate=bias_gate)
+    return flash_attention_fwd(q, k, v, bias, key_len, scale, bias_gate=bias_gate)

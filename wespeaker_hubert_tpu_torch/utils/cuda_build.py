@@ -51,10 +51,12 @@ def _nvcc() -> str:
 
 
 def _digest(sources: Sequence[Path]) -> str:
+    """Of the flags, the sources and every header under csrc/ (the sources
+    include them)."""
     h = hashlib.sha256()
     for flag in NVCC_FLAGS:
         h.update(flag.encode())
-    for src in sources:
+    for src in [*sources, *sorted(CSRC_DIR.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
