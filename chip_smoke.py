@@ -10,7 +10,8 @@ Phases:
      wespeaker_hubert_tpu_torch/csrc (nvcc, at first use);
   3. each kernel against its plain PyTorch version on the card, at the
      served shapes, with the stated tolerance, and both timed (CUDA events,
-     warm, median of 25);
+     warm, median of 25); K1 also against the plain rFFT path (cuFFT and the
+     mel matmul), its yardstick, timed beside it;
   4. the served slice at full width: ECAPA_TDNN_GLOB_c512 (80 mels, 192-d)
      with seeded random weights behind the port's EmbeddingService and HTTP
      server, in bf16 and in float32.  Requests: /embed at 1.3, 5, 12 and
@@ -60,9 +61,9 @@ Phases:
      on the card against the CPU (batch 2), and a profile of 3 bf16 steps.
 
 A kernel's bound is the least time the card could take for the work the
-function needs (for log-mel: an FFT and a sparse mel product, not the dense
-DFT the kernel computes; for attention: the valid keys of each row), against
-the H100 SXM's published peaks.
+function needs (for log-mel: an FFT and a sparse mel product; for
+attention: the valid keys of each row), against the H100 SXM's published
+peaks.
 
 It prints one JSON line of kernels, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}; details go to
@@ -155,9 +156,15 @@ def host_median_ms(fn, reps=10, warmup=2):
     return statistics.median(times)
 
 
+# K1's earlier (dense-DFT) kernel at (16, 480000), from PERF.md's kernel table
+# (H100 80GB HBM3, 700.00 W): not measured by this script.  Printed in the [K1] log line and kept under report["k1_history"],
+# never in the kernels line.
+K1_DENSE_DFT_MS = {(16, 480000): 1.1598}
+
+
 def fbank_bound(b, w, cfg):
     """The least time log-mel of (b, w) can take, from the work the function
-    needs (not the dense DFT the kernel does).
+    needs (an rFFT and the sparse mel product).
 
     Operations per frame: the preprocessing (int16 scale, DC mean and
     removal, pre-emphasis, window: 5 per sample), a real FFT of
@@ -165,7 +172,7 @@ def fbank_bound(b, w, cfg):
     the filters' nonzeros (2 each) and the log (1 per mel), in float32.
     Bytes: the wav read once, the filters' nonzeros read once, the log-mel
     written once.  Returns (bound_ms, bound_by, flop, bytes, dense_flop),
-    where dense_flop is the dense-DFT work the kernel does."""
+    where dense_flop is the dense-DFT work the earlier kernel did."""
     from wespeaker_hubert_tpu_torch.ops.signal import mel_banks
 
     L, n, m = cfg.frame_length, cfg.fft_size, cfg.num_mel_bins
@@ -180,6 +187,25 @@ def fbank_bound(b, w, cfg):
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
     return max(ops_ms, bytes_ms), bound_by, flop, nbytes, dense_flop
+
+
+def fbank_float64(wav, cfg):
+    """Log-mel of (B, W) in float64 on the card, the plain rFFT path's steps
+    (int16 scale, DC removal, pre-emphasis, window, rFFT, power, mel, log):
+    the yardstick of K1's, the plain version's and the rFFT path's float32
+    errors."""
+    from wespeaker_hubert_tpu_torch.ops.fbank import frame_signal
+    from wespeaker_hubert_tpu_torch.ops.signal import mel_banks, window_function
+
+    x = frame_signal(wav.double() * 32768.0, cfg.frame_length, cfg.frame_shift)
+    x = x - x.mean(-1, keepdim=True)
+    x = x - cfg.preemph_coeff * torch.cat([x[..., :1], x[..., :-1]], -1)
+    x = x * torch.from_numpy(window_function(cfg.window_type, cfg.frame_length)).to(x)
+    spec = torch.fft.rfft(x, n=cfg.fft_size)
+    mel = torch.from_numpy(mel_banks(cfg.num_mel_bins, cfg.fft_size, float(cfg.sample_rate),
+                                     cfg.low_freq, cfg.high_freq).astype(np.float64)).to(x)
+    power = spec.real ** 2 + spec.imag ** 2
+    return torch.log(torch.clamp_min(power @ mel, float(np.finfo(np.float32).eps)))
 
 
 def device_busy_us(prof):
@@ -282,15 +308,20 @@ def phase_build(report):
     report["ptxas"] = {}
     for name, (secs, out) in cuda_build.BUILD_LOG.items():
         report["build_s"][name] = secs
-        report["ptxas"][name] = [
-            line.strip() for line in out.splitlines()
-            if "registers" in line or "smem" in line or "spill" in line or "warning" in line.lower()
-        ]
-    # what the bf16 K2 kernels compiled to: wgmma (HGMMA), TMA loads and
-    # stores (UTMALDG, UTMASTG) and mbarrier waits (SYNCS) in the SASS
+        lines, fn = [], ""
+        for line in out.splitlines():  # each kernel's lines follow its entry
+            if "Compiling entry function" in line:
+                fn = _demangle(line.split("'")[1]) if "'" in line else ""
+            elif ("registers" in line or "smem" in line or "spill" in line
+                  or "warning" in line.lower()):
+                lines.append(f"{fn}: {line.strip()}" if fn else line.strip())
+        report["ptxas"][name] = lines
+    # what the kernels compiled to: wgmma (HGMMA), mma.sync (HMMA), TMA loads
+    # and stores (UTMALDG, UTMASTG), mbarrier waits (SYNCS) and cp.async
+    # (LDGSTS) in the SASS
     report["sass"] = {}
     cuobjdump = Path("/usr/local/cuda/bin/cuobjdump")
-    for name, sources in (("flash_attention", k2._SOURCES),
+    for name, sources in (("fbank", fbank_kernel._SOURCES), ("flash_attention", k2._SOURCES),
                           ("flash_attention_bwd", k2._BWD_SOURCES)):
         if not cuobjdump.exists():
             continue
@@ -301,14 +332,16 @@ def phase_build(report):
         for line in sass.splitlines():
             if "Function :" in line:
                 fn = line.split("Function :")[1].strip()
-                counts[fn] = {"HGMMA": 0, "UTMALDG": 0, "UTMASTG": 0, "SYNCS": 0, "HMMA": 0}
+                counts[fn] = {"HGMMA": 0, "HMMA": 0, "UTMALDG": 0, "UTMASTG": 0, "SYNCS": 0,
+                              "LDGSTS": 0}
             elif fn is not None:
                 for op in counts[fn]:
                     if op in line:
                         counts[fn][op] += 1
         report["sass"][name] = counts
         for fn, c in counts.items():
-            log(f"[build]   {name} SASS {fn[:60]}: " + ", ".join(f"{k} {v}" for k, v in c.items()))
+            log(f"[build]   {name} SASS {_demangle(fn)}: "
+                + ", ".join(f"{k} {v}" for k, v in c.items()))
     log(f"[build] {report['build_s']['wall']:.1f} s wall for "
         + ", ".join(f"{n} {t:.1f} s" for n, t in report["build_s"].items() if n != "wall")
         + f" (nvcc {cuda_build.NVCC_FLAGS[1]}, in parallel)")
@@ -317,9 +350,24 @@ def phase_build(report):
             log(f"[build]   {name}: {line}")
 
 
+def _demangle(fn):
+    """A kernel's name (and template argument) from its mangled SASS name."""
+    for name in ("fbank_fft_kernel", "flash_fwd_bf16_sm90", "flash_fwd_f32",
+                 "flash_bwd_dkv_bf16_sm90", "flash_bwd_dq_bf16_sm90", "flash_bwd_dkv_f32",
+                 "flash_bwd_dq_f32"):
+        if name in fn:
+            tail = fn.split(name, 1)[1]
+            arg = tail[tail.find("ILi") + 3:].split("E", 1)[0] if "ILi" in tail else ""
+            return f"{name}<{arg}>" if arg else name
+    return fn[:60]
+
+
 def phase_kernel_checks(report):
+    """K1 against its plain version and against the plain rFFT path (cuFFT
+    and the dense mel product: K1's yardstick, not one PyTorch call), all
+    timed."""
     from wespeaker_hubert_tpu_torch.ops import fbank_kernel
-    from wespeaker_hubert_tpu_torch.ops.fbank import FbankConfig
+    from wespeaker_hubert_tpu_torch.ops.fbank import FbankConfig, fbank
 
     cases = [(16, 480000, 80), (16, 32000, 80), (1, 32240, 80), (16, 32000, 40)]
     rows = []
@@ -329,27 +377,50 @@ def phase_kernel_checks(report):
         wav = torch.from_numpy(
             (rng.standard_normal((b, w)) * 0.1).astype(np.float32)
         ).cuda()
+        fft_cfg = FbankConfig(num_mel_bins=m, spectrum_impl="fft")
         got = fbank_kernel.fbank_kernel(wav, cfg)
         torch.cuda.synchronize()
         want = fbank_kernel.fbank_kernel_reference(wav, cfg)
+        fft = fbank(wav, fft_cfg)[0]
         err = float((got - want).abs().max())
-        ok = bool(torch.allclose(got, want, **FBANK_TOL)) and bool(torch.isfinite(got).all())
+        fft_err = float((got - fft).abs().max())
+        # the rFFT path forms the pre-emphasized frame in float32, whose
+        # rounding can move a rare low-energy filter past the bar against the
+        # plain version (csrc/fbank.cu); K1 is held to the bar against it on
+        # every element where that path itself meets it
+        fft_off = ~torch.isclose(fft, want, **FBANK_TOL)
+        k1_off_fft = ~torch.isclose(got, fft, **FBANK_TOL)
+        ok = (bool(torch.allclose(got, want, **FBANK_TOL)) and bool(torch.isfinite(got).all())
+              and not bool((k1_off_fft & ~fft_off).any()))
+        fft_off_n = int(fft_off.sum())
+        truth = fbank_float64(wav, cfg)
+        vs64 = {name: float((x.double() - truth).abs().max())
+                for name, x in (("kernel", got), ("plain", want), ("fft_path", fft))}
+        del truth
         k_ms = cuda_median_ms(lambda: fbank_kernel.fbank_kernel(wav, cfg))
         p_ms = cuda_median_ms(lambda: fbank_kernel.fbank_kernel_reference(wav, cfg))
+        l_ms = cuda_median_ms(lambda: fbank(wav, fft_cfg))
         bound_ms, bound_by, flop, nbytes, dense_flop = fbank_bound(b, w, cfg)
-        row = dict(shape=[b, w], mels=m, max_abs_err=err, ok=ok, ms=k_ms,
-                   plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   needed_gflop=flop / 1e9, mbytes=nbytes / 1e6,
-                   dense_dft_gflop=dense_flop / 1e9,
-                   roofline_share=bound_ms / k_ms)
+        row = dict(shape=[b, w], mels=m, max_abs_err=err, max_abs_err_vs_fft_path=fft_err,
+                   fft_path_off_plain=fft_off_n,
+                   fft_path_max_abs_err=float((fft - want).abs().max()),
+                   max_abs_err_vs_float64=vs64, ok=ok, ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, needed_gflop=flop / 1e9, mbytes=nbytes / 1e6,
+                   earlier_dense_dft_gflop=dense_flop / 1e9, roofline_share=bound_ms / k_ms)
         rows.append(row)
-        log(f"[K1] ({b}, {w}) mels={m}: max|err|={err:.3e} "
-            f"{'ok' if ok else 'FAIL'} (rtol 1e-4, atol 2e-3); kernel {k_ms:.4f} ms, "
-            f"plain {p_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
-            f"{flop / 1e9:.3f} GFLOP needed, {nbytes / 1e6:.2f} MB), roofline share "
-            f"{bound_ms / k_ms:.4f}; dense-DFT work done {dense_flop / 1e9:.2f} GFLOP "
-            f"at {dense_flop / k_ms / 1e9:.1f} TFLOP/s")
-        del wav, got, want
+        earlier = K1_DENSE_DFT_MS.get((b, w))
+        log(f"[K1] ({b}, {w}) mels={m}: max|err|={err:.3e} against the plain version, "
+            f"{fft_err:.3e} against the rFFT path {'ok' if ok else 'FAIL'} (rtol 1e-4, "
+            f"atol 2e-3; the rFFT path {row['fft_path_max_abs_err']:.3e} from the plain "
+            f"version, {fft_off_n} elements past the bar, where K1 is not held to it; "
+            f"against float64: kernel {vs64['kernel']:.3e}, plain {vs64['plain']:.3e}, rFFT "
+            f"path {vs64['fft_path']:.3e}); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, cuFFT path (not one "
+            f"call) {l_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: {flop / 1e9:.3f} "
+            f"GFLOP needed, {nbytes / 1e6:.2f} MB), roofline share {bound_ms / k_ms:.4f}, "
+            f"{flop / k_ms / 1e9:.2f} TFLOP/s of the work needed"
+            + (f"; the earlier dense-DFT kernel ({dense_flop / 1e9:.2f} GFLOP) {earlier} ms "
+               f"(PERF.md, not this run)" if earlier else ""))
+        del wav, got, want, fft, fft_off, k1_off_fft
     report["fbank_checks"] = rows
     check(all(r["ok"] for r in rows), "fbank kernel disagrees with its plain version")
     return rows[0]
@@ -705,13 +776,15 @@ SSL_SECONDS = [1.5, 2.2, 3.1, 3.9, 4.6, 5.5, 6.3, 7.2, 8.0, 8.8, 9.7, 10.5,
 SSL_WEIGHT_SEED = 20251017
 
 
-# The times of K2's earlier bf16 kernels at these shapes (mma.sync, reading
-# the materialized (B, h, T, T) gated bias), from PERF.md's kernel table
-# (H100 80GB HBM3, 700.00 W): not measured by this script.  Printed in the [K2]
+# The times of K2's last mma.sync bf16 kernels at these shapes, from
+# PERF.md's kernel table (H100 80GB HBM3, 700.00 W): not measured by this
+# script.  The forward's and dK/dV's read the materialized (B, h, T, T)
+# gated bias; dQ + dBias's read the factored bias, while the wrapper computed
+# D and torch the gate's gradient.  Printed in the [K2]
 # log lines and kept under report["k2_history"], never in the kernels line.
 MMA_SYNC_MS = {("fwd", 16, 499): 0.4524, ("fwd", 16, 1599): 2.7143,
-          ("dkv", 64, 75): 0.2169, ("dkv", 16, 499): 1.0274, ("dkv", 16, 131): 0.0973,
-          ("dq", 64, 75): 0.1467, ("dq", 16, 499): 0.9043, ("dq", 16, 131): 0.0707}
+               ("dkv", 64, 75): 0.2169, ("dkv", 16, 499): 1.0274, ("dkv", 16, 131): 0.0973,
+               ("dq", 64, 75): 0.1237, ("dq", 16, 499): 0.7846}
 
 
 def k2_bound(b, t, h, key_len, dtype, bias_kind):
@@ -1142,13 +1215,16 @@ def k2_bwd_bounds(b, t, h, key_len, dtype, bias_kind, bias_grad=True):
     on these inputs: bytes each input read once and each output written
     once (q, dO and the row statistics for every row, k and v for the valid
     keys, the bias as `k2_bound` counts it, dq / dk / dv for every row; the
-    dQ kernel writes dS (B, h, T, T), the function the bias's own gradient:
-    the table's and the gate's for the factored bias), operations 2 h hd T
-    sum_b(valid keys) per product on the dtype's peak: dK/dV needs 4 products
-    (S, dP, dV, dK), dQ 3 (S, dP, dQ), the function 5 (S and dP once).
-    Returns {name: (ms, by, flop, bytes)}, and under "materialized_dkv" /
-    "materialized_dq" / "materialized_function" the bounds with the gated
-    bias materialized, as the earlier kernels were called."""
+    dQ kernel reads out (not D) and writes D, the gate's gradient (B, h, T)
+    and dS (B, h, T, T), counted at T x T, not its padded rows; the function
+    the bias's own gradient: the table's and the gate's for the factored
+    bias), operations 2 h hd T sum_b(valid keys) per product on the dtype's
+    peak: dK/dV needs 4 products (S, dP, dV, dK), dQ 3 (S, dP, dQ), the
+    function 5 (S and dP once).  Returns {name: (ms, by, flop, bytes)}; under
+    "dq_earlier" the bound of the earlier dQ kernel, which read D and wrote dS
+    alone; under "materialized_dkv" / "materialized_dq" /
+    "materialized_function" the bounds with the gated bias materialized, as
+    the first kernels were called."""
     hd = 64
     elem = 2 if dtype == torch.bfloat16 else 4
     valid = int(key_len.sum()) if key_len is not None else b * t
@@ -1164,24 +1240,32 @@ def k2_bwd_bounds(b, t, h, key_len, dtype, bias_kind, bias_grad=True):
         None: (0, 0)}[bias_kind]
     if not bias_grad:
         bias_grad_out = 0
+    gate_grad_out = elem * b * h * t if bias_kind == "gated" else 0
     pair = 2 * h * hd * t * valid
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
     base = {
         # q, dO, k, v, lse, D in; dk, dv out
         "dkv": (4 * pair, 2 * rows + 2 * keys + 2 * stats + 2 * rows),
-        # q, dO, k, v, lse, D in; dq out
-        "dq": (3 * pair, 2 * rows + 2 * keys + 2 * stats + rows),
+        # q, dO, out, k, v, lse in; dq, D out
+        "dq": (3 * pair, 3 * rows + 2 * keys + stats + rows + stats),
+        # the earlier dQ kernel: q, dO, k, v, lse, D in; dq out
+        "dq_earlier": (3 * pair, 2 * rows + 2 * keys + 2 * stats + rows),
         # q, k, v, out, dO, lse in; dq, dk, dv out
         "function": (5 * pair, 3 * rows + 2 * keys + stats + 3 * rows),
     }
-    bias_terms = {"dkv": bias_in, "dq": bias_in + ds_out, "function": bias_in + bias_grad_out}
+    bias_terms = {"dkv": bias_in, "dq": bias_in + ds_out + gate_grad_out,
+                  "dq_earlier": bias_in + ds_out, "function": bias_in + bias_grad_out}
     mat_in = pairs_in if bias_kind == "gated" else bias_in
     mat_out = ds_out if bias_kind == "gated" else bias_grad_out
     mat_terms = {"dkv": mat_in, "dq": mat_in + ds_out, "function": mat_in + mat_out}
     out = {}
     for name, (flop, nbytes) in base.items():
         ops_ms = flop / peak * 1e3
-        for key, extra in ((name, bias_terms[name]), ("materialized_" + name, mat_terms[name])):
+        variants = [(name, bias_terms[name])]
+        mat = "dq" if name == "dq_earlier" else name  # the first dQ moved the earlier's rows
+        if name != "dq":
+            variants.append(("materialized_" + mat, mat_terms[mat]))
+        for key, extra in variants:
             bytes_ms = (nbytes + extra) / PEAK_BYTES * 1e3
             out[key] = (max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes",
                         flop, nbytes + extra)
@@ -1266,19 +1350,25 @@ def phase_k2_bwd_checks(report):
             torch.cuda.synchronize()
             want = k2.flash_attention_bwd_reference(*args, bias_gate=gate)
             errs, coss, ok = {}, {}, True
-            for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+            pairs = list(zip(("dq", "dk", "dv", "dbias", "dgate", "delta"), got, want))
+            if bias_kind == "gated":  # the table's gradient from each dS
+                pairs.append(("dtable", k2.factored_bias_grads(got.dbias, bias, gate),
+                              k2.factored_bias_grads(want.dbias, bias, gate)))
+            for name, g, w in pairs:
                 if w is None:
+                    ok = ok and g is None
                     continue
+                ok = ok and g.shape == w.shape and g.dtype == w.dtype
                 errs[name] = float((g.float() - w.float()).abs().max())
                 coss[name] = float(F.cosine_similarity(g.float().flatten(), w.float().flatten(), dim=0))
                 ok = ok and bool(torch.isfinite(g).all())
                 ok = ok and (errs[name] <= K2_BWD_TOL["f32"]["atol"] if tag == "f32"
                              else coss[name] >= K2_BWD_TOL["bf16"]["cos"])
-            ds = got[3]
-            del got, want
-            # the kernels' backward alone (the wrapper: D, allocation, both
+            ds = got.dbias
+            del got, want, pairs
+            # the kernels' backward alone (the wrapper: allocation, both
             # launches), each kernel's device time, the wrapper's host time,
-            # the plain backward, and the factored bias's reductions
+            # the plain backward, and the table gradient's reduction
             k_ms = cuda_median_ms(call)
             per = kernel_device_ms(call, ("flash_bwd_dkv", "flash_bwd_dq"))
             g_ms = graph_ms(call)
@@ -1327,6 +1417,7 @@ def phase_k2_bwd_checks(report):
                        gflop=bounds["function"][2] / 1e9, mbytes=bounds["function"][3] / 1e6,
                        dkv_bound_ms=bounds["dkv"][0], dkv_bound_by=bounds["dkv"][1],
                        dq_bound_ms=bounds["dq"][0], dq_bound_by=bounds["dq"][1],
+                       dq_earlier_bound_ms=bounds["dq_earlier"][0],
                        materialized_dkv_bound_ms=bounds["materialized_dkv"][0],
                        materialized_dq_bound_ms=bounds["materialized_dq"][0],
                        materialized_bound_ms=bounds["materialized_function"][0],
@@ -1342,9 +1433,11 @@ def phase_k2_bwd_checks(report):
                 f"call; traced launches {row['launches_traced']}; dK/dV {row['dkv_ms']} ms "
                 f"against {row['dkv_bound_ms']:.5f}, mma.sync {mma_sync['dkv']}; "
                 f"dQ {row['dq_ms']} ms "
-                f"against {row['dq_bound_ms']:.5f}, mma.sync {mma_sync['dq']}; the mma.sync "
-                f"times from PERF.md, not this run)"
-                + (f", the factored bias's reductions {red_ms:.4f} ms" if red_ms is not None else "")
+                f"against {row['dq_bound_ms']:.5f} (the earlier dQ, reading D and writing dS "
+                f"alone: {row['dq_earlier_bound_ms']:.5f}), mma.sync {mma_sync['dq']}; the "
+                f"mma.sync times from PERF.md, not this run)"
+                + (f", the table gradient's reduction {red_ms:.4f} ms" if red_ms is not None
+                   else "")
                 + f", plain {p_ms:.4f} ms, SDPA fwd+bwd {l_ms:.4f} ms "
                 f"({'with' if lib_bias_grad else 'no'} mask gradient), bound {bound_ms:.5f} ms "
                 f"({bounds['function'][1]}: {bounds['function'][2] / 1e9:.2f} GFLOP, "
@@ -1804,6 +1897,10 @@ def main():
             timed("train checks", phase_train_checks, report, train_dir)
     report["wall_s"] = time.perf_counter() - t_start
     report["failures"] = failures
+    report["k1_history"] = {
+        "source": "PERF.md's kernel table, the earlier dense-DFT K1 (H100 80GB HBM3, "
+                  "700.00 W); not measured by this script",
+        "ms": {f"({b}, {w}) 80 mels": ms for (b, w), ms in K1_DENSE_DFT_MS.items()}}
     report["k2_history"] = {
         "source": "PERF.md's kernel table, the earlier mma.sync kernels (H100 80GB HBM3, "
                   "700.00 W); not measured by this script",
@@ -1835,8 +1932,9 @@ def main():
         "bound_by": k1["bound_by"],
         "roofline_share": k1["roofline_share"],
         "needed_gflop": k1["needed_gflop"],
-        "dense_dft_gflop": k1["dense_dft_gflop"],
-        "library_ms": None,
+        "library_ms": k1["library_ms"],
+        "library_scope": "the plain rFFT path: torch.fft.rfft (cuFFT) + the mel matmul, "
+                         "not one call",
         "shape": k1["shape"],
     }, {
         "name": "flash_attention_fwd",
@@ -1867,7 +1965,8 @@ def main():
     bwd_rows = [r for r in report["k2_bwd_checks"] if r["dtype"] == "bf16"]
     for name, key, outputs, launched in (
             ("flash_attention_bwd_dkv", "dkv", ("dk", "dv"), train_launches[1]),
-            ("flash_attention_bwd_dq", "dq", ("dq", "dbias"), train_launches[2])):
+            ("flash_attention_bwd_dq", "dq", ("dq", "dbias", "dgate", "delta", "dtable"),
+             train_launches[2])):
         line = {
             "name": name,
             "route": "cuda",
@@ -1885,7 +1984,7 @@ def main():
                                    if r["dtype"] == "f32" for o in outputs
                                    if o in r["max_abs_err"]),
             "ms": k2_bwd_row[key + "_ms"],
-            "tile_q": k2_bwd_row["tile_q"] if key == "dkv" else 64,
+            ("tile_q" if key == "dkv" else "tile_k"): k2_bwd_row["tile_q"],
             "backward_ms": k2_bwd_row["ms"],
             "backward_host_us_per_call": k2_bwd_row["host_us"],
             "plain_ms": k2_bwd_row["plain_ms"],

@@ -6,7 +6,9 @@ Tolerances: log-mel rtol 1e-4 / atol 2e-3, the JAX package's own bar for
 its Pallas kernel (tests/test_fbank_pallas.py), since the folded
 effective-matrix algebra rounds differently from the step-by-step path;
 CMVN 1e-5 (float32 sums in another order).  The kernel itself runs only
-on a GPU: tests/test_torch_port_gpu.py."""
+on a GPU (tests/test_torch_port_gpu.py); its host tables are checked here:
+the sparse mel filters against `mel_banks` exactly, and a numpy model of
+its FFT schedule against np.fft.rfft (1e-5 of the largest bin)."""
 
 import dataclasses
 
@@ -23,6 +25,7 @@ from wespeaker_hubert_tpu.ops.feature_utils import apply_cmvn as jax_apply_cmvn
 from wespeaker_hubert_tpu_torch.ops import fbank_kernel as port_kernel
 from wespeaker_hubert_tpu_torch.ops.fbank import FbankConfig, fbank
 from wespeaker_hubert_tpu_torch.ops.feature_utils import apply_cmvn
+from wespeaker_hubert_tpu_torch.ops.signal import mel_banks, window_function
 
 FBANK_TOL = dict(rtol=1e-4, atol=2e-3)
 
@@ -71,6 +74,75 @@ def test_effective_matrices_bit_identical(kw):
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert np.array_equal(np.asarray(g), np.asarray(w))
+
+
+@pytest.mark.parametrize(
+    "kw", [{}, {"num_mel_bins": 72}, {"num_mel_bins": 40}, {"sample_rate": 8000},
+           {"sample_rate": 48000, "low_freq": 0.0, "high_freq": -400.0}],
+)
+def test_mel_csr_reproduces_mel_banks(kw):
+    """The kernel's sparse filters, densified, are `mel_banks` bit for bit."""
+    cfg = FbankConfig(**kw)
+    tab, weights = port_kernel.mel_csr(cfg)
+    want = mel_banks(cfg.num_mel_bins, cfg.fft_size, float(cfg.sample_rate), cfg.low_freq,
+                     cfg.high_freq)
+    dense = np.zeros_like(want)
+    for m, (first, count, offset) in enumerate(tab.T):
+        dense[first:first + count, m] = weights[offset:offset + count]
+    assert weights.dtype == np.float32 and tab.dtype == np.int32
+    assert np.array_equal(dense, want)
+
+
+def _kernel_spectrum(xd, cfg):
+    """A numpy model of the kernel's transform (csrc/fbank.cu) of one
+    DC-removed frame x' (L float32 samples), with its tables, in complex64:
+    u = window x' and the pre-emphasis correction d into z = u + i d; the
+    Stockham stages of `FFT_RADICES[n]`, butterfly j twiddling point r by
+    table entry r (j mod ns) n / (ns R) and writing it at (j - j mod ns) R +
+    j mod ns + r ns; then U, D split from Z[k], Z[n - k] and Y[k] = emph[k]
+    U[k] - c D[k]."""
+    tw, emph, win, dwin, _, _ = (t.numpy() for t in port_kernel.kernel_tables(cfg, "cpu"))
+    c64 = lambda t: (t[:, 0] + 1j * t[:, 1]).astype(np.complex64)  # noqa: E731
+    w, n, L, c = c64(tw), cfg.fft_size, len(xd), np.float32(cfg.preemph_coeff)
+    u = np.zeros(n, np.float32)
+    d = np.zeros(n, np.float32)
+    u[:L] = win * xd
+    d[1:L] = dwin[1:] * xd[:-1]
+    d[0] += u[0]
+    d[L % n] -= u[L - 1]
+    data = (u + 1j * d).astype(np.complex64)
+    ns = 1
+    for r_ in port_kernel.FFT_RADICES[n]:
+        nb = n // r_
+        j = np.arange(nb)
+        k = j % ns
+        v = np.stack([data[j + r * nb] * w[r * k * (n // (ns * r_))] for r in range(r_)])
+        dft = np.exp(-2j * np.pi * np.outer(np.arange(r_), np.arange(r_)) / r_)
+        v = (dft @ v).astype(np.complex64)
+        out = np.empty_like(data)
+        for r in range(r_):
+            out[(j - k) * r_ + k + r * ns] = v[r]
+        data, ns = out, ns * r_
+    assert ns == n
+    kk = np.arange(n // 2 + 1)
+    a, bc = data[kk], np.conj(data[(n - kk) % n])
+    return c64(emph) * ((a + bc) * 0.5) - c * ((a - bc) * -0.5j)
+
+
+@pytest.mark.parametrize("kw", [{"sample_rate": 8000}, {}, {"frame_length_ms": 32.0}],
+                         ids=["n256", "n512", "frame_is_n512"])
+def test_fft_schedule_matches_rfft(kw):
+    """The kernel's transform, driven by its tables, is the real FFT of the
+    pre-emphasized windowed frame: a wrong twiddle index or correction term
+    shows here (1e-5 of the largest bin)."""
+    cfg = FbankConfig(**kw)
+    xd = _wav(cfg.fft_size, (cfg.frame_length,)) * np.float32(32768.0)
+    got = _kernel_spectrum(xd, cfg)
+    x = xd.astype(np.float64)
+    y = window_function(cfg.window_type, len(x)).astype(np.float32) * (
+        x - cfg.preemph_coeff * np.concatenate([x[:1], x[:-1]]))
+    want = np.fft.rfft(y, cfg.fft_size)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 
 def test_feat_lengths_match_jax():

@@ -5,15 +5,18 @@ so on a machine without JAX run it as
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_gpu.py
 
 K1 against its plain version: rtol 1e-4 / atol 2e-3, the bar of the JAX
-package's Pallas fbank.  K2 (flash attention) against its plain version:
+package's Pallas fbank; against the plain rFFT path at that bar wherever the
+path meets it against the plain version (its float32 pre-emphasized frames
+can miss it at a rare low-energy filter).  K2 (flash attention) against its plain version:
 float32 atol 1e-4 (float32 sums in another order); bf16 against the plain
 bf16 path compared in float32, atol 2e-2 and cosine >= 0.9999 (the kernel
 rounds the unnormalized probabilities to bf16 before P V, the plain version
 the normalized ones).  K2's backward (dq, dk, dv, dbias) against its plain
 version: float32 atol 1e-4; bf16 cosine >= 0.9999 per gradient (the kernels
-round P and dS to bf16 as the A operand of their products).  WavLM's gated
-bias in factored form (an (h, T, T) table, a (B, h, T) gate) at the bars
-above, T in {75, 99, 131, 499, 1599}.  Float32 embeddings cosine >= 0.99999
+round P and dS to bf16 as the A operand of their products), and so are the
+gate's gradient and D, which the dQ kernel forms.  WavLM's gated bias in
+factored form (an (h, T, T) table, a (B, h, T) gate) at the bars above, T in
+{75, 99, 131, 499, 1599}.  Float32 embeddings cosine >= 0.99999
 against the CPU (TF32 off)."""
 
 import json
@@ -47,7 +50,9 @@ def _wav(seed, shape):
 @pytest.mark.parametrize(
     "shape,kw",
     [((4, 32000), {}), ((1, 32240), {"num_mel_bins": 40}), ((3, 401), {}),
-     ((2, 16000), {"sample_rate": 8000})],
+     ((2, 16000), {"sample_rate": 8000}), ((3, 24000), {"num_mel_bins": 72}),
+     ((2, 48000), {"sample_rate": 48000, "window_type": "povey", "preemph_coeff": 0.0}),
+     ((2, 22050), {"sample_rate": 22050, "remove_dc_offset": False, "scale_to_int16": False})],
 )
 def test_fbank_kernel_matches_plain(cuda, shape, kw):
     cfg = FbankConfig(spectrum_impl="kernel", **kw)
@@ -58,6 +63,14 @@ def test_fbank_kernel_matches_plain(cuda, shape, kw):
     assert fbank_kernel.LAUNCHES == launches + 1
     want = fbank_kernel.fbank_kernel_reference(wav, cfg)
     torch.testing.assert_close(got, want, **FBANK_TOL)
+    # the plain rFFT path (cuFFT + the dense mel product), the steps the
+    # kernel takes, on every element where that path meets the bar against
+    # the plain version (its float32 pre-emphasized frame can miss it at a
+    # rare low-energy filter: csrc/fbank.cu)
+    fft, _ = fbank(wav, FbankConfig(spectrum_impl="fft", **kw))
+    fft_ok = torch.isclose(fft, want, **FBANK_TOL)
+    assert float(fft_ok.float().mean()) > 0.999
+    assert bool((torch.isclose(got, fft, **FBANK_TOL) | ~fft_ok).all())
     # fbank() routes dither-free CUDA log-mel batches to the kernel, and the
     # step-by-step plain path agrees with it
     routed, _ = fbank(wav, cfg)
@@ -78,6 +91,14 @@ def test_fbank_kernel_rejects_bad_input(cuda):
         fbank_kernel.fbank_kernel(torch.zeros(16000, 2, device=cuda).T, cfg)
     with pytest.raises(ValueError, match="frame"):
         fbank_kernel.fbank_kernel(torch.zeros(1, 300, device=cuda), cfg)
+    # FFT sizes past the kernel's 256-2048: 4 kHz (100-sample frames, N =
+    # 128) and 96 kHz (N = 4096)
+    launches = fbank_kernel.LAUNCHES
+    for rate in (4000, 96000):
+        with pytest.raises(ValueError, match="FFT sizes"):
+            fbank_kernel.fbank_kernel(torch.zeros(1, rate, device=cuda),
+                                      FbankConfig(sample_rate=rate, num_mel_bins=23))
+    assert fbank_kernel.LAUNCHES == launches
 
 
 @pytest.mark.cuda
@@ -286,7 +307,7 @@ def test_flash_backward_matches_plain(cuda, dtype, case):
     torch.cuda.synchronize()
     assert (k2.LAUNCHES_BWD_DKV, k2.LAUNCHES_BWD_DQ) == (dkv + 1, dq + 1)
     want = k2.flash_attention_bwd_reference(q, k, v, bias, key_len, None, out, lse, dout)
-    for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+    for name, g, w in zip(("dq", "dk", "dv", "dbias", "dgate", "delta"), got, want):
         if w is None:
             assert g is None
             continue
@@ -314,12 +335,44 @@ def test_flash_backward_factored_bias_matches_plain(cuda, dtype, t):
     torch.cuda.synchronize()
     want = k2.flash_attention_bwd_reference(q, k, v, table, key_len, None, out, lse, dout,
                                             bias_gate=gate)
-    for name, g, w in zip(("dq", "dk", "dv", "ds"), got, want):
+    # the kernel's D and gate gradient, and the table's gradient from each dS
+    pairs = list(zip(("dq", "dk", "dv", "ds", "dgate", "delta"), got, want))
+    pairs.append(("dtable", k2.factored_bias_grads(got.dbias, table, gate),
+                  k2.factored_bias_grads(want.dbias, table, gate)))
+    for name, g, w in pairs:
         assert g.dtype == w.dtype and g.shape == w.shape, name
         if dtype == torch.float32:
             torch.testing.assert_close(g, w, atol=1e-4, rtol=0.0, msg=name)
         else:
             assert _cos(g, w) >= 0.9999, (name, _cos(g, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("t", [75, 131])
+def test_flash_backward_ds_view_is_padded(cuda, dtype, t):
+    """dS comes back as the [..., :T] view of rows padded to a multiple of 8
+    (TMA's 16-byte strides), equal to the plain dS, with zeros at the keys
+    past each row's key length: a row of no valid key, and at T = 131 a key
+    tile wholly past key_len."""
+    b, h = 3, 4
+    q, k, v, rng = _attn_inputs(90 + t, b, t, h, dtype, cuda)
+    table, gate = _gated(rng, b, t, h, dtype, cuda)
+    key_len = torch.tensor([t, 0, 50], device=cuda)
+    out, lse = k2.flash_attention_fwd(q, k, v, table, key_len, return_lse=True, bias_gate=gate)
+    dout = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32)).to(cuda, dtype)
+    ds = k2.flash_attention_bwd(q, k, v, table, key_len, None, out, lse, dout,
+                                bias_gate=gate).dbias
+    torch.cuda.synchronize()
+    want = k2.flash_attention_bwd_reference(q, k, v, table, key_len, None, out, lse, dout,
+                                            bias_gate=gate).dbias
+    assert ds.shape == (b, h, t, t) and ds.stride() == (h * t * (t + -t % 8), t * (t + -t % 8),
+                                                        t + -t % 8, 1)
+    assert float(ds[1].abs().max()) == 0.0 and float(ds[2, ..., 50:].abs().max()) == 0.0
+    if dtype == torch.float32:
+        torch.testing.assert_close(ds, want, atol=1e-4, rtol=0.0)
+    else:
+        assert _cos(ds, want) >= 0.9999, _cos(ds, want)
 
 
 @pytest.mark.cuda
@@ -343,6 +396,19 @@ def test_flash_function_factored_grads_match_autograd(cuda, dtype):
             torch.testing.assert_close(a, w, atol=1e-4, rtol=1e-4, msg=name)
         else:
             assert _cos(a, w) >= 0.999, (name, _cos(a, w))
+    # the gate's gradient and D as the dQ kernel forms them, against the
+    # plain backward of the same forward
+    out, lse = k2.flash_attention_fwd(q, k, v, table, None, return_lse=True, bias_gate=gate)
+    kern = k2.flash_attention_bwd(q, k, v, table, None, None, out, lse, g, bias_gate=gate)
+    plain = k2.flash_attention_bwd_reference(q, k, v, table, None, None, out, lse, g,
+                                             bias_gate=gate)
+    for name in ("dgate", "delta"):
+        a, w = getattr(kern, name), getattr(plain, name)
+        assert a.shape == w.shape == (b, h, t) and a.dtype == w.dtype, name
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, w, atol=1e-4, rtol=0.0, msg=name)
+        else:
+            assert _cos(a, w) >= 0.9999, (name, _cos(a, w))
 
 
 @pytest.mark.cuda

@@ -137,8 +137,10 @@ def test_flash_function_matches_autograd(case):
 def test_flash_function_factored_bias_grads(with_len):
     """WavLM's gated bias in factored form: the Function's plain backward
     returns the (h, T, T) table's and the (B, h, T, 1) gate's gradients
-    from dS; against autograd through the plain forward with the bias
-    materialized as gate * table (float32, atol 1e-5)."""
+    (the table's summed from dS, the gate's as the backward's `dgate`, as
+    the dQ kernel forms it); against autograd through the plain forward with
+    the bias materialized as gate * table (float32, atol 1e-5).  The plain
+    backward's D is rowsum(out * dout) and its dgate autograd's."""
     rng = np.random.default_rng(21)
     b, t, h = 2, 37, 3
     q, k, v, g = (T(rng.standard_normal((b, t, h, 64)).astype(np.float32)) for _ in range(4))
@@ -155,6 +157,14 @@ def test_flash_function_factored_bias_grads(with_len):
     for name, a, w in zip(("dq", "dk", "dv", "dtable", "dgate"), got, want):
         assert a.shape == w.shape and a.dtype == w.dtype, name
         torch.testing.assert_close(a, w, atol=1e-5, rtol=1e-5, msg=name)
+    o, lse = k2.flash_attention_reference(q, k, v, table, key_len, return_lse=True,
+                                          bias_gate=gate)
+    grads = k2.flash_attention_bwd_reference(q, k, v, table, key_len, None, o, lse, g,
+                                             bias_gate=gate)
+    assert grads.dgate.shape == (b, h, t) and grads.delta.dtype == torch.float32
+    torch.testing.assert_close(grads.dgate, want[4][..., 0], atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(grads.delta, (o * g).sum(-1).transpose(1, 2), atol=1e-5,
+                               rtol=1e-5)
 
 
 # ------------------------------------------------------------ augmentation

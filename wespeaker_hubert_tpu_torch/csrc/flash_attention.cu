@@ -86,13 +86,6 @@ struct FwdTile {
   static constexpr int NACC = BN / 2;  // S accumulator registers per thread
 };
 
-// byte offset of bias element (query row r, key col) in a stage's tile
-template <int BN>
-__device__ __forceinline__ uint32_t bias_off(int r, int col) {
-  if constexpr (BN == 64) return swz128(r, col);
-  else return r * (BN * 2) + col * 2;
-}
-
 template <int BN>
 __global__ void __launch_bounds__(160) flash_fwd_bf16_sm90(const __grid_constant__ FwdParams p) {
   using C = FwdTile<BN>;

@@ -53,6 +53,14 @@ __device__ __forceinline__ uint32_t swz128(int r, int col) {
   return r * 128 + ((((col >> 3) ^ r) & 7) << 4) + (col & 7) * 2;
 }
 
+// byte offset of element (query row r, key col) of a bias or dS tile of
+// BN keys: 128-byte rows swizzled (BN = 64), else plain rows of BN * 2 bytes
+template <int BN>
+__device__ __forceinline__ uint32_t bias_off(int r, int col) {
+  if constexpr (BN == 64) return swz128(r, col);
+  else return r * (BN * 2) + col * 2;
+}
+
 // ------------------------------------------------------------- mbarriers
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)

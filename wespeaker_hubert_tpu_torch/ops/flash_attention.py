@@ -27,33 +27,37 @@ gives 0, and gradients of 0.
 `flash_attention` takes a CPU tensor to the plain versions and a CUDA
 tensor to the kernels, which it launches or raises on.  When a gradient is
 needed it goes through `FlashAttention` (an autograd Function): the forward
-also writes each row's log-sum-exp, and the backward launches the dK/dV and
-the dQ (+ dBias) kernels; the dQ kernel writes dS, the effective bias's
-gradient, in the bias's dtype (as JAX returns `ds` in `ab`'s dtype), which
-the Function sums to the bias's (broadcast) shape or, with a gate, reduces to
-the gate's and the table's gradients by the torch expressions autograd uses
-for `gate * table`.  `LAUNCHES`, `LAUNCHES_BWD_DKV` and `LAUNCHES_BWD_DQ`
-count kernel launches.  The kernels take head dim 64, float32 or bf16, a
-bias and gate of the inputs' dtype, and a contiguous head dim.  The bf16
-forward and dK/dV kernels read through TMA: q, k, v and dout need 16-byte
+also writes each row's log-sum-exp, and the backward launches the dQ kernel
+and then the dK/dV kernel.  The dQ kernel writes D = rowsum(out * dout) for
+dK/dV, dS, the effective bias's gradient, in the bias's dtype (as JAX
+returns `ds` in `ab`'s dtype) into rows padded to a multiple of 8 (the
+wrappers hand on the [..., :T] view), and with a gate the gate's gradient
+(the sum of dS * table over each row's keys).  The Function sums dS to the
+bias's (broadcast) shape or, with a gate, to the table's gradient
+(`factored_bias_grads`).  `LAUNCHES`, `LAUNCHES_BWD_DKV` and
+`LAUNCHES_BWD_DQ` count kernel launches.  The kernels take head dim 64,
+float32 or bf16, a bias and gate of the inputs' dtype, and a contiguous
+head dim.  The bf16 kernels read through TMA: q, k and v need 16-byte
 aligned bases and strides of multiples of 16 bytes (else the wrapper
-raises), and a bias TMA cannot read as it is (a row stride that is not a
-multiple of 16 bytes, a broadcast query or key axis) is copied once into a
-padded layout, counted by `BIAS_RELAYOUTS` (`frontend/ssl_encoder.py` builds
-WavLM's table padded, so its path makes none).  Scores and the softmax are
-float32 in every version; outputs have the inputs' dtype.
+raises; dout and out that break the rule are copied), and a bias TMA cannot
+read as it is (a row stride that is not a multiple of 16 bytes, a broadcast
+query or key axis) is copied once into a padded layout, counted by
+`BIAS_RELAYOUTS` (`frontend/ssl_encoder.py` builds WavLM's table padded, so
+its path makes none).  Scores and the softmax are float32 in every version;
+outputs have the inputs' dtype.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 __all__ = [
     "BIAS_RELAYOUTS",
+    "BwdGrads",
     "LAUNCHES",
     "LAUNCHES_BWD_DKV",
     "LAUNCHES_BWD_DQ",
@@ -79,6 +83,7 @@ HEAD_DIM = 64
 _SOURCES = ["flash_attention.cu"]
 _BWD_SOURCES = ["flash_attention_bwd.cu"]
 _N_STRIDES = 19  # q, k, v, out or dout (3 each), bias (4), gate (3)
+_N_BWD_STRIDES = 22  # q, k, v, dout (3 each), bias (4), gate (3), out (3)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65535
 
@@ -103,15 +108,28 @@ def effective_bias(bias: Optional[torch.Tensor], bias_gate: Optional[torch.Tenso
     return (_gate4(bias_gate).float() * bias.float()).to(bias.dtype)
 
 
-def factored_bias_grads(ds, bias, bias_gate, need_bias=True, need_gate=True):
-    """The gradients of `bias` (the table) and `bias_gate` from dS, the
-    effective bias's gradient (B, h, T, T), by the expressions autograd uses
-    for `gate * table`: (dS * table) summed to the gate's shape and (dS *
-    gate) summed to the table's."""
-    g4 = _gate4(bias_gate)
-    d_bias = (ds * g4).sum_to_size(bias.shape) if need_bias else None
-    d_gate = (ds * bias).sum_to_size(g4.shape).reshape(bias_gate.shape) if need_gate else None
-    return d_bias, d_gate
+def factored_bias_grads(ds, bias, bias_gate):
+    """The gradient of `bias` (the table) from dS, the effective bias's
+    gradient (B, h, T, T), by the expression autograd uses for
+    `gate * table`: (dS * gate) summed to the table's shape.  It sums over
+    the batch, across the dQ kernel's blocks; the gate's gradient, a sum over
+    one row's keys, comes from the kernel (`BwdGrads.dgate`)."""
+    return (ds * _gate4(bias_gate)).sum_to_size(bias.shape)
+
+
+class BwdGrads(NamedTuple):
+    """The backward's outputs, from the kernels or the plain version: dq,
+    dk, dv in the inputs' dtype; dbias dS (B, h, T, T) in the bias's dtype,
+    or None (no bias, or not asked for); dgate the gate's gradient (B, h, T)
+    in its dtype, sum over keys of dS * bias, or None without a gate; delta
+    D = rowsum(out * dout) (B, h, T) float32."""
+
+    dq: torch.Tensor
+    dk: torch.Tensor
+    dv: torch.Tensor
+    dbias: Optional[torch.Tensor]
+    dgate: Optional[torch.Tensor]
+    delta: torch.Tensor
 
 
 def _reference_scores(q, k, bias, key_len, scale):
@@ -164,7 +182,7 @@ def flash_attention_bwd_reference(
     lse: torch.Tensor,
     dout: torch.Tensor,
     bias_gate: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+) -> BwdGrads:
     """Plain PyTorch version of the backward kernels, their algebra step by
     step in float32 (Bias the effective bias, gated when `bias_gate` is
     given):
@@ -173,9 +191,10 @@ def flash_attention_bwd_reference(
         D  = rowsum(out * dout)
         dV = P^T dout,  dS = P * (dout v^T - D)
         dQ = scale * dS k,  dK = scale * dS^T q,  dBias = dS
+        dGate = sum over keys of round(dS) * bias  (dS in the bias's dtype)
 
-    Returns (dq, dk, dv, dbias) in the inputs' dtypes; dbias is dS (B, h, T,
-    T) in the bias's dtype, or None without a bias."""
+    Returns `BwdGrads` in the inputs' dtypes; dbias is dS (B, h, T, T) in
+    the bias's dtype, or None without a bias."""
     scale = _scale(q, scale)
     s = _reference_scores(q, k, effective_bias(bias, bias_gate), key_len, scale)
     lse = lse.float()[..., None]
@@ -188,7 +207,11 @@ def flash_attention_bwd_reference(
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
     dbias = ds.to(bias.dtype) if bias is not None else None
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
+    dgate = None
+    if bias_gate is not None and bias is not None:
+        dgate = (dbias.float() * bias.float()).sum(-1).to(bias_gate.dtype)  # (B, h, T)
+    return BwdGrads(dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias, dgate,
+                    delta[..., 0])
 
 
 def kernel_strides(
@@ -261,6 +284,15 @@ def _check_rows(name: str, x: torch.Tensor) -> None:
         raise ValueError(f"{name} must be 16-byte aligned in every row (strides {x.stride()})")
 
 
+def _tma_rows(x: torch.Tensor) -> torch.Tensor:
+    """A (B, T, h, 64) tensor as TMA reads it: itself, or a fresh contiguous
+    copy when its head dim, base or strides break `_check_rows`' rule."""
+    vec = 16 // x.element_size()
+    if x.stride(3) != 1 or x.data_ptr() % 16 or any(s % vec for s in x.stride()[:3]):
+        return x.clone(memory_format=torch.contiguous_format)
+    return x
+
+
 def _tma_bias(bias: torch.Tensor) -> torch.Tensor:
     """A (B, h, T, T) bias view TMA reads as it is (unit key stride, other
     strides multiples of 16 bytes or 0 on the batch and head axes, a 16-byte
@@ -323,10 +355,16 @@ def _bwd_library():
 
         lib = load_library("flash_attention_bwd", _BWD_SOURCES)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        head = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-                ctypes.POINTER(ctypes.c_longlong), ctypes.c_float]
-        lib.flash_attention_bwd_dkv.argtypes = [*head, i32, ptr]  # ..., tile, stream
-        lib.flash_attention_bwd_dq.argtypes = [*head, ptr]
+        strides = ctypes.POINTER(ctypes.c_longlong)
+        # dtype, q, k, v, bias, gate, key_len, dout, lse, delta, dk, dv, B, T, H,
+        # strides, scale, tile, stream
+        lib.flash_attention_bwd_dkv.argtypes = [
+            i32, *[ptr] * 11, i32, i32, i32, strides, ctypes.c_float, i32, ptr]
+        # dtype, q, k, v, bias, gate, key_len, dout, out, lse, delta, dq, dbias,
+        # dgate, B, T, H, strides, ds_stride, scale, tile, stream
+        lib.flash_attention_bwd_dq.argtypes = [
+            i32, *[ptr] * 13, i32, i32, i32, strides, ctypes.c_longlong, ctypes.c_float,
+            i32, ptr]
         lib.flash_attention_bwd_dkv.restype = lib.flash_attention_bwd_dq.restype = i32
         lib.flash_attention_bwd_error_string.argtypes = [i32]
         lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
@@ -391,12 +429,14 @@ def flash_attention_bwd(
     dout: torch.Tensor,
     bias_grad: bool = True,
     bias_gate: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """The backward kernels on CUDA tensors: (dq, dk, dv, dbias), dq/dk/dv
-    contiguous (B, T, h, hd), dbias dS, the effective bias's gradient,
-    contiguous (B, h, T, T) in the bias's dtype, or None without a bias or
-    when `bias_grad` is False.  D = rowsum(out * dout) is computed here in
-    float32, as JAX computes it outside its kernels."""
+) -> BwdGrads:
+    """The backward kernels on CUDA tensors, dQ first, then dK/dV on the
+    same stream: `BwdGrads` with dq/dk/dv contiguous (B, T, h, hd); dbias
+    dS, the effective bias's gradient, in the bias's dtype, a (B, h, T, T)
+    view of rows padded to a multiple of 8, or None without a bias or when
+    `bias_grad` is False; dgate (B, h, T) with a gate; delta, D =
+    rowsum(out * dout) in float32, which the dQ kernel computes for dK/dV
+    (JAX computes it outside its kernels)."""
     global LAUNCHES_BWD_DKV, LAUNCHES_BWD_DQ
     if not q.is_cuda:
         raise ValueError("flash_attention_bwd launches the CUDA kernels: q is on the CPU")
@@ -407,38 +447,45 @@ def flash_attention_bwd(
             f"dout must match q: {tuple(dout.shape)} {dout.dtype} {dout.device} against "
             f"{tuple(q.shape)} {q.dtype} {q.device}"
         )
-    if out.shape != q.shape or out.device != q.device:
-        raise ValueError(f"out must match q's shape and device, got {tuple(out.shape)}")
+    if out.shape != q.shape or out.dtype != q.dtype or out.device != q.device:
+        raise ValueError(
+            f"out must match q: {tuple(out.shape)} {out.dtype} {out.device} against "
+            f"{tuple(q.shape)} {q.dtype} {q.device}"
+        )
     if lse.shape != (b, h, t) or lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError(f"lse must be ({b}, {h}, {t}) float32 on {q.device}")
-    vec = 16 // dout.element_size()
-    if dout.stride(3) != 1 or dout.data_ptr() % 16 or any(x % vec for x in dout.stride()[:3]):
-        dout = dout.contiguous()  # the incoming gradient, laid out as TMA reads it
+    # the incoming gradient and the forward's output, laid out as TMA reads them
+    dout, out = _tma_rows(dout), _tma_rows(out)
     lse = lse.contiguous()
-    delta = (out.float() * dout.float()).sum(-1).transpose(1, 2).contiguous()  # (B, h, T)
     if key_len is not None:
         key_len = key_len.to(torch.int32).contiguous()
     dq = torch.empty((b, t, h, hd), dtype=q.dtype, device=q.device)
     dk, dv = torch.empty_like(dq), torch.empty_like(dq)
-    dbias = None
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    dgate = None if gate is None else torch.empty((b, h, t), dtype=gate.dtype, device=q.device)
+    ds_stride = t + (-t % 8)  # 16-byte rows: dS leaves by TMA stores
+    ds = None
     if bias is not None and bias_grad:
-        dbias = torch.empty((b, h, t, t), dtype=bias.dtype, device=q.device)
-    all_strides = (ctypes.c_longlong * _N_STRIDES)(*qkv_strides, *dout.stride()[:3], *bias_strides)
-    dt, sc = _DTYPES[q.dtype], _scale(q, scale)
+        ds = torch.empty((b, h, t, ds_stride), dtype=bias.dtype, device=q.device)
+    all_strides = (ctypes.c_longlong * _N_BWD_STRIDES)(
+        *qkv_strides, *dout.stride()[:3], *bias_strides, *out.stride()[:3])
+    dt, sc, tile = _DTYPES[q.dtype], _scale(q, scale), key_tile(t)
     lib = _bwd_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        args = (dt, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), _ptr(gate),
-                _ptr(key_len), dout.data_ptr(), lse.data_ptr(), delta.data_ptr())
-        rc = lib.flash_attention_bwd_dkv(*args, dk.data_ptr(), dv.data_ptr(), b, t, h,
-                                         all_strides, sc, key_tile(t), stream)
-        _raise_on(rc, "flash-attention dK/dV", lib.flash_attention_bwd_error_string)
-        LAUNCHES_BWD_DKV += 1
-        rc = lib.flash_attention_bwd_dq(*args, dq.data_ptr(), _ptr(dbias), b, t, h,
-                                        all_strides, sc, stream)
+        inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), _ptr(gate),
+                  _ptr(key_len), dout.data_ptr())
+        rc = lib.flash_attention_bwd_dq(dt, *inputs, out.data_ptr(), lse.data_ptr(),
+                                        delta.data_ptr(), dq.data_ptr(), _ptr(ds), _ptr(dgate),
+                                        b, t, h, all_strides, ds_stride, sc, tile, stream)
         _raise_on(rc, "flash-attention dQ", lib.flash_attention_bwd_error_string)
         LAUNCHES_BWD_DQ += 1
-    return dq, dk, dv, dbias
+        rc = lib.flash_attention_bwd_dkv(dt, *inputs, lse.data_ptr(), delta.data_ptr(),
+                                         dk.data_ptr(), dv.data_ptr(), b, t, h, all_strides, sc,
+                                         tile, stream)
+        _raise_on(rc, "flash-attention dK/dV", lib.flash_attention_bwd_error_string)
+        LAUNCHES_BWD_DKV += 1
+    return BwdGrads(dq, dk, dv, None if ds is None else ds[..., :t], dgate, delta)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -466,20 +513,18 @@ class FlashAttention(torch.autograd.Function):
         need_bias = bias is not None and ctx.needs_input_grad[3]
         need_gate = bias_gate is not None and ctx.needs_input_grad[6]
         if q.is_cuda:
-            dq, dk, dv, ds = flash_attention_bwd(
-                q, k, v, bias, key_len, ctx.scale, out, lse, dout,
-                bias_grad=need_bias or need_gate, bias_gate=bias_gate,
-            )
+            g = flash_attention_bwd(q, k, v, bias, key_len, ctx.scale, out, lse, dout,
+                                    bias_grad=need_bias, bias_gate=bias_gate)
         else:
-            dq, dk, dv, ds = flash_attention_bwd_reference(
-                q, k, v, bias, key_len, ctx.scale, out, lse, dout, bias_gate=bias_gate
-            )
+            g = flash_attention_bwd_reference(q, k, v, bias, key_len, ctx.scale, out, lse, dout,
+                                              bias_gate=bias_gate)
         dbias = dgate = None
-        if bias_gate is not None and (need_bias or need_gate):
-            dbias, dgate = factored_bias_grads(ds, bias, bias_gate, need_bias, need_gate)
-        elif need_bias:
-            dbias = ds.sum_to_size(bias.shape)  # a broadcast bias
-        return dq, dk, dv, dbias, None, None, dgate
+        if need_bias:  # the table's gradient, or a broadcast bias's
+            dbias = (factored_bias_grads(g.dbias, bias, bias_gate) if bias_gate is not None
+                     else g.dbias.sum_to_size(bias.shape))
+        if need_gate:
+            dgate = g.dgate.reshape(bias_gate.shape)
+        return g.dq, g.dk, g.dv, dbias, None, None, dgate
 
 
 def flash_attention(
