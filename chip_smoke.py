@@ -58,7 +58,25 @@ Phases:
      launch 24 times per step, the losses are finite, LR and margin follow
      their schedules, models/model_1.pt loads into bin/extract.  Then one
      float32 step with K2 against one with plain attention (batch 64), one
-     on the card against the CPU (batch 2), and a profile of 3 bf16 steps.
+     on the card against the CPU (batch 2), and a profile of 3 bf16 steps;
+ 12. the flagship speaker-verification recipe at full width:
+     recipes.voxceleb_v2 stages 1-7 on examples/voxceleb/v2/conf/
+     ecapa_tdnn.yaml as the port's YAML reader parses it
+     (ECAPA_TDNN_GLOB_c512, ArcMargin over 3 x 5,994 classes, batch 128 x
+     2 s, loop_steps 8, tar shards, dither 1.0, float32), overriding only the
+     paths and the run's length (2 epochs of 12 steps, a checkpoint per
+     epoch, 2 averaged), on seeded wavs: aug stores, shards and lists,
+     training, averaging and extraction (K1 launches in stage 4 only),
+     cosine scores, AS-Norm and QMF, each printing its EER and minDCF; K1
+     on every input stage 4 gave it against its plain version, 16 of the
+     stage-4 embeddings against bin/extract on the CPU and the stage 5 / 6
+     score files recomputed on the CPU; then 3 profiled float32 steps of
+     that config;
+ 13. one float32 step of that model (17,982 classes, batch 32 x 2 s, dither
+     0, SpecAug off) on the card against the CPU, and a 2-step call against
+     two single steps on the card;
+ 14. bin/score at VoxCeleb1-O's and VoxCeleb1-H's sizes on seeded
+     embeddings (5,994-speaker cohort, top 300), card against CPU, timed.
 
 A kernel's bound is the least time the card could take for the work the
 function needs (for log-mel: an FFT and a sparse mel product; for
@@ -369,7 +387,10 @@ def phase_kernel_checks(report):
     from wespeaker_hubert_tpu_torch.ops import fbank_kernel
     from wespeaker_hubert_tpu_torch.ops.fbank import FbankConfig, fbank
 
-    cases = [(16, 480000, 80), (16, 32000, 80), (1, 32240, 80), (16, 32000, 40)]
+    # the served shapes, then the recipe's stage-4 extraction shapes (full
+    # batches of 32 in EvalPipeline's 400- and 800-frame buckets), then 40 mels
+    cases = [(16, 480000, 80), (16, 32000, 80), (1, 32240, 80), (32, 64240, 80),
+             (32, 128240, 80), (16, 32000, 40)]
     rows = []
     for i, (b, w, m) in enumerate(cases):
         cfg = FbankConfig(num_mel_bins=m, spectrum_impl="kernel")
@@ -1628,10 +1649,11 @@ def _train_net(root, attn_impl, device, spec_aug=True):
     return net, state, step
 
 
-def _one_step(net, state, step, batch):
-    """(loss, {frontend tensor: p_new - p_old}, {frontend tensor: max |p_old|})."""
+def _one_step(net, state, step, batch, prefix="frontend."):
+    """(loss, {tensor: p_new - p_old}, {tensor: max |p_old|}) over the
+    floating tensors whose names start with `prefix`."""
     before = {k: v.detach().float().cpu().clone() for k, v in net.state_dict().items()
-              if k.startswith("frontend.") and v.is_floating_point()}
+              if k.startswith(prefix) and v.is_floating_point()}
     metrics = step(state, batch)
     upd = {k: net.state_dict()[k].detach().float().cpu() - v for k, v in before.items()}
     return float(metrics["loss"]), upd, {k: float(v.abs().max()) for k, v in before.items()}
@@ -1801,37 +1823,15 @@ def phase_train_checks(report, root):
             step(state, batch)
         sync()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = device_rows(prof)
-    total = sum(r[1] for r in rows)
-    busy_us, _ = device_busy_us(prof)
-    groups = {"K2 flash_fwd": ("flash_fwd",), "K2 flash_bwd": ("flash_bwd",),
-              "conv": ("fprop", "dgrad", "wgrad", "cudnn", "convol", "winograd", "implicit_gemm"),
-              "GEMM": ("nvjet", "gemm", "cutlass", "xmma", "cublas"),
-              "norms": ("layer_norm", "group_norm", "batch_norm"),
-              "FFT (augmentation)": ("fft", "radix", "vector_fft"),
-              "optimizer": ("foreach", "multi_tensor"),
-              "copies and casts": ("copy", "memcpy", "memset", "catarray"),
-              "elementwise": ("elementwise", "reduce", "softmax", "gelu", "index")}
-    shares = {g: 0.0 for g in groups}
-    shares["other"] = 0.0
-    members = {g: [] for g in shares}
-    for name, d, c in rows:
-        group = next((g for g, keys in groups.items()
-                      if any(key in name.lower() for key in keys)), "other")
-        shares[group] += d
-        members[group].append((d, name[:110]))
-    out["profile"] = {
-        "window": "3 bf16 train steps, batch 64, WavLM-Large + ECAPA_TDNN_GLOB_c512",
-        "wall_ms": wall_us / 1e3, "device_ms": total / 1e3,
-        "device_idle_share": 1 - busy_us / wall_us if total else "not measured",
-        "shares": {g: d / total for g, d in shares.items()} if total else "not measured",
-        "group_top": {g: [f"{d / 1e3:.3f} ms {n}" for d, n in sorted(m, reverse=True)[:4]]
-                      for g, m in members.items()},
-    }
+    out["profile"] = grouped_profile(
+        prof, wall_us, {"K2 flash_fwd": ("flash_fwd",), "K2 flash_bwd": ("flash_bwd",),
+                        **PROFILE_GROUPS})
+    out["profile"]["window"] = "3 bf16 train steps, batch 64, WavLM-Large + ECAPA_TDNN_GLOB_c512"
+    total = out["profile"]["device_ms"]
     if total:
-        log(f"[train profile] 3 bf16 steps: device {total / 1e3:.2f} ms over {wall_us / 1e3:.2f} "
-            f"ms wall (idle share {1 - busy_us / wall_us:.4f}); shares "
-            + ", ".join(f"{g} {d / total:.3f}" for g, d in shares.items()))
+        log(f"[train profile] 3 bf16 steps: device {total:.2f} ms over {wall_us / 1e3:.2f} "
+            f"ms wall (idle share {out['profile']['device_idle_share']:.4f}); shares "
+            + ", ".join(f"{g} {d:.3f}" for g, d in out["profile"]["shares"].items()))
         for g in ("K2 flash_fwd", "K2 flash_bwd", "GEMM", "conv"):
             log(f"[train profile]   {g}: " + "; ".join(out["profile"]["group_top"][g][:3]))
     else:
@@ -1842,6 +1842,684 @@ def phase_train_checks(report, root):
           f"train (a): launches {a['launches_flash']} / {a['launches_einsum']}")
     check(b["loss_rel"] <= 1e-4 and not b["failing"], "train (b): card step vs CPU step")
 
+
+# ------------------------------------------------ the flagship recipe
+RECIPE_CONFIG = Path(__file__).resolve().parent / "examples/voxceleb/v2/conf/ecapa_tdnn.yaml"
+RECIPE_SPEAKERS = 5994  # VoxCeleb2 dev: the head has 3 x 5,994 classes
+RECIPE_TRAIN_SPEAKERS, RECIPE_PER_SPEAKER = 128, 12  # 1,536 utterances: 12 batches of
+# 128 per epoch, one 8-step call and a 4-step tail where the data run out (bin/train,
+# as JAX's, checks epoch_iter only after a full group, so epoch_iter 12 does not cut it)
+RECIPE_SEED = 20251019
+PROFILE_GROUPS = {
+    "conv": ("fprop", "dgrad", "wgrad", "cudnn", "convol", "winograd", "implicit_gemm"),
+    "GEMM": ("nvjet", "gemm", "cutlass", "xmma", "cublas"),
+    "norms": ("layer_norm", "group_norm", "batch_norm"),
+    "FFT (augmentation)": ("fft", "radix", "vector_fft"),
+    "optimizer": ("foreach", "multi_tensor"),
+    "copies and casts": ("copy", "memcpy", "memset", "catarray"),
+    "elementwise": ("elementwise", "reduce", "softmax", "gelu", "index")}
+
+
+def grouped_profile(prof, wall_us, groups):
+    """Device time of a torch.profiler run by group (first match of a
+    group's substrings in the kernel's name), the idle share of `wall_us`
+    and each group's largest kernels."""
+    rows = device_rows(prof)
+    total = sum(r[1] for r in rows)
+    busy_us, _ = device_busy_us(prof)
+    shares = {g: 0.0 for g in list(groups) + ["other"]}
+    members = {g: [] for g in shares}
+    for name, d, _ in rows:
+        group = next((g for g, keys in groups.items()
+                      if any(key in name.lower() for key in keys)), "other")
+        shares[group] += d
+        members[group].append((d, name[:110]))
+    return {
+        "wall_ms": wall_us / 1e3, "device_ms": total / 1e3,
+        "device_idle_share": 1 - busy_us / wall_us if total else "not measured",
+        "shares": {g: d / total for g, d in shares.items()} if total else "not measured",
+        "group_top": {g: [f"{d / 1e3:.3f} ms {n}" for d, n in sorted(m, reverse=True)[:4]]
+                      for g, m in members.items()},
+    }
+
+
+def speechlike(rng, seconds, f0):
+    """Two harmonics of f0 under a syllable-rate envelope over a noise floor,
+    on the int16 grid."""
+    t = np.arange(int(seconds * SR)) / SR
+    env = np.clip(np.sin(2 * np.pi * rng.uniform(2, 6) * t + rng.uniform(0, 6)), 0, None)
+    x = env * (0.1 * np.sin(2 * np.pi * f0 * t) + 0.05 * np.sin(4 * np.pi * f0 * t + 1.0))
+    x = x + rng.uniform(0.005, 0.03) * rng.standard_normal(len(t))
+    return (np.round(np.clip(x, -1, 1) * 32767) / 32768).astype(np.float32)
+
+
+def write_recipe_data(data):
+    """The recipe's DATA directory from seeded audio: MUSAN / RIR stand-ins
+    (seeded noise, impulse responses), vox2_dev with 1,536 utterances of
+    2.5-7.95 s over 128 speakers (12 each, a third over 6 s) and an utt2spk
+    that names all 5,994 training speakers (the rest without audio), and
+    vox1 with 64 utterances of 3-8 s over 8 speakers and a labeled trial
+    list over all their pairs.  Returns the audio seconds of each list."""
+    from wespeaker_hubert_tpu_torch.data.wav_io import write_wav
+
+    rng = np.random.default_rng(RECIPE_SEED)
+
+    def put(path, x):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        write_wav(path, x)
+        return path
+
+    scp = []
+    for kind, n in (("noise", 3), ("music", 2), ("speech", 2)):
+        for i in range(n):
+            x = (rng.uniform(0.05, 0.2) * rng.standard_normal(6 * SR)).astype(np.float32)
+            scp.append(f"{kind}-{i} {put(f'{data}/musan/{kind}-{i}.wav', x)}")
+    Path(f"{data}/musan/wav.scp").write_text("\n".join(scp) + "\n")
+    scp = []
+    for i in range(4):
+        n = int(0.25 * SR)
+        x = rng.standard_normal(n) * np.exp(-np.arange(n) / rng.uniform(400, 1600)) * 0.3
+        x[0] = 1.0
+        scp.append(f"rir-{i} {put(f'{data}/rirs/rir-{i}.wav', x.astype(np.float32))}")
+    Path(f"{data}/rirs/wav.scp").write_text("\n".join(scp) + "\n")
+    seconds = {}
+    for dset, n_spk, per, lo, hi in (("vox2_dev", RECIPE_TRAIN_SPEAKERS, RECIPE_PER_SPEAKER,
+                                      2.5, 7.95), ("vox1", 8, 8, 3.0, 8.0)):
+        prefix = "id0" if dset == "vox2_dev" else "id1"
+        scp, u2s, total = [], [], 0.0
+        for s in range(n_spk):
+            spk, f0 = f"{prefix}{s:04d}", rng.uniform(90, 280)
+            for j in range(per):
+                d = float(rng.uniform(lo, hi))
+                x = speechlike(rng, d, f0)
+                total += len(x) / SR
+                key = f"{spk}-{j:02d}"
+                scp.append(f"{key} {put(f'{data}/{dset}/wav/{key}.wav', x)}")
+                u2s.append(f"{key} {spk}")
+        if dset == "vox2_dev":
+            u2s += [f"id0{s:04d}-absent id0{s:04d}" for s in range(n_spk, RECIPE_SPEAKERS)]
+        Path(f"{data}/{dset}/wav.scp").write_text("\n".join(scp) + "\n")
+        Path(f"{data}/{dset}/utt2spk").write_text("\n".join(u2s) + "\n")
+        seconds[dset] = total
+    keys = [ln.split()[0] for ln in Path(f"{data}/vox1/wav.scp").read_text().splitlines()]
+    trials = [f"{a} {b} {'target' if a[:7] == b[:7] else 'nontarget'}"
+              for i, a in enumerate(keys) for b in keys[i + 1:]]
+    Path(f"{data}/vox1/vox1_O_cleaned.kaldi").write_text("\n".join(trials) + "\n")
+    return seconds
+
+
+class _StepTimer:
+    """Wraps bin/train's make_train_step so every call of the step it makes
+    is timed with a device synchronize after it: (steps in the call,
+    seconds).  The synchronize is the only change to the run."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, make):
+        def timed_make(*args, **kwargs):
+            fn = make(*args, **kwargs)
+
+            def step(state, batch):
+                t0 = time.perf_counter()
+                out = fn(state, batch)
+                sync()
+                self.calls.append((int(batch["label"].shape[0]) if batch["label"].dim() == 2
+                                   else 1, time.perf_counter() - t0))
+                return out
+            return step
+        return timed_make
+
+
+class _K1Spy:
+    """Wraps ops/fbank_kernel.fbank_kernel for a run: keeps a copy of every
+    input the run hands it, in order, and calls the wrapper unchanged, so
+    each launch counts as the run's.  The copies are the only change to the
+    run."""
+
+    def __init__(self, module):
+        self.module, self.fn, self.inputs = module, module.fbank_kernel, []
+
+    def __enter__(self):
+        def spy(wav, cfg):
+            self.inputs.append(wav.clone())
+            return self.fn(wav, cfg)
+        self.module.fbank_kernel = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.fbank_kernel = self.fn
+
+
+def k1_on_eval_batches(lists, caught=None):
+    """K1 against its plain version and a float64 log-mel on every batch
+    that EvalPipeline (bin/extract's batching, batch 32, 80 mels) makes of
+    `lists`, in the order stage 4 extracts them.  The bar, FBANK_TOL, holds
+    K1 to the plain version on every element where that version meets it
+    against the float64 log-mel, and to the float64 log-mel where it does
+    not: at the lowest mels of frames whose energy lies some e^25 above
+    them the plain version's own float32 rounding passes the bar.  With
+    `caught` (the spy's inputs of stage 4) each batch must equal the input
+    K1 was given there, so these are the main path's own inputs.  Per shape: the batches, the elements past the bar, and the
+    largest errors split into the frames each row's length makes valid and
+    the frames past them (which the consumer masks, ops/fbank.py), with the
+    worst valid element against the plain version described.  Returns
+    (rows, all batches matched)."""
+    import dataclasses
+
+    from wespeaker_hubert_tpu_torch.data.dataset import EvalPipeline, load_data_list
+    from wespeaker_hubert_tpu_torch.ops import fbank_kernel
+    from wespeaker_hubert_tpu_torch.ops.fbank import FbankConfig
+
+    cfg = FbankConfig(num_mel_bins=80, dither=0.0, spectrum_impl="matmul")
+    rows, i, matched = {}, 0, True
+    for path in lists:
+        for batch in EvalPipeline(load_data_list(path), batch_size=32):
+            wav = torch.from_numpy(batch["wav"]).cuda()
+            if caught is not None:
+                matched &= i < len(caught) and bool(torch.equal(caught[i], wav))
+            i += 1
+            got = fbank_kernel.fbank_kernel(wav, dataclasses.replace(cfg))
+            want = fbank_kernel.fbank_kernel_reference(wav, cfg)
+            truth = fbank_float64(wav, cfg)
+            n_valid = torch.from_numpy(
+                np.maximum(0, 1 + (batch["length"].astype(np.int64) - 400) // 160)).cuda()
+            valid = (torch.arange(got.shape[1], device="cuda")[None, :] < n_valid[:, None])
+            valid = valid[:, :, None].expand_as(got)
+            row = rows.setdefault(tuple(wav.shape), {
+                "shape": list(wav.shape), "batches": 0, "off_bar": 0, "plain_off_float64": 0,
+                "finite": True,
+                "valid": {"max_abs_err": 0.0, "kernel_vs_float64": 0.0, "plain_vs_float64": 0.0},
+                "padded": {"max_abs_err": 0.0, "kernel_vs_float64": 0.0, "plain_vs_float64": 0.0}})
+            row["batches"] += 1
+            plain_off = ~torch.isclose(want.double(), truth, **FBANK_TOL)
+            held = torch.where(plain_off, torch.isclose(got.double(), truth, **FBANK_TOL),
+                               torch.isclose(got, want, **FBANK_TOL))
+            row["off_bar"] += int((~held).sum())
+            row["plain_off_float64"] += int(plain_off.sum())
+            row["finite"] &= bool(torch.isfinite(got).all())
+            for part, mask in (("valid", valid), ("padded", ~valid)):
+                d = torch.where(mask, (got - want).abs(), 0.0)
+                r = row[part]
+                r["kernel_vs_float64"] = max(r["kernel_vs_float64"], float(
+                    torch.where(mask, (got.double() - truth).abs(), 0.0).max()))
+                r["plain_vs_float64"] = max(r["plain_vs_float64"], float(
+                    torch.where(mask, (want.double() - truth).abs(), 0.0).max()))
+                if float(d.max()) >= r["max_abs_err"]:
+                    r["max_abs_err"] = float(d.max())
+                    b, t, m = np.unravel_index(int(d.argmax()), got.shape)
+                    r["worst"] = {"row": int(b), "frame": int(t), "mel": int(m),
+                                  "valid_frames": int(n_valid[b]),
+                                  "float64": float(truth[b, t, m]), "kernel": float(got[b, t, m]),
+                                  "plain": float(want[b, t, m]),
+                                  "frame_max_float64": float(truth[b, t].max())}
+            del wav, got, want, truth, valid, plain_off, held
+    if caught is not None:
+        matched &= i == len(caught)
+    return list(rows.values()), matched
+
+
+def _score_column(path, col):
+    with open(path) as f:
+        return np.asarray([float(ln.split()[col]) for ln in f])
+
+
+def recipe_against_cpu(data, exp, out):
+    """What stages 4-6 wrote on the card against the CPU: the embeddings of
+    the first 16 eval utterances by bin/extract on the CPU (the plain fbank,
+    from the same avg_model.pt), and the cosine and AS-Norm score files
+    recomputed on the CPU from the card's embeddings.  Returns the failures."""
+    from wespeaker_hubert_tpu_torch.bin.extract import extract
+    from wespeaker_hubert_tpu_torch.bin.score import score_norm, score_trials
+    from wespeaker_hubert_tpu_torch.recipes import voxceleb_v2
+    from wespeaker_hubert_tpu_torch.utils.embeddings import embeddings_dict
+
+    emb_dir, score_dir = os.path.join(exp, "embeddings"), os.path.join(exp, "scores")
+    cpu_dir = os.path.join(exp, "cpu_check")
+    sub = os.path.join(cpu_dir, "vox1_16.list")
+    os.makedirs(cpu_dir, exist_ok=True)
+    lines = Path(data, "vox1", "raw.list").read_text().splitlines()[:16]
+    Path(sub).write_text("\n".join(lines) + "\n")
+    card = embeddings_dict(os.path.join(emb_dir, "vox1.npz"))
+    keys, emb = extract(str(RECIPE_CONFIG), sub, os.path.join(exp, "avg_model.pt"), "",
+                        device="cpu")
+    cos = [cosine(card[k], e) for k, e in zip(keys, emb)]
+    trials = os.path.join(data, "vox1", "vox1_O_cleaned.kaldi")
+    mean_vec = os.path.join(emb_dir, "vox2_dev_mean.npy")
+    cpu_score = score_trials(os.path.join(emb_dir, "vox1.npz"), [trials], cpu_dir, mean_vec,
+                             device="cpu")[0]
+    card_score = os.path.join(score_dir, os.path.basename(trials) + ".score")
+    cpu_norm = score_norm(card_score, cpu_score + ".asnorm", os.path.join(emb_dir, "vox1.npz"),
+                          os.path.join(emb_dir, "vox2_dev_spk_mean.npz"),
+                          top_n=voxceleb_v2.parse_args([]).asnorm_top_n,
+                          mean_vec_path=mean_vec, device="cpu")
+    # the bars of phase_score, plus one rounding step of the files' {:.5f}
+    score_err = float(np.abs(_score_column(card_score, 2) - _score_column(cpu_score, 2)).max())
+    norm_err = float(np.abs(_score_column(card_score + ".asnorm", 2)
+                            - _score_column(cpu_norm, 2)).max())
+    out["against_cpu"] = {"embeddings": len(cos), "min_cosine": min(cos),
+                          "cosine_bar": COS_MIN["f32"], "score_max_abs_err": score_err,
+                          "asnorm_max_abs_err": norm_err, "score_bar": 1e-5 + 1.1e-5,
+                          "asnorm_bar": 2e-4 + 1.1e-5}
+    log(f"[recipe] against the CPU: {len(cos)} stage-4 embeddings, min cosine {min(cos):.7f} "
+        f"(bar {COS_MIN['f32']}); stage-5 scores max|d| {score_err:.2e} (bar 2.1e-5), stage-6 "
+        f"AS-Norm max|d| {norm_err:.2e} (bar 2.11e-4)")
+    bad = []
+    if len(cos) != 16 or min(cos) < COS_MIN["f32"]:
+        bad.append(f"stage-4 embeddings against the CPU: {len(cos)}, min cosine {min(cos)}")
+    if not score_err <= 1e-5 + 1.1e-5:
+        bad.append(f"stage-5 scores against the CPU: max|d| {score_err}")
+    if not norm_err <= 2e-4 + 1.1e-5:
+        bad.append(f"stage-6 AS-Norm against the CPU: max|d| {norm_err}")
+    return bad
+
+
+def phase_recipe(report, root):
+    """recipes.voxceleb_v2 stages 1-7 on the card with the flagship config
+    as the port's reader parses it, overriding only the paths and the length
+    of the run.  Stages 1-3, then 4-7, each driven with K1's count set to 0
+    just before and read just after: the dithered train step takes the
+    plain fbank, stage 4's extraction goes through K1, and a spy keeps
+    every input it gave K1 for the check after the run.  Then 3 profiled
+    train steps at the same config.  Returns stage 4's K1 launches."""
+    import logging
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from wespeaker_hubert_tpu_torch.bin import train as bin_train
+    from wespeaker_hubert_tpu_torch.bin.train import _feature_cfg, _to_device, read_spk2id
+    from wespeaker_hubert_tpu_torch.data.aug_store import AugStore
+    from wespeaker_hubert_tpu_torch.data.dataset import TrainPipeline, TrainPipelineConfig
+    from wespeaker_hubert_tpu_torch.models.speaker_net import build_speaker_net, load_speaker_state
+    from wespeaker_hubert_tpu_torch.ops import fbank_kernel
+    from wespeaker_hubert_tpu_torch.recipes import voxceleb_v2
+    from wespeaker_hubert_tpu_torch.train.executor import make_train_step
+    from wespeaker_hubert_tpu_torch.train.schedulers import MarginSchedule, get_lr_schedule
+    from wespeaker_hubert_tpu_torch.train.state import TrainState, make_optimizer
+    from wespeaker_hubert_tpu_torch.utils.config import load_config
+
+    data, exp = os.path.join(root, "data"), os.path.join(root, "exp")
+    t0 = time.perf_counter()
+    seconds = write_recipe_data(data)
+    out = report["recipe"] = {"data_write_s": time.perf_counter() - t0,
+                              "audio_s": seconds}
+    trials = os.path.join(data, "vox1", "vox1_O_cleaned.kaldi")
+    # the overrides: paths and the length of the run, nothing else
+    overrides = [f"exp_dir={exp}", f"train_data={data}/vox2_dev/shard.list",
+                 f"train_label={data}/vox2_dev/utt2spk",
+                 f"dataset_args.reverb_data={data}/rirs_aug_store",
+                 f"dataset_args.noise_data={data}/musan_aug_store",
+                 "num_epochs=2", "epoch_iter=12", "save_epoch_interval=1", "num_avg=2"]
+    out["overrides"] = overrides
+    common = ["--config", str(RECIPE_CONFIG), "--data_root", data, "--trials", trials,
+              "--device", DEVICE] + overrides
+    timer = _StepTimer()
+    make = bin_train.make_train_step
+    bin_train.make_train_step = timer(make)
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()  # stages 1-3's peak alone
+    fbank_kernel.LAUNCHES = 0
+    try:
+        done = voxceleb_v2.main(["--stage", "1", "--stop_stage", "3"] + common)
+    finally:
+        bin_train.make_train_step = make
+    k1_train = fbank_kernel.LAUNCHES
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else "not measured"
+    rates = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: rates.append(rec.getMessage())
+    logging.getLogger("extract").addHandler(handler)
+    fbank_kernel.LAUNCHES = 0
+    try:
+        with _K1Spy(fbank_kernel) as k1_spy:
+            done.update(voxceleb_v2.main(["--stage", "4", "--stop_stage", "7"] + common))
+    finally:
+        logging.getLogger("extract").removeHandler(handler)
+    k1_extract = fbank_kernel.LAUNCHES
+    # K1 on every input stage 4 gave it, against its plain version (the card only)
+    k1_rows, k1_matched = k1_on_eval_batches(
+        [os.path.join(data, d, "raw.list") for d in ("vox1", "vox2_dev")],
+        k1_spy.inputs) if DEVICE == "cuda" else ([], False)
+    n_caught = len(k1_spy.inputs)
+    del k1_spy
+    out["k1_stage4_checks"] = k1_rows
+    log(f"[recipe] K1 on all {n_caught} stage-4 inputs against its plain version (rtol 1e-4, "
+        f"atol 2e-3; against float64 where the plain version misses it by more; the inputs "
+        f"{'match' if k1_matched else 'DO NOT match'} EvalPipeline's batches): " + "; ".join(
+            f"{tuple(r['shape'])} x{r['batches']}: {r['off_bar']} elements past the bar, the plain "
+            f"version past it from float64 at {r['plain_off_float64']}; valid "
+            f"frames max|d| {r['valid']['max_abs_err']:.3e} (float64: kernel "
+            f"{r['valid']['kernel_vs_float64']:.3e}, plain {r['valid']['plain_vs_float64']:.3e}), "
+            f"padded {r['padded']['max_abs_err']:.3e}" for r in k1_rows))
+    cpu_bad = recipe_against_cpu(data, exp, out)
+    calls = timer.calls
+    per_step_ms = [1e3 * s / n for n, s in calls]
+    # all the work over all the time of every call after the first
+    step_ms = 1e3 * sum(s for _, s in calls[1:]) / max(1, sum(n for n, _ in calls[1:]))
+    config = load_config(str(RECIPE_CONFIG))
+    batch_size = config["dataloader_args"]["batch_size"]
+    extract_lines = [r for r in rates if r.startswith("extracted")]
+    extracted = [(float(r.split("; ")[1].split(" audio-s")[0]),
+                  float(r.split(" in ")[1].split("s (")[0])) for r in extract_lines]
+    out.update({
+        "stage_s": {s: d["s"] for s, d in done.items()},
+        "lines": {s: d["lines"] for s, d in done.items() if d["lines"]},
+        "train_calls": [{"steps": n, "s": s} for n, s in calls],
+        "step_ms_per_call": per_step_ms,
+        "step_ms_after_first": step_ms,
+        "train_audio_s_per_s": batch_size * 2.0 / (step_ms / 1e3),
+        "peak_mem_gb_stage_1_3": peak_gb,
+        "k1_launches_stage_1_3": k1_train, "k1_launches_stage_4_7": k1_extract,
+        "extract_log": extract_lines,
+        "extract_audio_s_per_s": sum(a for a, _ in extracted) / sum(s for _, s in extracted),
+        "extract_stage4_audio_s_per_s": (seconds["vox1"] + seconds["vox2_dev"]) / done[4]["s"],
+    })
+    log(f"[recipe] data: {RECIPE_TRAIN_SPEAKERS * RECIPE_PER_SPEAKER} training utterances "
+        f"({seconds['vox2_dev']:.0f} s) over {RECIPE_TRAIN_SPEAKERS} of {RECIPE_SPEAKERS} "
+        f"speakers in tar shards, 64 eval ({seconds['vox1']:.0f} s), "
+        f"written in {out['data_write_s']:.1f} s; overrides: " + " ".join(
+            o.split("=")[0] for o in overrides))
+    log("[recipe] stage seconds: " + ", ".join(f"{s} {d['s']:.1f}" for s, d in done.items()))
+    log(f"[recipe] stage 3: {len(calls)} step calls (steps per call "
+        f"{[n for n, _ in calls]}), per-step ms " + ", ".join(f"{x:.1f}" for x in per_step_ms)
+        + f"; after the first call {step_ms:.2f} ms per step (their seconds over their steps) = "
+        f"{out['train_audio_s_per_s']:.0f} audio-s/s ({batch_size} x 2 s); peak memory "
+        + (f"{peak_gb:.2f} GB" if DEVICE == "cuda" else "not measured") + f"; K1 launches {k1_train}")
+    log(f"[recipe] stage 4: " + " | ".join(extract_lines) + f"; loop rate "
+        f"{out['extract_audio_s_per_s']:.0f} audio-s/s, stage wall rate "
+        f"{out['extract_stage4_audio_s_per_s']:.0f} audio-s/s (averaging and model loads "
+        f"included); K1 launches {k1_extract}")
+    for s in (5, 6, 7):
+        log(f"[recipe] stage {s}: " + "; ".join(done[s]["lines"]))
+
+    # a few profiled steps of the same config (the recipe's averaged weights)
+    da = config["dataset_args"]
+    spk2id = read_spk2id(os.path.join(data, "vox2_dev", "utt2spk"))
+    pipe = TrainPipeline(
+        Path(data, "vox2_dev", "shard.list").read_text().split(), spk2id,
+        TrainPipelineConfig(data_type="shard", num_frms=da["num_frms"], batch_size=batch_size,
+                            shuffle_size=da["shuffle_args"]["shuffle_size"], seed=7),
+        AugStore(root=os.path.join(data, "rirs_aug_store")),
+        AugStore(root=os.path.join(data, "musan_aug_store")))
+    batch = _to_device(next(iter(pipe)), torch.device(DEVICE))
+    net = build_speaker_net(config, 3 * len(spk2id))
+    load_speaker_state(net, torch.load(os.path.join(exp, "avg_model.pt"), weights_only=True))
+    net.to(DEVICE)
+    lr = get_lr_schedule("ExponentialDecrease", num_epochs=2, epoch_iter=12, scale_ratio=2.0,
+                         **config["scheduler_args"])
+    state = TrainState(net, make_optimizer(net), lr)
+    step = make_train_step(net, lr, MarginSchedule(12, 0, 1, 0.0, 0.2),
+                           feature_cfg=_feature_cfg(da), chunk_samples=pipe.chunk_samples,
+                           seed=43)
+    for _ in range(2):
+        step(state, batch)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step(state, batch)
+        sync()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    prof_out = out["profile"] = grouped_profile(prof, wall_us, PROFILE_GROUPS)
+    prof_out["window"] = (f"3 float32 train steps, batch {batch_size} x 2 s, "
+                          f"{config['model']}, {3 * len(spk2id)} classes")
+    if prof_out["device_ms"]:
+        log(f"[recipe profile] 3 f32 steps: device {prof_out['device_ms']:.2f} ms over "
+            f"{prof_out['wall_ms']:.2f} ms wall (idle share {prof_out['device_idle_share']:.4f});"
+            " shares " + ", ".join(f"{g} {v:.3f}" for g, v in prof_out["shares"].items()))
+        for g in ("conv", "GEMM", "elementwise"):
+            log(f"[recipe profile]   {g}: " + "; ".join(prof_out["group_top"][g][:3]))
+    else:
+        log("[recipe profile] torch.profiler reported no device time: not measured")
+    del net, state, step
+    empty_cache()
+    check(sorted(done) == list(range(1, 8)), f"recipe: stages {sorted(done)}")
+    check([n for n, _ in calls] == [8, 1, 1, 1, 1] * 2,
+          f"recipe: step calls {[n for n, _ in calls]}, want an 8-step call and, where the "
+          "12 batches of the epoch's data run out, a 4-step tail")
+    check(k1_train == 0, f"recipe: the dithered train step launched K1 {k1_train} times")
+    check(k1_extract > 0, "recipe: stage 4 launched no K1")
+    check(k1_matched and n_caught == k1_extract, "recipe: the spy's stage-4 inputs do not "
+          f"match EvalPipeline's batches ({n_caught} caught, {k1_extract} launches)")
+    check(all(r["off_bar"] == 0 and r["finite"] for r in k1_rows),
+          "recipe: K1 disagrees with its plain version on a stage-4 input")
+    check(not cpu_bad, "recipe: " + "; ".join(cpu_bad))
+    for s in (5, 6, 7):
+        check(len(done[s]["lines"]) == 1 and " EER " in done[s]["lines"][0],
+              f"recipe: stage {s} printed {done[s]['lines']}")
+    return k1_extract
+
+
+ECAPA_CHECK_SEED = 20251020
+ECAPA_CHECK_BATCH = 32
+
+
+ECAPA_CHECK_CHUNK = 31920  # samples of 198 fbank frames: a 2 s chunk
+
+
+def _ecapa_check_batch(seed):
+    """A packed, speed-perturbed batch of ECAPA_CHECK_BATCH x 2 s (198
+    frames) for the flagship ECAPA: wav (n, speed_input_len), labels over
+    17,982 classes, an eighth of the rows reverberated and an eighth noised
+    (host tensors)."""
+    from wespeaker_hubert_tpu_torch.ops.augment import speed_input_len
+
+    rng = np.random.default_rng(seed)
+    n, chunk = ECAPA_CHECK_BATCH, ECAPA_CHECK_CHUNK
+    rows_aug = max(1, n // 8)
+    w = speed_input_len(chunk)
+    wav = np.stack([speechlike(rng, w / SR + 0.001, rng.uniform(90, 280))[:w] for _ in range(n)])
+    rir = rng.standard_normal((rows_aug, 8000)) * np.exp(-np.arange(8000) / 800) * 0.3
+    rir[:, 0] = 1.0
+    batch = {"wav": wav, "label": rng.integers(0, 3 * RECIPE_SPEAKERS, n).astype(np.int32),
+             "speed_idx": rng.integers(0, 3, n).astype(np.int32),
+             "rir": rir.astype(np.float32),
+             "noise": (0.1 * rng.standard_normal((rows_aug, chunk))).astype(np.float32),
+             "snr": rng.uniform(0, 15, rows_aug).astype(np.float32)}
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def _ecapa_net(device, num_steps=1):
+    """The flagship ECAPA_TDNN_GLOB_c512 + ArcMargin over 17,982 classes with
+    seeded weights, float32, dither 0 and SpecAug off, on `device`."""
+    from wespeaker_hubert_tpu_torch.bin.train import _feature_cfg
+    from wespeaker_hubert_tpu_torch.models.speaker_net import build_speaker_net, load_speaker_state
+    from wespeaker_hubert_tpu_torch.train.executor import make_train_step
+    from wespeaker_hubert_tpu_torch.train.schedulers import ExponentialDecrease, MarginSchedule
+    from wespeaker_hubert_tpu_torch.train.state import TrainState, make_optimizer
+    from wespeaker_hubert_tpu_torch.utils.config import load_config
+
+    config = load_config(str(RECIPE_CONFIG))
+    config["dataset_args"]["fbank_args"]["dither"] = 0.0
+    config["dataset_args"]["spec_aug"] = False
+    torch.manual_seed(0)
+    net = build_speaker_net(config, 3 * RECIPE_SPEAKERS)
+    load_speaker_state(net, seeded_state_dict(net, ECAPA_CHECK_SEED))
+    net.to(device)
+    lr = ExponentialDecrease(num_epochs=2, epoch_iter=4, initial_lr=0.1, final_lr=5e-5,
+                             warm_up_epoch=1)
+    state = TrainState(net, make_optimizer(net), lr)
+    step = make_train_step(net, lr, MarginSchedule(4, 0, 1, 0.0, 0.2),
+                           feature_cfg=_feature_cfg(config["dataset_args"]),
+                           chunk_samples=ECAPA_CHECK_CHUNK, seed=43, num_steps=num_steps)
+    return net, state, step
+
+
+def phase_ecapa_step_check(report):
+    """(a) One float32 train step of the flagship ECAPA at full width (17,982
+    classes, batch 32 x 2 s, speed perturbation, 4 reverb and 4 noise rows,
+    dither 0, SpecAug off) on the card against the same step on the CPU:
+    loss within 1e-5 relative, every tensor's update by _update_agreement
+    against a control (the card on the wav times 1 + 2^-20).  (b) A 2-step
+    call against two single steps on the card, the control a second run of
+    the single steps."""
+    batches = [_ecapa_check_batch(ECAPA_CHECK_SEED + i) for i in range(2)]
+    out = report["ecapa_step_check"] = {}
+    res = {}
+    for tag, dev, scale in (("card", DEVICE, False), ("cpu", "cpu", False),
+                            ("control", DEVICE, True)):
+        net, state, step = _ecapa_net(dev)
+        b = {k: v.to(dev) for k, v in batches[0].items()}
+        t0 = time.perf_counter()
+        res[tag] = _one_step(net, state, step, _perturbed(b) if scale else b, prefix="")
+        res[tag + "_s"] = time.perf_counter() - t0
+        del net, state, step
+    empty_cache()
+    loss_rel = abs(res["card"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    pair = _diff_table(res["card"][1], res["cpu"][1])
+    control = _diff_table(res["control"][1], res["card"][1])
+    failing, how = _update_agreement(pair, control, 0.9999, res["cpu"][2])
+    worst = sorted(pair.items(), key=lambda kv: kv[1][0])[:4]
+    out["card_vs_cpu"] = {
+        "loss": [res["card"][0], res["cpu"][0]], "loss_rel": loss_rel,
+        "updates_rel_l2": _rel_l2(res["card"][1], res["cpu"][1]),
+        "control_updates_rel_l2": _rel_l2(res["control"][1], res["card"][1]),
+        "n_tensors": len(pair), "passed_by": how, "worst": worst, "failing": failing,
+        "cpu_step_s": res["cpu_s"], "card_step_s_first": res["card_s"]}
+    r = out["card_vs_cpu"]
+    log(f"[ecapa step] f32 step at full width ({3 * RECIPE_SPEAKERS} classes, batch "
+        f"{ECAPA_CHECK_BATCH} x 2 s), card vs CPU: "
+        f"loss {res['card'][0]:.6f} vs {res['cpu'][0]:.6f} (rel {loss_rel:.2e}, bar 1e-5); "
+        f"updates relative L2 {r['updates_rel_l2']:.2e} (control {r['control_updates_rel_l2']:.2e});"
+        f" of {len(pair)} tensors {how['cosine']} at cosine >= 0.9999, {how['within_control']} "
+        f"within the control, {how['noise_floor']} at the noise floor, {len(failing)} failing; "
+        f"least cosines {worst}; CPU step {res['cpu_s']:.1f} s")
+    del res
+    # (b) two single steps (twice) against one 2-step call, on the card
+    runs = {}
+    for tag, n in (("single", 1), ("single_again", 1), ("two_step", 2)):
+        net, state, step = _ecapa_net(DEVICE, num_steps=n)
+        before = {k: v.detach().float().cpu().clone() for k, v in net.state_dict().items()
+                  if v.is_floating_point()}
+        dev = [{k: v.to(DEVICE) for k, v in b.items()} for b in batches]
+        if n == 1:
+            losses = [float(step(state, b)["loss"]) for b in dev]
+        else:
+            losses = step(state, {k: torch.stack([b[k] for b in dev]) for k in dev[0]})
+            losses = [float(x) for x in losses["loss"]]
+        upd = {k: net.state_dict()[k].detach().float().cpu() - v for k, v in before.items()}
+        runs[tag] = (losses, upd, {k: float(v.abs().max()) for k, v in before.items()},
+                     state.step)
+        del net, state, step
+    empty_cache()
+    pair = _diff_table(runs["two_step"][1], runs["single"][1])
+    control = _diff_table(runs["single_again"][1], runs["single"][1])
+    failing_b, how_b = _update_agreement(pair, control, 0.99999, runs["single"][2])
+    loss_diff = max(abs(a - b) for a, b in zip(runs["two_step"][0], runs["single"][0]))
+    out["two_step_vs_singles"] = {
+        "losses": {k: v[0] for k, v in runs.items()}, "steps": {k: v[3] for k, v in runs.items()},
+        "loss_max_abs_diff": loss_diff, "updates_rel_l2": _rel_l2(runs["two_step"][1],
+                                                                 runs["single"][1]),
+        "control_updates_rel_l2": _rel_l2(runs["single_again"][1], runs["single"][1]),
+        "passed_by": how_b, "failing": failing_b}
+    r = out["two_step_vs_singles"]
+    log(f"[ecapa step] a 2-step call vs two single steps on the card: losses "
+        f"{runs['two_step'][0]} vs {runs['single'][0]}; updates relative L2 "
+        f"{r['updates_rel_l2']:.2e} (two single-step runs: {r['control_updates_rel_l2']:.2e}); "
+        f"{len(failing_b)} tensors failing")
+    check(loss_rel <= 1e-5 and not failing, "ecapa step: card step vs CPU step")
+    check(all(v[3] == 2 for v in runs.values()), "ecapa step: each run takes 2 steps")
+    check(loss_diff <= 1e-6 * abs(runs["single"][0][0]) and not failing_b,
+          "ecapa step: the 2-step call vs two single steps")
+
+
+SCORE_SIZES = {"vox1_O": (40, 4874, 37720), "vox1_H": (1251, 153516, 552536)}
+
+
+def _score_set(root, name, n_spk, n_utt, n_trials, seed):
+    """Seeded 192-d embeddings with speaker structure (a speaker centre plus
+    noise 2.2x its size per dimension), a balanced labeled trial list, and
+    the cohort: 5,994 speaker means (each the mean of 8 noisy draws)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((n_spk, 192))
+    spk = rng.integers(0, n_spk, n_utt)
+    emb = (centers[spk] + 2.2 * rng.standard_normal((n_utt, 192))).astype(np.float32)
+    keys = [f"{name}-s{s:04d}-u{i:06d}" for i, s in enumerate(spk)]
+    by_spk = {}
+    for i, s in enumerate(spk):
+        by_spk.setdefault(s, []).append(i)
+    multi = [s for s, us in by_spk.items() if len(us) > 1]
+    half = n_trials // 2
+    ts = rng.choice(multi, half)
+    tgt = [rng.choice(by_spk[s], 2, replace=False) for s in ts]
+    a, b = rng.integers(0, n_utt, 2 * n_trials), rng.integers(0, n_utt, 2 * n_trials)
+    keep = spk[a] != spk[b]
+    rows = [(keys[i], keys[j], "target") for i, j in tgt]
+    rows += [(keys[i], keys[j], "nontarget")
+             for i, j in list(zip(a[keep], b[keep]))[:n_trials - half]]
+    cohort = (rng.standard_normal((RECIPE_SPEAKERS, 192))
+              + 2.2 / math.sqrt(8) * rng.standard_normal((RECIPE_SPEAKERS, 192)))
+    paths = {k: os.path.join(root, f"{name}.{k}") for k in ("emb.npz", "cohort.npz",
+                                                             "mean.npy", "trials")}
+    from wespeaker_hubert_tpu_torch.utils.embeddings import save_embeddings
+
+    save_embeddings(paths["emb.npz"], keys, emb)
+    save_embeddings(paths["cohort.npz"], [f"c{i:04d}" for i in range(RECIPE_SPEAKERS)],
+                    cohort.astype(np.float32))
+    np.save(paths["mean.npy"], emb.mean(0))
+    Path(paths["trials"]).write_text("".join(f"{e} {t} {lab}\n" for e, t, lab in rows))
+    return paths, emb, keys, rows, cohort.astype(np.float32)
+
+
+def phase_score(report, root):
+    """bin/score's cosine scoring, AS-Norm (top 300 of a 5,994-speaker
+    cohort) and metrics at VoxCeleb1-O's and VoxCeleb1-H's sizes on seeded
+    embeddings, on the card (timed) and on the CPU; the backend's numbers
+    card against CPU: scores 1e-5, cohort means and stds 1e-6, AS-Norm
+    2e-4; the EERs equal to 0.01 percentage points."""
+    from wespeaker_hubert_tpu_torch.backend import score
+    from wespeaker_hubert_tpu_torch.bin.score import compute_metrics, score_norm, score_trials
+
+    out = report["score"] = {}
+    for i, (name, (n_spk, n_utt, n_trials)) in enumerate(SCORE_SIZES.items()):
+        paths, emb, keys, rows, cohort = _score_set(root, name, n_spk, n_utt, n_trials,
+                                                    RECIPE_SEED + 10 + i)
+        res = {"utterances": n_utt, "speakers": n_spk, "trials": len(rows)}
+        for dev in (DEVICE, "cpu"):
+            d = os.path.join(root, f"{name}-{dev}")
+            t0 = time.perf_counter()
+            sf = score_trials(paths["emb.npz"], [paths["trials"]], d, paths["mean.npy"],
+                              device=dev)[0]
+            t1 = time.perf_counter()
+            nf = score_norm(sf, sf + ".asnorm", paths["emb.npz"], paths["cohort.npz"],
+                            top_n=300, mean_vec_path=paths["mean.npy"], device=dev)
+            t2 = time.perf_counter()
+            metrics = [compute_metrics(sf), compute_metrics(nf)]
+            t3 = time.perf_counter()
+            res[dev] = {"score_trials_s": t1 - t0, "score_norm_s": t2 - t1,
+                        "compute_metrics_s": t3 - t2,
+                        "eer_mindcf": {"cosine": metrics[0], "asnorm": metrics[1]}}
+        # the backend's numbers, card against CPU, on the same inputs
+        key2i = {k: j for j, k in enumerate(keys)}
+        e_idx = np.asarray([key2i[r[0]] for r in rows])
+        t_idx = np.asarray([key2i[r[1]] for r in rows])
+        mean_vec = emb.mean(0)
+        got = {}
+        for dev in (DEVICE, "cpu"):
+            s = score.trial_cosine_scores(emb, e_idx, t_idx, mean_vec=mean_vec, device=dev)
+            m, sd = score.cohort_mean_std(emb - mean_vec, cohort - mean_vec, 300, device=dev)
+            got[dev] = (s, m, sd, score.apply_asnorm(s, e_idx, t_idx, m, sd, m, sd))
+        errs = [float(np.abs(got[DEVICE][j] - got["cpu"][j]).max()) for j in range(4)]
+        eer_diff = max(abs(res[DEVICE]["eer_mindcf"][k][0] - res["cpu"]["eer_mindcf"][k][0])
+                       for k in ("cosine", "asnorm"))
+        res.update({"max_abs_err": dict(zip(("score", "cohort_mean", "cohort_std", "asnorm"),
+                                            errs)), "eer_diff_pp": eer_diff})
+        out[name] = res
+        c, p = res[DEVICE], res["cpu"]
+        log(f"[score {name}] {n_utt} utterances, {len(rows)} trials, cohort {RECIPE_SPEAKERS} "
+            f"top 300: card score_trials {c['score_trials_s']:.3f} s, score_norm "
+            f"{c['score_norm_s']:.3f} s, compute_metrics {c['compute_metrics_s']:.3f} s (CPU "
+            f"{p['score_trials_s']:.3f} / {p['score_norm_s']:.3f} / {p['compute_metrics_s']:.3f}"
+            f" s); EER cosine {c['eer_mindcf']['cosine'][0]:.3f}% asnorm "
+            f"{c['eer_mindcf']['asnorm'][0]:.3f}% (CPU {p['eer_mindcf']['cosine'][0]:.3f}% / "
+            f"{p['eer_mindcf']['asnorm'][0]:.3f}%); card vs CPU max abs err score {errs[0]:.1e},"
+            f" mean {errs[1]:.1e}, std {errs[2]:.1e}, asnorm {errs[3]:.1e}")
+        check(errs[0] <= 1e-5 and errs[1] <= 1e-6 and errs[2] <= 1e-6 and errs[3] <= 2e-4,
+              f"score {name}: card vs CPU {errs}")
+        check(eer_diff <= 0.01, f"score {name}: EER differs by {eer_diff} pp")
+        check(all(0 < v[0] < 50 for v in c["eer_mindcf"].values()),
+              f"score {name}: EERs {c['eer_mindcf']}")
+        del emb, got
 
 def main():
     if not torch.cuda.is_available():
@@ -1895,6 +2573,11 @@ def main():
         train_launches = timed("train", phase_train, report, train_dir)
         if train_launches is not None:
             timed("train checks", phase_train_checks, report, train_dir)
+    with tempfile.TemporaryDirectory() as recipe_dir:
+        recipe_launches = timed("recipe", phase_recipe, report, recipe_dir)
+    timed("ecapa step check", phase_ecapa_step_check, report)
+    with tempfile.TemporaryDirectory() as score_dir:
+        timed("score", phase_score, report, score_dir)
     report["wall_s"] = time.perf_counter() - t_start
     report["failures"] = failures
     report["k1_history"] = {
@@ -1911,7 +2594,7 @@ def main():
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     if (failures or k1 is None or launches is None or k2_row is None or k2_launches is None
-            or k2_bwd_row is None or train_launches is None):
+            or k2_bwd_row is None or train_launches is None or recipe_launches is None):
         for f in failures:
             print(f"chip_smoke FAILED {f}", file=sys.stderr)
         return 1
@@ -1923,6 +2606,8 @@ def main():
         "replaces": "wespeaker_hubert_tpu/ops/fbank_pallas.py:117",
         "launches": launches["bf16"],
         "launches_f32_service": launches["f32"],
+        "launches_recipe": recipe_launches,
+        "launches_recipe_scope": "recipes.voxceleb_v2 stage 4: extraction of both lists",
         "max_abs_err": max(r["max_abs_err"] for r in report["fbank_checks"]),
         "max_err": max(r["max_abs_err"] for r in report["fbank_checks"]),
         "ms": k1["ms"],

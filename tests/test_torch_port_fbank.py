@@ -96,20 +96,22 @@ def test_mel_csr_reproduces_mel_banks(kw):
 def _kernel_spectrum(xd, cfg):
     """A numpy model of the kernel's transform (csrc/fbank.cu) of one
     DC-removed frame x' (L float32 samples), with its tables, in complex64:
-    u = window x' and the pre-emphasis correction d into z = u + i d; the
-    Stockham stages of `FFT_RADICES[n]`, butterfly j twiddling point r by
-    table entry r (j mod ns) n / (ns R) and writing it at (j - j mod ns) R +
-    j mod ns + r ns; then U, D split from Z[k], Z[n - k] and Y[k] = emph[k]
-    U[k] - c D[k]."""
+    u = window x' and the pre-emphasis correction d, scaled by s =
+    `correction_scale` (folded into the dwindow table), into z = u + i s d;
+    the Stockham stages of `FFT_RADICES[n]`, butterfly j twiddling point r
+    by table entry r (j mod ns) n / (ns R) and writing it at (j - j mod ns)
+    R + j mod ns + r ns; then U, s D split from Z[k], Z[n - k] and Y[k] =
+    emph[k] U[k] - (c / s) s D[k]."""
     tw, emph, win, dwin, _, _ = (t.numpy() for t in port_kernel.kernel_tables(cfg, "cpu"))
     c64 = lambda t: (t[:, 0] + 1j * t[:, 1]).astype(np.complex64)  # noqa: E731
     w, n, L, c = c64(tw), cfg.fft_size, len(xd), np.float32(cfg.preemph_coeff)
+    s = np.float32(port_kernel.correction_scale(win))
     u = np.zeros(n, np.float32)
     d = np.zeros(n, np.float32)
     u[:L] = win * xd
     d[1:L] = dwin[1:] * xd[:-1]
-    d[0] += u[0]
-    d[L % n] -= u[L - 1]
+    d[0] += dwin[0] * xd[0]
+    d[L % n] -= s * u[L - 1]
     data = (u + 1j * d).astype(np.complex64)
     ns = 1
     for r_ in port_kernel.FFT_RADICES[n]:
@@ -126,7 +128,7 @@ def _kernel_spectrum(xd, cfg):
     assert ns == n
     kk = np.arange(n // 2 + 1)
     a, bc = data[kk], np.conj(data[(n - kk) % n])
-    return c64(emph) * ((a + bc) * 0.5) - c * ((a - bc) * -0.5j)
+    return c64(emph) * ((a + bc) * 0.5) - (c / s) * ((a - bc) * -0.5j)
 
 
 @pytest.mark.parametrize("kw", [{"sample_rate": 8000}, {}, {"frame_length_ms": 32.0}],

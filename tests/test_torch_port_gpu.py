@@ -82,6 +82,48 @@ def test_fbank_kernel_matches_plain(cuda, shape, kw):
     assert fbank_kernel.LAUNCHES == launches + 2
 
 
+def _fbank_float64(wav, cfg):
+    """Log-mel of (B, W) in float64, the plain rFFT path's steps."""
+    from wespeaker_hubert_tpu_torch.ops.fbank import frame_signal
+    from wespeaker_hubert_tpu_torch.ops.signal import mel_banks, window_function
+
+    x = frame_signal(wav.double() * 32768.0, cfg.frame_length, cfg.frame_shift)
+    x = x - x.mean(-1, keepdim=True)
+    x = x - cfg.preemph_coeff * torch.cat([x[..., :1], x[..., :-1]], -1)
+    x = x * torch.from_numpy(window_function(cfg.window_type, cfg.frame_length)).to(x)
+    spec = torch.fft.rfft(x, n=cfg.fft_size)
+    mel = torch.from_numpy(mel_banks(cfg.num_mel_bins, cfg.fft_size, float(cfg.sample_rate),
+                                     cfg.low_freq, cfg.high_freq).astype(np.float64)).to(x)
+    return torch.log(torch.clamp_min((spec.real ** 2 + spec.imag ** 2) @ mel,
+                                     float(np.finfo(np.float32).eps)))
+
+
+@pytest.mark.cuda
+def test_fbank_kernel_quiet_low_bins(cuda):
+    """Loud low harmonics over a faint noise floor leave the lowest mels
+    some e^20 below the frame's loudest: the FFT's rounding, relative to
+    the loud part, must not reach them through the pre-emphasis correction
+    (it did while that correction shared the FFT unscaled: 3.6e-3 from
+    float64).  K1 within the bar of a float64 log-mel everywhere, and of its
+    plain version wherever that version meets the float64 one."""
+    rng = np.random.default_rng(0)
+    t = np.arange(16240) / 16000
+    rows = []
+    for _ in range(64):
+        f0 = rng.uniform(90, 280)
+        x = (0.5 * np.sin(2 * np.pi * f0 * t + rng.uniform(0, 6))
+             + 0.25 * np.sin(4 * np.pi * f0 * t + 1.0) + 0.001 * rng.standard_normal(len(t)))
+        rows.append(np.round(np.clip(x, -1, 1) * 32767) / 32768)
+    wav = torch.from_numpy(np.stack(rows).astype(np.float32)).to(cuda)
+    cfg = FbankConfig(spectrum_impl="kernel")
+    got = fbank_kernel.fbank_kernel(wav, cfg).double()
+    want = fbank_kernel.fbank_kernel_reference(wav, cfg).double()
+    truth = _fbank_float64(wav, cfg)
+    torch.testing.assert_close(got, truth, **FBANK_TOL)
+    plain_ok = torch.isclose(want, truth, **FBANK_TOL)
+    assert bool((torch.isclose(got, want, **FBANK_TOL) | ~plain_ok).all())
+
+
 @pytest.mark.cuda
 def test_fbank_kernel_rejects_bad_input(cuda):
     cfg = FbankConfig()
@@ -505,3 +547,55 @@ def test_train_step_bf16_on_gpu(cuda):
     moved = [k for k, p in net.named_parameters() if not torch.equal(p, before[k])]
     assert any("gru_rel_pos" in k for k in moved) and any("rel_attn_embed" in k for k in moved)
     assert net.backbone.bn.running_var.dtype == torch.float32
+
+
+@pytest.mark.cuda
+def test_scoring_on_gpu_matches_cpu(cuda, monkeypatch):
+    """Trial cosine scores within 1e-5, cohort means and stds within 1e-6 and
+    AS-Norm within 2e-4 of the CPU's, on seeded embeddings with speaker
+    structure (600 utterances, 50 speakers, 192-d, top 30)."""
+    from wespeaker_hubert_tpu_torch.backend import score
+
+    rng = np.random.default_rng(0)
+    centers = rng.standard_normal((50, 192))
+    spk = np.repeat(np.arange(50), 12)
+    emb = (centers[spk] + 1.5 * rng.standard_normal((600, 192))).astype(np.float32)
+    cohort = np.stack([emb[spk == s].mean(0) for s in range(50)]).astype(np.float32)
+    e_idx, t_idx = rng.integers(0, 600, 5000), rng.integers(0, 600, 5000)
+    mean_vec = emb.mean(0)
+    monkeypatch.setattr(score, "COHORT_ROW_BLOCK", 256)  # several row blocks
+    got = {}
+    for dev in ("cuda", "cpu"):
+        s = score.trial_cosine_scores(emb, e_idx, t_idx, mean_vec=mean_vec, device=dev)
+        m, sd = score.cohort_mean_std(emb - mean_vec, cohort - mean_vec, 30, device=dev)
+        got[dev] = (s, m, sd, score.apply_asnorm(s, e_idx, t_idx, m, sd, m, sd))
+    for i, atol in enumerate((1e-5, 1e-6, 1e-6, 2e-4)):
+        np.testing.assert_allclose(got["cuda"][i], got["cpu"][i], rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+def test_train_features_on_gpu_match_cpu(cuda):
+    """The train branch of wav_to_features (dither 0, SpecAug off): the card
+    (K1 on the dither-free batch) against the CPU's plain path, at K1's bar;
+    with dither and SpecAug on, the card's result is finite and differs
+    from the dither-free one."""
+    from wespeaker_hubert_tpu_torch.ops.pipeline import FeaturePipelineConfig, wav_to_features
+
+    wav = _wav(3, (4, 32240))
+    lengths = torch.tensor([32240, 30000, 20000, 16400])
+    cfg = FeaturePipelineConfig(fbank=FbankConfig(dither=0.0, spectrum_impl="kernel"),
+                                spec_aug=False)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        g = torch.Generator(device=dev).manual_seed(7)
+        feats, mask = wav_to_features(wav.to(dev), cfg, lengths=lengths.to(dev), train=True,
+                                      generator=g)
+        out[dev] = (feats.cpu().numpy(), mask.cpu().numpy())
+    np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], **FBANK_TOL)
+    noisy = FeaturePipelineConfig(fbank=FbankConfig(dither=1.0, spectrum_impl="kernel"),
+                                  spec_aug=True, spec_aug_prob=1.0)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    feats, _ = wav_to_features(wav.to(cuda), noisy, train=True, generator=g)
+    feats = feats.cpu().numpy()
+    assert np.isfinite(feats).all() and np.abs(feats - out["cuda"][0]).max() > 1e-3

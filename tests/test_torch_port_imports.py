@@ -49,11 +49,14 @@ def _module_names():
 
 @pytest.mark.parametrize("name", [
     "bin.train", "train.state", "train.schedulers", "ops.augment", "models.projections",
-    "data.aug_store", "utils.checkpoint",
+    "data.aug_store", "utils.checkpoint", "utils.config", "ops.pipeline", "train.executor",
+    "data.dataset", "data.zstd_io", "utils.embeddings", "backend.score", "backend.metrics",
+    "backend.calibration", "bin.score", "bin.score_calibration", "bin.tools",
+    "bin.average_model", "recipes.voxceleb_v2",
 ])
 def test_training_modules_are_checked(name):
-    """The training slice's modules are among those the checks above and
-    the no-JAX process below import."""
+    """The training and recipe slices' modules are among those the checks
+    above and the no-JAX process below import."""
     assert "wespeaker_hubert_tpu_torch." + name in set(_module_names())
     assert not FORBIDDEN.intersection(_imported_roots(PORT / (name.replace(".", "/") + ".py")))
 
@@ -97,6 +100,6 @@ def test_cpu_service_runs_without_jax(tmp_path):
 def test_packaging_finds_the_port():
     found = setuptools.find_packages(where=str(ROOT), include=["wespeaker_hubert_tpu*"])
     for sub in ("", ".ops", ".models", ".train", ".data", ".utils", ".cli", ".bin",
-                ".frontend", ".backend"):
+                ".frontend", ".backend", ".recipes"):
         assert "wespeaker_hubert_tpu_torch" + sub in found
     assert "wespeaker_hubert_tpu" in found

@@ -532,8 +532,7 @@ def test_extract_refusals(port_slice, tmp_path):
                            "dataset_args": {"frontend": "whisper_encoder"}})
     with pytest.raises(NotImplementedError, match="not ported"):
         frontend_class_dict["whisper_encoder"]()
-    with pytest.raises(NotImplementedError, match="shard"):
-        EvalPipeline([], data_type="shard")
+    assert list(EvalPipeline([], data_type="shard")) == []  # tar shards are read
 
 
 def test_config_json_and_yaml(tmp_path, monkeypatch):
@@ -545,9 +544,8 @@ def test_config_json_and_yaml(tmp_path, monkeypatch):
     yaml = pytest.importorskip("yaml")
     (tmp_path / "c.yaml").write_text(yaml.safe_dump(cfg))
     assert parse_config_or_kwargs(str(tmp_path / "c.yaml")) == cfg
-    monkeypatch.setitem(sys.modules, "yaml", None)  # PyYAML absent
-    with pytest.raises(RuntimeError, match="PyYAML"):
-        parse_config_or_kwargs(str(tmp_path / "c.yaml"))
+    monkeypatch.setitem(sys.modules, "yaml", None)  # PyYAML absent: the port's own reader
+    assert parse_config_or_kwargs(str(tmp_path / "c.yaml")) == cfg
 
 
 @pytest.mark.parametrize("data_type", ["raw", "feat"])

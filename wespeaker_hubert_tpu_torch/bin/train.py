@@ -2,25 +2,27 @@
 
 Counterpart of `wespeaker_hubert_tpu/bin/train.py`:
 
-    python -m wespeaker_hubert_tpu_torch.bin.train --config conf.json \\
-        [--device cuda|cpu] [key=value ...]
+    python -m wespeaker_hubert_tpu_torch.bin.train --config conf.yaml \\
+        [--device cuda|cpu] [a.b.c=value ...]
 
-The config is the training config (JSON, or YAML where PyYAML imports;
-`key=value` overrides replace top-level keys, values parsed as JSON where
-they parse).  One process drives one device, CUDA unless the caller asks for
-the CPU.  The host pipeline (data/dataset.py:TrainPipeline) runs on one
-prefetch thread; `dataloader_args.num_workers` is logged and ignored.
-`num_class` is speakers x 3 with speed perturbation.  The LR schedule is
-scaled by batch / 64 as in the JAX package (one host).  `enable_amp` on
-CUDA (or `compute_dtype: bf16`) trains in bf16 mixed precision.
+The config is the training config, YAML (utils/config.py's reader) or JSON;
+`a.b.c=value` overrides set dotted paths, values parsed as YAML scalars.
+One process drives one device, CUDA unless the caller asks for the CPU.  The
+host pipeline (data/dataset.py:TrainPipeline: `raw` JSONL lists, `shard` tar
+lists or `feat` lists) runs on one prefetch thread;
+`dataloader_args.num_workers` is logged and ignored.  `num_class` is
+speakers x 3 with speed perturbation.  The LR schedule is scaled by batch /
+64 as in the JAX package (one host).  `enable_amp` on CUDA (or
+`compute_dtype: bf16`) trains in bf16 mixed precision.  `loop_steps: N`
+groups N batches into one call of an N-step train step, as JAX scans them;
+the tail of an epoch that does not fill a group runs as single steps.
 
 Checkpoints are the port's `.pt` files (utils/checkpoint.py):
 `exp_dir/models/model_N.pt` per saved epoch, loadable by bin/extract and
 bin/serve, and with `save_optimizer` a full `train_state.pt` (model,
 optimizer, step, data position) from which a later run resumes at the same
 step.  `model_init` and `checkpoint` take port `.pt` files.  Multi-host,
-mesh, FSDP, pipeline and sequence parallelism and `loop_steps > 1` are not
-ported yet and raise.
+mesh, FSDP, pipeline and sequence parallelism are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -31,8 +33,9 @@ import os
 import queue
 import threading
 import time
-from typing import Dict, Union
+from typing import Dict, List, Union
 
+import numpy as np
 import torch
 
 from ..data.aug_store import AugStore
@@ -91,16 +94,19 @@ def _refuse_unported(config: dict, fe_args: dict) -> None:
         "fsdp": bool(config.get("fsdp")),
         "pipeline_parallel > 1": int(fe_args.get("pipeline_parallel", 1)) > 1,
         "sequence_parallel": bool(fe_args.get("sequence_parallel")),
-        "loop_steps > 1": int(config.get("loop_steps", 1)) > 1,
     }
     for what, asked in refusals.items():
         if asked:
-            raise NotImplementedError(f"{what} is not ported yet (one device, one step per call)")
+            raise NotImplementedError(f"{what} is not ported yet (one device)")
 
 
 def _to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(v).to(device, non_blocking=True)
             for k, v in batch.items() if k != "keys"}
+
+
+def _stack(pending: List[Dict]) -> Dict:
+    return {k: np.stack([p[k] for p in pending]) for k in pending[0] if k != "keys"}
 
 
 def train(config: Union[str, dict], device="cuda", **overrides) -> TrainState:
@@ -225,10 +231,14 @@ def train(config: Union[str, dict], device="cuda", **overrides) -> TrainState:
     amp_default = "bf16" if config.get("enable_amp", False) and device.type == "cuda" else "f32"
     cd_name = str(config.get("compute_dtype", amp_default)).lower()
     compute_dtype = torch.bfloat16 if cd_name in ("bf16", "bfloat16") else None
-    step_fn = make_train_step(
-        net, lr_schedule, margin_schedule, feature_cfg=_feature_cfg(dataset_args),
-        chunk_samples=pipe.chunk_samples, compute_dtype=compute_dtype, seed=seed + 1,
-    )
+    loop_steps = max(1, int(config.get("loop_steps", 1)))
+    step_kwargs = dict(feature_cfg=_feature_cfg(dataset_args), chunk_samples=pipe.chunk_samples,
+                       compute_dtype=compute_dtype, seed=seed + 1)
+    step_fn = make_train_step(net, lr_schedule, margin_schedule, num_steps=loop_steps,
+                              **step_kwargs)
+    # the single step for an epoch's tail that does not fill a group
+    flush_fn = step_fn if loop_steps == 1 else make_train_step(
+        net, lr_schedule, margin_schedule, **step_kwargs)
     with open(os.path.join(exp_dir, "config.json"), "w") as f:
         json.dump(config, f, indent=1, default=str)
     mlog = MetricsLogger(os.path.join(exp_dir, "metrics.jsonl"))
@@ -238,8 +248,8 @@ def train(config: Union[str, dict], device="cuda", **overrides) -> TrainState:
     save_interval = int(config.get("save_epoch_interval", 5))
     save_batch_interval = int(config.get("save_batch_interval", 0))
     stop_at_step = config.get("stop_at_step")
-    logger.info("training on %s: %d classes, %d steps per epoch, compute %s", device, num_class,
-                epoch_iter, "bf16" if compute_dtype else "float32")
+    logger.info("training on %s: %d classes, %d steps per epoch in calls of %d, compute %s",
+                device, num_class, epoch_iter, loop_steps, "bf16" if compute_dtype else "float32")
 
     def save_full_state(epoch, batch_in_epoch):
         save_checkpoint(
@@ -262,10 +272,21 @@ def train(config: Union[str, dict], device="cuda", **overrides) -> TrainState:
                 n_iter = start_batch
                 logger.info("fast-forwarded %d batches (mid-epoch resume)", start_batch)
             stopped = False
+            pending: List[Dict] = []
             for batch in batches:
-                metrics = step_fn(state, _to_device(batch, device))
-                n_iter += 1
-                if n_iter % log_interval == 0:
+                if loop_steps > 1:
+                    pending.append(batch)
+                    if len(pending) < loop_steps:
+                        continue
+                    metrics = step_fn(state, _to_device(_stack(pending), device))
+                    # the group's metrics: report the last step's
+                    metrics = {k: v[-1] for k, v in metrics.items()}
+                    pending = []
+                    n_iter += loop_steps
+                else:
+                    metrics = step_fn(state, _to_device(batch, device))
+                    n_iter += 1
+                if n_iter % log_interval < loop_steps:
                     loss, acc = float(metrics["loss"]), float(metrics["acc"])
                     meter.update(audio_s_per_batch * log_interval, log_interval)
                     logger.info(
@@ -276,7 +297,7 @@ def train(config: Union[str, dict], device="cuda", **overrides) -> TrainState:
                     mlog.log(state.step, epoch=epoch, loss=loss, acc=acc, lr=metrics["lr"],
                              margin=metrics["margin"], audio_s_per_s=meter.audio_seconds_per_s)
                 if save_batch_interval and config.get("save_optimizer", False) \
-                        and n_iter % save_batch_interval == 0:
+                        and n_iter % save_batch_interval < loop_steps:
                     save_full_state(epoch, n_iter)
                 if stop_at_step is not None and state.step >= int(stop_at_step):
                     stopped = True
@@ -290,6 +311,9 @@ def train(config: Union[str, dict], device="cuda", **overrides) -> TrainState:
             batches.close()
             if stopped:
                 return state
+            for tail in pending:  # the batches left over (< loop_steps)
+                flush_fn(state, _to_device(tail, device))
+                n_iter += 1
             logger.info("epoch %d done: %d iters in %.1fs", epoch, n_iter, time.time() - t0)
             if (epoch + 1) % save_interval == 0 or epoch + 1 == num_epochs:
                 path = os.path.join(exp_dir, "models", f"model_{epoch + 1}.pt")
@@ -348,27 +372,19 @@ def _prefetch(pipe, depth: int = 4):
         thread.join()
 
 
-def _parse_override(item: str):
-    key, _, value = item.partition("=")
-    try:
-        return key, json.loads(value)
-    except json.JSONDecodeError:
-        return key, value
-
-
 def main():
     import argparse
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--config", required=True)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    p.add_argument("overrides", nargs="*", help="key=value top-level config overrides")
+    p.add_argument("overrides", nargs="*", help="a.b.c=value config overrides")
     args = p.parse_args()
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     # float32 means float32: no TF32 in cuDNN convolutions or matmuls
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    train(args.config, device=args.device, **dict(map(_parse_override, args.overrides)))
+    train(parse_config_or_kwargs(args.config, overrides=args.overrides), device=args.device)
 
 
 if __name__ == "__main__":

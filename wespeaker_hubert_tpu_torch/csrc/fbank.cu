@@ -25,8 +25,14 @@
 // 0 < n < L, d[L mod N] -= u[L-1]), for which y = u - c shift(u) - c d
 // exactly, and forms Y[k] = (1 - c W_N^k) U[k] - c D[k]: U's rounding is
 // scaled by |1 - c W_N^k|, 0.03 at the lowest bins, as in the folded form.
-// u and d go through one N-point complex FFT as z = u + i d, split after it
-// into U[k] = (Z[k] + conj Z[N-k]) / 2 and D[k] = (Z[k] - conj Z[N-k]) / 2i.
+// u and d go through one N-point complex FFT as z = u + i s d, split after
+// it into U[k] = (Z[k] + conj Z[N-k]) / 2 and s D[k] = (Z[k] - conj Z[N-k]) /
+// 2i.  The FFT's rounding is relative to |z| and lands on both parts alike,
+// and D's share of it reaches Y[k] times c, not times |1 - c W_N^k|: with
+// s = 1 it would dominate the lowest bins of frames whose energy sits in
+// them.  s is a power of two (exact) that brings d up to u's size
+// (ops/fbank_kernel.py:correction_scale, folded into the dwindow table), so
+// D's share is 1/s of that.
 //
 // What bounds it.  Per 16 kHz frame (L = 400, N = 512, 257 bins, 80 mels) a
 // real FFT is about 2.5 N log2 N = 11.5k FLOP, the filters have about 2 x
@@ -83,11 +89,11 @@ struct FbankParams {
   const float2* tw;      // (N,) W_N^e = exp(-2 pi i e / N)
   const float2* emph;    // (N/2 + 1,) 1 - c W_N^k, the pre-emphasis response
   const float* window;   // (L,)
-  const float* dwindow;  // (L,) window[n] - window[n - 1] (entry 0 unused)
+  const float* dwindow;  // (L,) dscale (window[n] - window[n - 1]), window[-1] = 0
   const int* mel_tab;    // (3, num_mel): first bin, count, offset into mel_w
   const float* mel_w;    // (nnz,)
   int B, W, T, L, shift, num_mel, nnz, vec4, remove_dc;
-  float preemph, scale;
+  float preemph, scale, dscale;
 };
 
 __host__ __device__ constexpr int round4(int x) { return (x + 3) / 4 * 4; }
@@ -225,8 +231,9 @@ __device__ __forceinline__ void fft_last(const float2* buf, const float2* tw, in
   }
 }
 
-// Z = FFT(u + i d) of one frame, z[m] = Z[lane + 32 m] (fft_last): u =
-// window * x', d the pre-emphasis correction (see the top of the file)
+// Z = FFT(u + i s d) of one frame, z[m] = Z[lane + 32 m] (fft_last): u =
+// window * x', d the pre-emphasis correction, s = dscale (see the top of
+// the file); s d[0] = s u[0] from dwindow[0] = s window[0]
 template <int N>
 __device__ __forceinline__ void fft(float2* buf, const float2* tw, int lane, const float* x,
                                     const float* win, const float* dwin, const FbankParams& p,
@@ -239,9 +246,9 @@ __device__ __forceinline__ void fft(float2* buf, const float2* tw, int lane, con
     float u = 0.f, d = 0.f;
     if (n < L) {
       u = __fmul_rn(win[n], xd(n));
-      d = n == 0 ? u : __fmul_rn(dwin[n], xd(n - 1));
+      d = __fmul_rn(dwin[n], xd(n == 0 ? 0 : n - 1));
     }
-    if (n == L % N) d -= __fmul_rn(win[L - 1], xd(L - 1));
+    if (n == L % N) d -= p.dscale * __fmul_rn(win[L - 1], xd(L - 1));
     return make_float2(u, d);
   };
   constexpr int R0 = P::R[0], R1 = P::R[1], R2 = P::R[2], R3 = P::R[3];
@@ -323,7 +330,7 @@ __global__ void __launch_bounds__(32 * warps<N>(), N <= 512 ? 3 : 1)
   const int* first = mel_tab;
   const int* count = mel_tab + round4(p.num_mel);
   const int* offset = mel_tab + 2 * round4(p.num_mel);
-  const float c = p.preemph;
+  const float cd = p.preemph / p.dscale;  // c / s, exact: s is a power of two
 
   for (int it = 0; f < n_frames; f += stride, ++it) {
     float* const xf = frames + (it & 1) * round4(p.L);
@@ -342,7 +349,7 @@ __global__ void __launch_bounds__(32 * warps<N>(), N <= 512 ? 3 : 1)
     }
     float2 z[N / 32];
     fft<N>(buf, tw, lane, xf, win, dwin, p, mean, z);
-    // U[k] and D[k] from Z[k] and Z[N - k]; Y[k] = (1 - c W^k) U[k] - c D[k].
+    // U[k] and s D[k] from Z[k] and Z[N - k]; Y[k] = (1 - c W^k) U[k] - c D[k].
     // Z[N - k] of k = lane + 32 m is z[N/32 - 1 - m] of lane 32 - lane (lane
     // 0: its own z[(N/32 - m) mod N/32]).  The power goes where the frame's
     // samples were (BINS <= L)
@@ -359,7 +366,7 @@ __global__ void __launch_bounds__(32 * warps<N>(), N <= 512 ? 3 : 1)
         const float2 a = z[m];
         const float2 u = make_float2(0.5f * (a.x + bb.x), 0.5f * (a.y - bb.y));
         const float2 d = make_float2(0.5f * (a.y + bb.y), -0.5f * (a.x - bb.x));
-        const float2 y = csub(cmul(emph[k], u), make_float2(c * d.x, c * d.y));
+        const float2 y = csub(cmul(emph[k], u), make_float2(cd * d.x, cd * d.y));
         power[k] = __fadd_rn(__fmul_rn(y.x, y.x), __fmul_rn(y.y, y.y));
       }
     }
@@ -414,7 +421,8 @@ extern "C" {
 // wav (B, W), out (B, T, num_mel): contiguous float32 on the current device.
 // The tables (ops/fbank_kernel.py:kernel_tables): tw (n_fft, 2) float32
 // twiddles W_n^e; emph (n_fft / 2 + 1, 2) the pre-emphasis response
-// 1 - preemph W_n^k; window (L,) and dwindow (L,) its differences; mel_tab
+// 1 - preemph W_n^k; window (L,); dwindow (L,) its differences times dscale,
+// a power of two (entry 0: dscale window[0]); mel_tab
 // (3, num_mel) int32: each filter's first bin, count and offset into mel_w
 // (nnz,).  n_fft one of 256, 512, 1024, 2048, with L <= n_fft.  flags: bit
 // 0 scale by 32768, bit 1 remove the DC offset.  Launches on `stream` and
@@ -423,7 +431,8 @@ extern "C" {
 int fbank_logmel_f32(const float* wav, int B, int W, int T, int L, int shift, int n_fft,
                      const float* tw, const float* emph, const float* window,
                      const float* dwindow, const int* mel_tab, const float* mel_w, int num_mel,
-                     int nnz, float preemph, int flags, float* out, void* stream) {
+                     int nnz, float preemph, float dscale, int flags, float* out,
+                     void* stream) {
   if (B <= 0 || T <= 0) return 0;
   if (L <= 0 || L > n_fft || shift <= 0 || num_mel <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -447,6 +456,7 @@ int fbank_logmel_f32(const float* wav, int B, int W, int T, int L, int shift, in
            L % 4 == 0;
   p.remove_dc = (flags >> 1) & 1;
   p.preemph = preemph;
+  p.dscale = dscale;
   p.scale = (flags & 1) ? 32768.f : 1.f;
   switch (n_fft) {
     case 256: return launch<256>(p, stream);

@@ -3,15 +3,18 @@ batches.
 
 Counterpart of `wespeaker_hubert_tpu/data/dataset.py`: `load_data_list`,
 `iter_raw_list` (JSONL {key, wav, spk}), `iter_feat_list` (JSONL {key,
-feat, spk} with Kaldi matrix rxspecifiers), `chunk_samples_for_frames`,
-`shard_list_for_rank`, `buffer_shuffle`, `TrainPipelineConfig`,
-`TrainPipeline` and `EvalPipeline`.  The host decodes and selects (list
-striping, shuffle, chunk choice, augmentation parameters) and ships
-fixed-shape numpy batches; the DSP runs on the device (ops/augment.py).
-`TrainPipeline` makes the same `random.Random` and `np.random.default_rng`
-draws in the same order as the JAX package's, so its batches are identical
-for the same list, seed and stores.  The `shard` data type (tar archives)
-is not ported yet.
+feat, spk} with Kaldi matrix rxspecifiers), `iter_tar_shards` (tar
+archives of KEY.wav + KEY.spk members: plain, gzip or zstd),
+`chunk_samples_for_frames`, `shard_list_for_rank`, `buffer_shuffle`,
+`TrainPipelineConfig`, `TrainPipeline` and `EvalPipeline`.  The host
+decodes and selects (list striping, shuffle, chunk choice, augmentation
+parameters) and ships fixed-shape numpy batches; the DSP runs on the device
+(ops/augment.py).  `TrainPipeline` makes the same `random.Random` and
+`np.random.default_rng` draws in the same order as the JAX package's, so its
+batches are identical for the same list, seed and stores.  For `shard` data
+the list's lines are tar paths: the epoch's shuffle and the rank / worker
+striping act on whole shards, and the buffer shuffle on the utterances
+streamed out of them.
 """
 
 from __future__ import annotations
@@ -20,19 +23,21 @@ import dataclasses
 import json
 import logging
 import random
+import tarfile
 from typing import Dict, Iterable, Iterator, List, Optional, Sequence
 
 import numpy as np
 
 from ..ops.augment import speed_input_len
 from .aug_store import AugStore, snr_range_for_key
-from .wav_io import read_wav
+from .wav_io import read_wav, read_wav_bytes
 
 __all__ = [
     "chunk_samples_for_frames",
     "load_data_list",
     "iter_raw_list",
     "iter_feat_list",
+    "iter_tar_shards",
     "shard_list_for_rank",
     "buffer_shuffle",
     "TrainPipelineConfig",
@@ -96,11 +101,51 @@ def iter_feat_list(entries: Iterable[str]) -> Iterator[dict]:
             logger.warning("failed to read feat sample: %s", e)
 
 
-def _refuse_shard(data_type: str) -> None:
-    if data_type not in ("raw", "feat"):
-        raise NotImplementedError(
-            f"data_type {data_type!r} is not ported yet (raw and feat are)"
-        )
+def iter_tar_shards(paths: Iterable[str]) -> Iterator[dict]:
+    """Tar shards -> {key, wav (float32), sample_rate, spk}: KEY.wav and
+    KEY.spk (or KEY.txt) members grouped by their shared prefix, streamed.
+    A shard that fails to read is logged and skipped from that point."""
+    from .zstd_io import open_maybe_zstd
+
+    for path in paths:
+        zf = None
+        try:
+            # tarfile reads plain and gzip streams; zstd goes through libzstd
+            zf = open_maybe_zstd(path)
+            ctx = (tarfile.open(fileobj=zf, mode="r|") if zf is not None
+                   else tarfile.open(path, "r|*"))
+            with ctx as tf:
+                cur_key: Optional[str] = None
+                cur: dict = {}
+                for member in tf:
+                    if not member.isfile():
+                        continue
+                    base, _, ext = member.name.rpartition(".")
+                    if base != cur_key:
+                        if cur_key is not None and "wav" in cur:
+                            yield cur | {"key": cur_key, "spk": cur.get("spk", "")}
+                        cur_key, cur = base, {}
+                    data = tf.extractfile(member).read()
+                    if ext == "wav":
+                        cur["wav"], cur["sample_rate"] = read_wav_bytes(data)
+                    elif ext in ("spk", "txt"):
+                        cur["spk"] = data.decode("utf-8").strip()
+                if cur_key is not None and "wav" in cur:
+                    yield cur | {"key": cur_key, "spk": cur.get("spk", "")}
+        except Exception as e:  # corrupt shard: warn + skip
+            logger.warning("failed to read shard %s: %s", path, e)
+        finally:
+            if zf is not None:
+                zf.close()
+
+
+_READERS = {"raw": iter_raw_list, "feat": iter_feat_list, "shard": iter_tar_shards}
+
+
+def _reader(data_type: str):
+    if data_type not in _READERS:
+        raise ValueError(f"unknown data_type {data_type!r} (raw, shard or feat)")
+    return _READERS[data_type]
 
 
 def shard_list_for_rank(
@@ -148,7 +193,7 @@ def _random_chunk(x: np.ndarray, chunk_len: int, rng: random.Random) -> np.ndarr
 
 @dataclasses.dataclass
 class TrainPipelineConfig:
-    data_type: str = "raw"  # 'raw' | 'feat' ('shard' is not ported yet)
+    data_type: str = "raw"  # 'raw' | 'shard' | 'feat'
     num_frms: int = 200
     frame_shift_ms: float = 10.0
     frame_length_ms: float = 25.0
@@ -194,7 +239,7 @@ class TrainPipeline:
         worker: int = 0,
         num_workers: int = 1,
     ):
-        _refuse_shard(cfg.data_type)
+        _reader(cfg.data_type)
         self.data_list = list(data_list)
         self.spk2id = spk2id
         self.cfg = cfg
@@ -244,7 +289,7 @@ class TrainPipeline:
             worker=self.worker, num_workers=self.num_workers,
             shuffle=cfg.shuffle, seed=cfg.seed,
         )
-        it = (iter_feat_list if cfg.data_type == "feat" else iter_raw_list)(entries)
+        it = _reader(cfg.data_type)(entries)
         rng = random.Random(cfg.seed + 77 * self.epoch + self.rank + 10007 * self.worker)
         if cfg.shuffle:
             it = buffer_shuffle(it, cfg.shuffle_size, rng)
@@ -387,7 +432,7 @@ class EvalPipeline:
         extend_buckets: bool = True,
         max_bucket_frames: int = 51200,
     ):
-        _refuse_shard(data_type)
+        _reader(data_type)
         self.data_list = list(data_list)
         self.data_type = data_type
         self.batch_size = batch_size
@@ -426,7 +471,7 @@ class EvalPipeline:
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         is_feat = self.data_type == "feat"
-        it = (iter_feat_list if is_feat else iter_raw_list)(self.data_list)
+        it = _reader(self.data_type)(self.data_list)
         buckets: Dict[int, List[dict]] = {}
         for s in it:
             x = s["feat"] if is_feat else s["wav"]

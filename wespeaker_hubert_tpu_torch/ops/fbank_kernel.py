@@ -12,8 +12,9 @@ JAX package's function), and the log-mel of a frame x is
 computes the same function with an FFT: per frame the samples' DC removal
 and window, an N-point complex FFT (N = fft_size) in radix-8/4 stages
 (`FFT_RADICES`, with the twiddles of `fft_twiddles`) of the windowed frame
-and of a small correction, pre-emphasis applied after it as the response
-1 - c W_N^k (`kernel_tables`; the reason is at the top of csrc/fbank.cu),
+and of a small correction scaled by `correction_scale`, pre-emphasis
+applied after it as the response 1 - c W_N^k (`kernel_tables`; the reasons
+are at the top of csrc/fbank.cu),
 the power, and the mel filters' nonzeros (`mel_csr`).  `fbank_kernel`
 launches it and raises on any failure, a CPU tensor included (`fbank()`
 routes those to the plain path).  `LAUNCHES` counts kernel launches.
@@ -39,6 +40,7 @@ __all__ = [
     "fft_twiddles",
     "kernel_matrices",
     "kernel_tables",
+    "correction_scale",
     "mel_csr",
 ]
 
@@ -52,6 +54,7 @@ _LOG_EPS = float(np.finfo(np.float32).eps)
 _SOURCES = ["fbank.cu"]
 _MATRICES: Dict[Tuple[FbankConfig, str], Tuple[torch.Tensor, ...]] = {}
 _TABLES: Dict[Tuple[FbankConfig, str], Tuple[torch.Tensor, ...]] = {}
+_DSCALES: Dict[Tuple[FbankConfig, str], float] = {}  # correction_scale per _TABLES entry
 _MATRICES_LOCK = threading.Lock()
 
 
@@ -155,13 +158,26 @@ def mel_csr(cfg: FbankConfig) -> Tuple[np.ndarray, np.ndarray]:
     return tab, np.concatenate(weights).astype(np.float32)
 
 
+def correction_scale(window: np.ndarray) -> float:
+    """The power of two s by which the kernel scales the pre-emphasis
+    correction d = (window[n] - window[n-1]) x'[n-1] before the FFT it
+    shares with window * x': the largest with s max|window[n] - window[n-1]|
+    <= max|window| (1 when the differences vanish)."""
+    w = np.abs(window.astype(np.float64))
+    dw = np.abs(np.diff(window.astype(np.float64)))
+    if dw.max(initial=0.0) == 0.0:
+        return 1.0
+    return float(2.0 ** max(0, int(np.floor(np.log2(w.max() / dw.max())))))
+
+
 def kernel_tables(cfg: FbankConfig, device) -> Tuple[torch.Tensor, ...]:
     """The kernel's tables on `device`, built once per (cfg, device):
     twiddles (N, 2); the pre-emphasis response 1 - c W_N^k, k <= N/2, as
     (N/2 + 1, 2) from float64; the window (L,), float32 of the float64
     `window_function` as the plain path takes it; its differences
-    window[n] - window[n-1] (L,) of those float32 values (entry 0 unused);
-    the mel tab (3, M) int32 and weights (nnz,) of `mel_csr`."""
+    window[n] - window[n-1] (L,) of those float32 values, window[-1] = 0,
+    times `correction_scale` of the window; the mel tab (3, M) int32 and
+    weights (nnz,) of `mel_csr`."""
     device = torch.device(device)
     key = (cfg, str(device))
     with _MATRICES_LOCK:
@@ -169,13 +185,15 @@ def kernel_tables(cfg: FbankConfig, device) -> Tuple[torch.Tensor, ...]:
             n = cfg.fft_size
             tab, weights = mel_csr(cfg)
             window = window_function(cfg.window_type, cfg.frame_length).astype(np.float32)
-            dwindow = np.diff(window.astype(np.float64), prepend=0.0).astype(np.float32)
+            dwindow = (np.diff(window.astype(np.float64), prepend=0.0).astype(np.float32)
+                       * np.float32(correction_scale(window)))
             emph = 1.0 - float(cfg.preemph_coeff) * np.exp(
                 -2j * np.pi * np.arange(n // 2 + 1, dtype=np.float64) / n)
             _TABLES[key] = tuple(
                 torch.from_numpy(np.ascontiguousarray(a)).to(device)
                 for a in (fft_twiddles(n), _complex_table(emph), window, dwindow, tab, weights)
             )
+            _DSCALES[key] = correction_scale(window)
         return _TABLES[key]
 
 
@@ -202,10 +220,10 @@ def _library():
         lib = load_library("fbank", _SOURCES)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         # wav, B, W, T, L, shift, n_fft, twiddles, emph, window, dwindow, mel
-        # tab, mel weights, num_mel, nnz, preemph, flags, out, stream
+        # tab, mel weights, num_mel, nnz, preemph, dscale, flags, out, stream
         lib.fbank_logmel_f32.argtypes = [
             ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
-            ctypes.c_float, i32, ptr, ptr,
+            ctypes.c_float, ctypes.c_float, i32, ptr, ptr,
         ]
         lib.fbank_logmel_f32.restype = i32
         lib.fbank_error_string.argtypes = [i32]
@@ -242,6 +260,7 @@ def fbank_kernel(wav: torch.Tensor, cfg: FbankConfig) -> torch.Tensor:
         raise ValueError(f"the fbank kernel takes FFT sizes {sorted(FFT_RADICES)}, got "
                          f"{cfg.fft_size} ({L}-sample frames)")
     tw, emph, window, dwindow, tab, weights = kernel_tables(cfg, wav.device)
+    dscale = _DSCALES[(cfg, str(wav.device))]
     m = cfg.num_mel_bins
     out = torch.empty((b, t, m), device=wav.device, dtype=torch.float32)
     flags = int(cfg.scale_to_int16) | (int(cfg.remove_dc_offset) << 1)
@@ -251,7 +270,7 @@ def fbank_kernel(wav: torch.Tensor, cfg: FbankConfig) -> torch.Tensor:
         rc = lib.fbank_logmel_f32(
             wav.data_ptr(), b, w, t, L, shift, cfg.fft_size, tw.data_ptr(), emph.data_ptr(),
             window.data_ptr(), dwindow.data_ptr(), tab.data_ptr(), weights.data_ptr(), m,
-            weights.numel(), float(cfg.preemph_coeff), flags, out.data_ptr(), stream,
+            weights.numel(), float(cfg.preemph_coeff), dscale, flags, out.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(

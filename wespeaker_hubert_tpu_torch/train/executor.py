@@ -7,8 +7,10 @@ Counterpart of `wespeaker_hubert_tpu/train/executor.py`:
         SGD update
 
 (`make_train_step`), `make_eval_embed` and `cast_variables_bf16`.  One call
-of the step is one optimizer step; the LR and margin are the schedules'
-values at the state's step.  Mixed precision is the JAX package's: the step
+of the step is one optimizer step, or `num_steps` of them on batches with a
+leading (num_steps,) axis (JAX scans them in one dispatch; here they run one
+after another, the same math); the LR and margin are the schedules' values
+at the state's step.  Mixed precision is the JAX package's: the step
 runs the model on bf16 working copies of the float32 parameters
 (`torch.func.functional_call`), so the gradients land in float32 on the
 master weights; BatchNorm statistics stay float32 and the logits are
@@ -54,7 +56,10 @@ class _TrainForward(torch.nn.Module):
             feats = apply_cmvn(batch["feat"], norm_mean=fcfg.cmvn_norm_mean,
                                norm_var=fcfg.cmvn_norm_var)
         elif net.frontend is None:
-            feats, mask = wav_to_features(wav, fcfg, lengths=batch.get("length"), train=True)
+            # dithered fbank, CMVN and SpecAug, each drawing from its own
+            # stream split off the step's generator
+            feats, mask = wav_to_features(wav, fcfg, lengths=batch.get("length"), train=True,
+                                          generator=generator)
         else:
             if self.compute_dtype is not None:
                 # the frontend follows its input's dtype
@@ -65,6 +70,7 @@ class _TrainForward(torch.nn.Module):
             if feat_lengths is not None:
                 mask = torch.arange(feats.shape[1], device=feats.device)[None, :] < feat_lengths[:, None]
         if fcfg.spec_aug and (("feat" in batch) or net.frontend is not None):
+            # (for fbank models wav_to_features applied it above)
             feats = spec_aug(
                 feats, generator, num_t_mask=fcfg.spec_aug_num_t_mask,
                 num_f_mask=fcfg.spec_aug_num_f_mask, max_t=fcfg.spec_aug_max_t,
@@ -91,6 +97,11 @@ def make_train_step(
 ) -> Callable:
     """The train step: (state, batch) -> metrics {loss, acc, lr, margin},
     updating `state` (train/state.py:TrainState over `model`) in place.
+    With `num_steps` N > 1 every batch field has a leading (N,) axis and the
+    call runs N optimizer steps, each on its own batch with its own LR,
+    margin and generator seed (from `seed` and the state's step, so N single
+    steps give the same result); loss and acc come back as (N,) tensors, lr
+    and margin as lists of N.
 
     The batch is a dict of tensors on the model's device: {'wav': (B, W)}
     or {'feat': (B, T, F)}, 'label' (B,), optional 'length', and the
@@ -102,8 +113,6 @@ def make_train_step(
     from (`seed`, step), so a resumed run draws the same masks.  Loss and
     acc are returned as device tensors (no host synchronization).
     """
-    if num_steps > 1:
-        raise NotImplementedError("num_steps > 1 (scanned steps) is not ported yet")
     if mesh is not None or pipeline_microbatches:
         raise NotImplementedError("mesh / pipeline-parallel training is not ported yet")
     if aug_blocks > 1:
@@ -158,7 +167,19 @@ def make_train_step(
         acc = (logits.argmax(dim=-1) == labels).float().mean()
         return {"loss": loss.detach(), "acc": acc, "lr": lr, "margin": margin}
 
-    return step_fn
+    if num_steps <= 1:
+        return step_fn
+
+    def multi_step_fn(state, batches: Dict[str, torch.Tensor]) -> Dict:
+        n = batches["label"].shape[0]
+        if n != num_steps:
+            raise ValueError(f"batches carry {n} steps, the step was made for {num_steps}")
+        out = [step_fn(state, {k: v[i] for k, v in batches.items()}) for i in range(n)]
+        return {"loss": torch.stack([m["loss"] for m in out]),
+                "acc": torch.stack([m["acc"] for m in out]),
+                "lr": [m["lr"] for m in out], "margin": [m["margin"] for m in out]}
+
+    return multi_step_fn
 
 
 def cast_variables_bf16(model: torch.nn.Module) -> torch.nn.Module:

@@ -20,7 +20,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-__all__ = ["save_checkpoint", "load_checkpoint", "load_partial", "latest_checkpoint"]
+__all__ = ["save_checkpoint", "load_checkpoint", "load_partial", "latest_checkpoint",
+           "average_checkpoints"]
 
 
 def save_checkpoint(path: str, obj: Any, meta: Optional[Dict] = None) -> None:
@@ -68,3 +69,29 @@ def latest_checkpoint(directory: str, pattern: str = r"model_(\d+)\.pt") -> Opti
             best_epoch = int(m.group(1))
             best = os.path.join(directory, name)
     return best
+
+
+def average_checkpoints(paths: List[str]) -> Dict[str, torch.Tensor]:
+    """Uniform average of the state_dicts at `paths` (JAX
+    `utils/checkpoint.py:average_checkpoints`): floating tensors are summed
+    in file order in float32 and divided by their count, as numpy's mean
+    over the stacked arrays does; integer tensors (BatchNorm's
+    `num_batches_tracked`) are taken from the last file.  The names are the
+    files' own, so the result loads wherever they do."""
+    if not paths:
+        raise ValueError("no checkpoints to average")
+    states = [load_checkpoint(p) for p in paths]
+    names = list(states[0])
+    for p, st in zip(paths[1:], states[1:]):
+        if list(st) != names:
+            raise ValueError(f"{p}: its tensor names differ from {paths[0]}'s")
+    out = {}
+    for k in names:
+        if states[0][k].is_floating_point():
+            acc = states[0][k].float().clone()
+            for st in states[1:]:
+                acc += st[k].float()
+            out[k] = (acc / len(states)).to(states[0][k].dtype)
+        else:
+            out[k] = states[-1][k].clone()
+    return out
