@@ -75,7 +75,22 @@ Phases:
  13. one float32 step of that model (17,982 classes, batch 32 x 2 s, dither
      0, SpecAug off) on the card against the CPU, and a 2-step call against
      two single steps on the card;
- 14. bin/score at VoxCeleb1-O's and VoxCeleb1-H's sizes on seeded
+ 14. the ResNet34 recipe: recipes.voxceleb_v2 stages 1-9 on
+     examples/voxceleb/v2/conf/resnet34.yaml and resnet_lm.yaml as the
+     port's reader parses them (ResNet34, 32 channels, 80 mels, 256-d,
+     TSTP, ArcMargin over 3 x 5,994 classes, batch 128 x 2 s, float32; the
+     large-margin fine-tune at batch 64 x 6 s, margin 0.5, from the base
+     run's averaged model), overriding only the paths and the run's length
+     (2 epochs of 12 steps; lm 1 epoch of 8 steps), on phase 12's data:
+     training, averaging, extraction (K1 on every stage-4 input against its
+     plain version), scoring, export of the model directory and its
+     torch.export program (stage 8), each twice; 16 stage-4 embeddings
+     and the score files against the CPU, the program against the eager
+     model on the card, the exported directory through cli.speaker.Speaker,
+     and 3 profiled base steps;
+ 15. one float32 ResNet34 step (batch 16 x 2 s) on the card against the
+     CPU;
+ 16. bin/score at VoxCeleb1-O's and VoxCeleb1-H's sizes on seeded
      embeddings (5,994-speaker cohort, top 300), card against CPU, timed.
 
 A kernel's bound is the least time the card could take for the work the
@@ -1851,6 +1866,11 @@ RECIPE_TRAIN_SPEAKERS, RECIPE_PER_SPEAKER = 128, 12  # 1,536 utterances: 12 batc
 # as JAX's, checks epoch_iter only after a full group, so epoch_iter 12 does not cut it)
 RECIPE_SEED = 20251019
 PROFILE_GROUPS = {
+    # cuDNN's FFT convolution algorithms: their transforms (DSE::, fft2d_),
+    # complex products and tile transforms (ResNet34's float32 step picks
+    # them); cuFFT's own kernels (the augmentation's reverb) have other names
+    "conv (FFT algorithm)": ("dse::", "fft2d_", "pointwise_mult_and_sum_complex",
+                             "region_transform", "flip_filter", "gemm_cf32"),
     "conv": ("fprop", "dgrad", "wgrad", "cudnn", "convol", "winograd", "implicit_gemm"),
     "GEMM": ("nvjet", "gemm", "cutlass", "xmma", "cublas"),
     "norms": ("layer_norm", "group_norm", "batch_norm"),
@@ -1951,10 +1971,11 @@ def write_recipe_data(data):
 class _StepTimer:
     """Wraps bin/train's make_train_step so every call of the step it makes
     is timed with a device synchronize after it: (steps in the call,
-    seconds).  The synchronize is the only change to the run."""
+    seconds), and keeps the margins the call reports.  The synchronize is
+    the only change to the run."""
 
     def __init__(self):
-        self.calls = []
+        self.calls, self.margins = [], []
 
     def __call__(self, make):
         def timed_make(*args, **kwargs):
@@ -1966,6 +1987,8 @@ class _StepTimer:
                 sync()
                 self.calls.append((int(batch["label"].shape[0]) if batch["label"].dim() == 2
                                    else 1, time.perf_counter() - t0))
+                m = out["margin"]
+                self.margins += m if isinstance(m, list) else [m]
                 return out
             return step
         return timed_make
@@ -2064,11 +2087,12 @@ def _score_column(path, col):
         return np.asarray([float(ln.split()[col]) for ln in f])
 
 
-def recipe_against_cpu(data, exp, out):
+def recipe_against_cpu(data, exp, out, config=None, tag="recipe"):
     """What stages 4-6 wrote on the card against the CPU: the embeddings of
     the first 16 eval utterances by bin/extract on the CPU (the plain fbank,
-    from the same avg_model.pt), and the cosine and AS-Norm score files
-    recomputed on the CPU from the card's embeddings.  Returns the failures."""
+    from the same avg_model.pt, `config`), and the cosine and AS-Norm score
+    files recomputed on the CPU from the card's embeddings.  Returns the
+    failures."""
     from wespeaker_hubert_tpu_torch.bin.extract import extract
     from wespeaker_hubert_tpu_torch.bin.score import score_norm, score_trials
     from wespeaker_hubert_tpu_torch.recipes import voxceleb_v2
@@ -2081,7 +2105,7 @@ def recipe_against_cpu(data, exp, out):
     lines = Path(data, "vox1", "raw.list").read_text().splitlines()[:16]
     Path(sub).write_text("\n".join(lines) + "\n")
     card = embeddings_dict(os.path.join(emb_dir, "vox1.npz"))
-    keys, emb = extract(str(RECIPE_CONFIG), sub, os.path.join(exp, "avg_model.pt"), "",
+    keys, emb = extract(str(config or RECIPE_CONFIG), sub, os.path.join(exp, "avg_model.pt"), "",
                         device="cpu")
     cos = [cosine(card[k], e) for k, e in zip(keys, emb)]
     trials = os.path.join(data, "vox1", "vox1_O_cleaned.kaldi")
@@ -2101,7 +2125,7 @@ def recipe_against_cpu(data, exp, out):
                           "cosine_bar": COS_MIN["f32"], "score_max_abs_err": score_err,
                           "asnorm_max_abs_err": norm_err, "score_bar": 1e-5 + 1.1e-5,
                           "asnorm_bar": 2e-4 + 1.1e-5}
-    log(f"[recipe] against the CPU: {len(cos)} stage-4 embeddings, min cosine {min(cos):.7f} "
+    log(f"[{tag}] against the CPU: {len(cos)} stage-4 embeddings, min cosine {min(cos):.7f} "
         f"(bar {COS_MIN['f32']}); stage-5 scores max|d| {score_err:.2e} (bar 2.1e-5), stage-6 "
         f"AS-Norm max|d| {norm_err:.2e} (bar 2.11e-4)")
     bad = []
@@ -2114,6 +2138,74 @@ def recipe_against_cpu(data, exp, out):
     return bad
 
 
+def profile_recipe_steps(config, data, exp, tag):
+    """3 float32 train steps of a recipe config on one of its shard batches,
+    from the run's averaged weights, under torch.profiler (after 2 warm
+    steps): device time, idle share and PROFILE_GROUPS' shares."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from wespeaker_hubert_tpu_torch.bin.train import _feature_cfg, _to_device, read_spk2id
+    from wespeaker_hubert_tpu_torch.data.aug_store import AugStore
+    from wespeaker_hubert_tpu_torch.data.dataset import TrainPipeline, TrainPipelineConfig
+    from wespeaker_hubert_tpu_torch.models.speaker_net import build_speaker_net, load_speaker_state
+    from wespeaker_hubert_tpu_torch.train.executor import make_train_step
+    from wespeaker_hubert_tpu_torch.train.schedulers import MarginSchedule, get_lr_schedule
+    from wespeaker_hubert_tpu_torch.train.state import TrainState, make_optimizer
+
+    da = config["dataset_args"]
+    batch_size = config["dataloader_args"]["batch_size"]
+    spk2id = read_spk2id(os.path.join(data, "vox2_dev", "utt2spk"))
+    pipe = TrainPipeline(
+        Path(data, "vox2_dev", "shard.list").read_text().split(), spk2id,
+        TrainPipelineConfig(data_type="shard", num_frms=da["num_frms"], batch_size=batch_size,
+                            shuffle_size=da["shuffle_args"]["shuffle_size"], seed=7),
+        AugStore(root=os.path.join(data, "rirs_aug_store")),
+        AugStore(root=os.path.join(data, "musan_aug_store")))
+    batch = _to_device(next(iter(pipe)), torch.device(DEVICE))
+    net = build_speaker_net(config, 3 * len(spk2id))
+    load_speaker_state(net, torch.load(os.path.join(exp, "avg_model.pt"), weights_only=True))
+    net.to(DEVICE)
+    lr = get_lr_schedule("ExponentialDecrease", num_epochs=2, epoch_iter=12, scale_ratio=2.0,
+                         **config["scheduler_args"])
+    state = TrainState(net, make_optimizer(net), lr)
+    step = make_train_step(net, lr, MarginSchedule(12, 0, 1, 0.0, 0.2),
+                           feature_cfg=_feature_cfg(da), chunk_samples=pipe.chunk_samples,
+                           seed=43)
+    for _ in range(2):
+        step(state, batch)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step(state, batch)
+        sync()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    prof_out = grouped_profile(prof, wall_us, PROFILE_GROUPS)
+    prof_out["window"] = (f"3 float32 train steps, batch {batch_size} x "
+                          f"{da['num_frms'] / 100:g} s, {config['model']}, "
+                          f"{3 * len(spk2id)} classes")
+    if prof_out["device_ms"]:
+        log(f"[{tag}] 3 f32 steps: device {prof_out['device_ms']:.2f} ms over "
+            f"{prof_out['wall_ms']:.2f} ms wall (idle share {prof_out['device_idle_share']:.4f});"
+            " shares " + ", ".join(f"{g} {v:.3f}" for g, v in prof_out["shares"].items()))
+        for g in ("conv", "conv (FFT algorithm)", "GEMM", "elementwise"):
+            log(f"[{tag}]   {g}: " + "; ".join(prof_out["group_top"][g][:3]))
+    else:
+        log(f"[{tag}] torch.profiler reported no device time: not measured")
+    del net, state, step
+    empty_cache()
+    return prof_out
+
+
+def _stage_rates(records):
+    """bin/extract's "extracted ..." log lines among `records`, and the audio
+    seconds they report over their loop seconds."""
+    lines = [r for r in records if r.startswith("extracted")]
+    pairs = [(float(r.split("; ")[1].split(" audio-s")[0]), float(r.split(" in ")[1].split("s (")[0]))
+             for r in lines]
+    return lines, sum(a for a, _ in pairs) / max(1e-9, sum(t for _, t in pairs))
+
+
 def phase_recipe(report, root):
     """recipes.voxceleb_v2 stages 1-7 on the card with the flagship config
     as the port's reader parses it, overriding only the paths and the length
@@ -2124,18 +2216,9 @@ def phase_recipe(report, root):
     train steps at the same config.  Returns stage 4's K1 launches."""
     import logging
 
-    from torch.profiler import ProfilerActivity, profile
-
     from wespeaker_hubert_tpu_torch.bin import train as bin_train
-    from wespeaker_hubert_tpu_torch.bin.train import _feature_cfg, _to_device, read_spk2id
-    from wespeaker_hubert_tpu_torch.data.aug_store import AugStore
-    from wespeaker_hubert_tpu_torch.data.dataset import TrainPipeline, TrainPipelineConfig
-    from wespeaker_hubert_tpu_torch.models.speaker_net import build_speaker_net, load_speaker_state
     from wespeaker_hubert_tpu_torch.ops import fbank_kernel
     from wespeaker_hubert_tpu_torch.recipes import voxceleb_v2
-    from wespeaker_hubert_tpu_torch.train.executor import make_train_step
-    from wespeaker_hubert_tpu_torch.train.schedulers import MarginSchedule, get_lr_schedule
-    from wespeaker_hubert_tpu_torch.train.state import TrainState, make_optimizer
     from wespeaker_hubert_tpu_torch.utils.config import load_config
 
     data, exp = os.path.join(root, "data"), os.path.join(root, "exp")
@@ -2198,9 +2281,7 @@ def phase_recipe(report, root):
     step_ms = 1e3 * sum(s for _, s in calls[1:]) / max(1, sum(n for n, _ in calls[1:]))
     config = load_config(str(RECIPE_CONFIG))
     batch_size = config["dataloader_args"]["batch_size"]
-    extract_lines = [r for r in rates if r.startswith("extracted")]
-    extracted = [(float(r.split("; ")[1].split(" audio-s")[0]),
-                  float(r.split(" in ")[1].split("s (")[0])) for r in extract_lines]
+    extract_lines, extract_rate = _stage_rates(rates)
     out.update({
         "stage_s": {s: d["s"] for s, d in done.items()},
         "lines": {s: d["lines"] for s, d in done.items() if d["lines"]},
@@ -2211,7 +2292,7 @@ def phase_recipe(report, root):
         "peak_mem_gb_stage_1_3": peak_gb,
         "k1_launches_stage_1_3": k1_train, "k1_launches_stage_4_7": k1_extract,
         "extract_log": extract_lines,
-        "extract_audio_s_per_s": sum(a for a, _ in extracted) / sum(s for _, s in extracted),
+        "extract_audio_s_per_s": extract_rate,
         "extract_stage4_audio_s_per_s": (seconds["vox1"] + seconds["vox2_dev"]) / done[4]["s"],
     })
     log(f"[recipe] data: {RECIPE_TRAIN_SPEAKERS * RECIPE_PER_SPEAKER} training utterances "
@@ -2233,46 +2314,7 @@ def phase_recipe(report, root):
         log(f"[recipe] stage {s}: " + "; ".join(done[s]["lines"]))
 
     # a few profiled steps of the same config (the recipe's averaged weights)
-    da = config["dataset_args"]
-    spk2id = read_spk2id(os.path.join(data, "vox2_dev", "utt2spk"))
-    pipe = TrainPipeline(
-        Path(data, "vox2_dev", "shard.list").read_text().split(), spk2id,
-        TrainPipelineConfig(data_type="shard", num_frms=da["num_frms"], batch_size=batch_size,
-                            shuffle_size=da["shuffle_args"]["shuffle_size"], seed=7),
-        AugStore(root=os.path.join(data, "rirs_aug_store")),
-        AugStore(root=os.path.join(data, "musan_aug_store")))
-    batch = _to_device(next(iter(pipe)), torch.device(DEVICE))
-    net = build_speaker_net(config, 3 * len(spk2id))
-    load_speaker_state(net, torch.load(os.path.join(exp, "avg_model.pt"), weights_only=True))
-    net.to(DEVICE)
-    lr = get_lr_schedule("ExponentialDecrease", num_epochs=2, epoch_iter=12, scale_ratio=2.0,
-                         **config["scheduler_args"])
-    state = TrainState(net, make_optimizer(net), lr)
-    step = make_train_step(net, lr, MarginSchedule(12, 0, 1, 0.0, 0.2),
-                           feature_cfg=_feature_cfg(da), chunk_samples=pipe.chunk_samples,
-                           seed=43)
-    for _ in range(2):
-        step(state, batch)
-    sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            step(state, batch)
-        sync()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    prof_out = out["profile"] = grouped_profile(prof, wall_us, PROFILE_GROUPS)
-    prof_out["window"] = (f"3 float32 train steps, batch {batch_size} x 2 s, "
-                          f"{config['model']}, {3 * len(spk2id)} classes")
-    if prof_out["device_ms"]:
-        log(f"[recipe profile] 3 f32 steps: device {prof_out['device_ms']:.2f} ms over "
-            f"{prof_out['wall_ms']:.2f} ms wall (idle share {prof_out['device_idle_share']:.4f});"
-            " shares " + ", ".join(f"{g} {v:.3f}" for g, v in prof_out["shares"].items()))
-        for g in ("conv", "GEMM", "elementwise"):
-            log(f"[recipe profile]   {g}: " + "; ".join(prof_out["group_top"][g][:3]))
-    else:
-        log("[recipe profile] torch.profiler reported no device time: not measured")
-    del net, state, step
-    empty_cache()
+    out["profile"] = profile_recipe_steps(config, data, exp, "recipe profile")
     check(sorted(done) == list(range(1, 8)), f"recipe: stages {sorted(done)}")
     check([n for n, _ in calls] == [8, 1, 1, 1, 1] * 2,
           f"recipe: step calls {[n for n, _ in calls]}, want an 8-step call and, where the "
@@ -2297,15 +2339,15 @@ ECAPA_CHECK_BATCH = 32
 ECAPA_CHECK_CHUNK = 31920  # samples of 198 fbank frames: a 2 s chunk
 
 
-def _ecapa_check_batch(seed):
-    """A packed, speed-perturbed batch of ECAPA_CHECK_BATCH x 2 s (198
-    frames) for the flagship ECAPA: wav (n, speed_input_len), labels over
-    17,982 classes, an eighth of the rows reverberated and an eighth noised
-    (host tensors)."""
+def _ecapa_check_batch(seed, n=None):
+    """A packed, speed-perturbed batch of n (ECAPA_CHECK_BATCH unless given)
+    x 2 s (198 frames) for a recipe model: wav (n, speed_input_len), labels
+    over 17,982 classes, an eighth of the rows reverberated and an eighth
+    noised (host tensors)."""
     from wespeaker_hubert_tpu_torch.ops.augment import speed_input_len
 
     rng = np.random.default_rng(seed)
-    n, chunk = ECAPA_CHECK_BATCH, ECAPA_CHECK_CHUNK
+    n, chunk = n or ECAPA_CHECK_BATCH, ECAPA_CHECK_CHUNK
     rows_aug = max(1, n // 8)
     w = speed_input_len(chunk)
     wav = np.stack([speechlike(rng, w / SR + 0.001, rng.uniform(90, 280))[:w] for _ in range(n)])
@@ -2319,9 +2361,10 @@ def _ecapa_check_batch(seed):
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
-def _ecapa_net(device, num_steps=1):
-    """The flagship ECAPA_TDNN_GLOB_c512 + ArcMargin over 17,982 classes with
-    seeded weights, float32, dither 0 and SpecAug off, on `device`."""
+def _ecapa_net(device, num_steps=1, config_path=None, seed=ECAPA_CHECK_SEED):
+    """A recipe config's model (the flagship ECAPA_TDNN_GLOB_c512 unless
+    `config_path` names another) + ArcMargin over 17,982 classes with seeded
+    weights, float32, dither 0 and SpecAug off, on `device`."""
     from wespeaker_hubert_tpu_torch.bin.train import _feature_cfg
     from wespeaker_hubert_tpu_torch.models.speaker_net import build_speaker_net, load_speaker_state
     from wespeaker_hubert_tpu_torch.train.executor import make_train_step
@@ -2329,12 +2372,12 @@ def _ecapa_net(device, num_steps=1):
     from wespeaker_hubert_tpu_torch.train.state import TrainState, make_optimizer
     from wespeaker_hubert_tpu_torch.utils.config import load_config
 
-    config = load_config(str(RECIPE_CONFIG))
+    config = load_config(str(config_path or RECIPE_CONFIG))
     config["dataset_args"]["fbank_args"]["dither"] = 0.0
     config["dataset_args"]["spec_aug"] = False
     torch.manual_seed(0)
     net = build_speaker_net(config, 3 * RECIPE_SPEAKERS)
-    load_speaker_state(net, seeded_state_dict(net, ECAPA_CHECK_SEED))
+    load_speaker_state(net, seeded_state_dict(net, seed))
     net.to(device)
     lr = ExponentialDecrease(num_epochs=2, epoch_iter=4, initial_lr=0.1, final_lr=5e-5,
                              warm_up_epoch=1)
@@ -2421,6 +2464,265 @@ def phase_ecapa_step_check(report):
     check(all(v[3] == 2 for v in runs.values()), "ecapa step: each run takes 2 steps")
     check(loss_diff <= 1e-6 * abs(runs["single"][0][0]) and not failing_b,
           "ecapa step: the 2-step call vs two single steps")
+
+
+# ------------------------------------------------ the ResNet34 recipe
+RESNET_CONFIG = Path(__file__).resolve().parent / "examples/voxceleb/v2/conf/resnet34.yaml"
+RESNET_LM_CONFIG = Path(__file__).resolve().parent / "examples/voxceleb/v2/conf/resnet_lm.yaml"
+RESNET_CHECK_SEED = 20251021
+RESNET_CHECK_BATCH = 16
+# the exported program against the eager model: (B, T) feature shapes
+PROGRAM_SHAPES = ((16, 200), (3, 517))
+# Speaker on the exported directory against stage 4: an utterance's ResNet
+# embedding depends on the padding past it (its receptive field, some 240
+# frames, reaches beyond the utterance), and bin/extract pads to its length
+# bucket where Speaker pads to a power of two of samples
+SPEAKER_COS_MIN = 0.999
+
+
+def phase_resnet_recipe(report, root):
+    """recipes.voxceleb_v2 stages 1-9 on the card with resnet34.yaml and
+    resnet_lm.yaml as the port's reader parses them (ResNet34, 32 channels,
+    80 mels, 256-d, TSTP, ArcMargin over 3 x 5,994 classes, float32; the lm
+    fine-tune at batch 64 x 600 frames, margin 0.5), overriding only paths
+    and the run's length (base: 2 epochs of 12 steps of 128 x 200 frames, 2
+    checkpoints averaged; lm: 1 epoch of 8 steps, num_avg 1), on
+    write_recipe_data's 1,536 utterances in 2 shards.  Three calls, each
+    with K1's count set to 0 just before and read just after: stages 1-3,
+    stages 4-8, stage 9 (stages 3-8 of the lm config).  Then the checks:
+    K1 on every stage-4 input (the base's, and the lm run's equal to them),
+    16 stage-4 embeddings and the score files against the CPU, the stage-8
+    program (torch.export.load) against the eager model on the card, the
+    exported directory through cli.speaker.Speaker against stage 4, and 3
+    profiled base steps.  Returns the K1 launches of the two stage 4s."""
+    import logging
+
+    from wespeaker_hubert_tpu_torch.bin import train as bin_train
+    from wespeaker_hubert_tpu_torch.bin.export_model import load_program
+    from wespeaker_hubert_tpu_torch.cli.speaker import Speaker
+    from wespeaker_hubert_tpu_torch.models.speaker_net import build_speaker_net, load_speaker_state
+    from wespeaker_hubert_tpu_torch.ops import fbank_kernel
+    from wespeaker_hubert_tpu_torch.recipes import voxceleb_v2
+    from wespeaker_hubert_tpu_torch.utils.embeddings import embeddings_dict
+
+    data = os.path.join(root, "data")
+    exp, exp_lm = os.path.join(root, "exp_resnet"), os.path.join(root, "exp_resnet_lm")
+    t0 = time.perf_counter()
+    if os.path.exists(os.path.join(data, "vox1", "vox1_O_cleaned.kaldi")):
+        seconds = report["recipe"]["audio_s"]  # phase_recipe's data, in the same root
+    else:
+        seconds = write_recipe_data(data)
+    out = report["resnet_recipe"] = {"data_write_s": time.perf_counter() - t0,
+                                     "audio_s": seconds}
+    trials = os.path.join(data, "vox1", "vox1_O_cleaned.kaldi")
+    paths = [f"train_data={data}/vox2_dev/shard.list", f"train_label={data}/vox2_dev/utt2spk",
+             f"dataset_args.reverb_data={data}/rirs_aug_store",
+             f"dataset_args.noise_data={data}/musan_aug_store"]
+    # the overrides: paths and the length of the run, nothing else
+    overrides = ([f"exp_dir={exp}"] + paths
+                 + ["num_epochs=2", "epoch_iter=12", "save_epoch_interval=1", "num_avg=2"]
+                 + [f"lm.exp_dir={exp_lm}"] + ["lm." + o for o in paths]
+                 + ["lm.num_epochs=1", "lm.epoch_iter=8", "lm.save_epoch_interval=1",
+                    "lm.num_avg=1"])
+    out["overrides"] = overrides
+    common = ["--config", str(RESNET_CONFIG), "--lm_config", str(RESNET_LM_CONFIG),
+              "--data_root", data, "--trials", trials, "--device", DEVICE] + overrides
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: records.append(rec.getMessage())
+    for name in ("extract", "train"):
+        logging.getLogger(name).addHandler(handler)
+    make = bin_train.make_train_step
+    runs = {}
+    try:
+        for tag, stages in (("base", (1, 3)), ("export", (4, 8)), ("lm", (9, 9))):
+            timer = _StepTimer()
+            bin_train.make_train_step = timer(make)
+            if DEVICE == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            n_records = len(records)
+            fbank_kernel.LAUNCHES = 0
+            with _K1Spy(fbank_kernel) as spy:
+                done = voxceleb_v2.main(["--stage", str(stages[0]), "--stop_stage",
+                                         str(stages[1])] + common)
+            runs[tag] = {"done": done, "k1": fbank_kernel.LAUNCHES, "k1_inputs": spy.inputs,
+                         "timer": timer, "records": records[n_records:],
+                         "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                     if DEVICE == "cuda" else "not measured")}
+    finally:
+        bin_train.make_train_step = make
+        for name in ("extract", "train"):
+            logging.getLogger(name).removeHandler(handler)
+    done = {**runs["base"]["done"], **runs["export"]["done"], **runs["lm"]["done"]}
+    lm_done = done[9]["stages"]
+    base_cfg, lm_cfg = voxceleb_v2.load_configs(voxceleb_v2.parse_args(common))
+
+    def steps(tag, cfg):
+        calls = runs[tag]["timer"].calls
+        ms = 1e3 * sum(t for _, t in calls[1:]) / max(1, sum(n for n, _ in calls[1:]))
+        chunk_s = cfg["dataset_args"]["num_frms"] / 100
+        batch = cfg["dataloader_args"]["batch_size"]
+        return {"calls": [n for n, _ in calls], "step_ms_per_call": [1e3 * t / n for n, t in calls],
+                "step_ms_after_first": ms, "audio_s_per_s": batch * chunk_s / (ms / 1e3),
+                "batch": batch, "chunk_s": chunk_s, "margins": runs[tag]["timer"].margins,
+                "peak_mem_gb": runs[tag]["peak_gb"]}
+
+    out["train"] = {"base": steps("base", base_cfg), "lm": steps("lm", lm_cfg)}
+    extract_base, rate_base = _stage_rates(runs["export"]["records"])
+    extract_lm, rate_lm = _stage_rates(runs["lm"]["records"])
+    init_lines = [r for r in runs["lm"]["records"] if r.startswith("model_init")]
+    audio = seconds["vox1"] + seconds["vox2_dev"]
+    out.update({
+        "stage_s": {s: d["s"] for s, d in done.items()},
+        "lm_stage_s": {s: d["s"] for s, d in lm_done.items()},
+        "lines": {s: d["lines"] for s, d in done.items() if d.get("lines")},
+        "lm_lines": {s: d["lines"] for s, d in lm_done.items() if d["lines"]},
+        "k1_launches": {t: runs[t]["k1"] for t in runs},
+        "extract_log": {"base": extract_base, "lm": extract_lm},
+        "extract_audio_s_per_s": {"base": rate_base, "lm": rate_lm},
+        "extract_stage4_audio_s_per_s": {"base": audio / done[4]["s"],
+                                         "lm": audio / lm_done[4]["s"]},
+        "lm_model_init": init_lines})
+    for tag in ("base", "lm"):
+        r = out["train"][tag]
+        log(f"[resnet {tag}] stage 3: {len(r['calls'])} steps of {r['batch']} x {r['chunk_s']:g} s,"
+            f" per-step ms " + ", ".join(f"{x:.1f}" for x in r["step_ms_per_call"])
+            + f"; after the first {r['step_ms_after_first']:.2f} ms per step = "
+            f"{r['audio_s_per_s']:.0f} audio-s/s; peak memory "
+            + (f"{r['peak_mem_gb']:.2f} GB" if DEVICE == "cuda" else "not measured")
+            + f"; margins {sorted(set(r['margins']))}")
+    log(f"[resnet] stage seconds: " + ", ".join(f"{s} {d['s']:.1f}" for s, d in done.items())
+        + "; stage 9's: " + ", ".join(f"{s} {d['s']:.1f}" for s, d in lm_done.items()))
+    log(f"[resnet] stage 4: base " + " | ".join(extract_base) + f"; lm " + " | ".join(extract_lm)
+        + f"; loop rates {rate_base:.0f} / {rate_lm:.0f} audio-s/s, stage wall rates "
+        f"{out['extract_stage4_audio_s_per_s']['base']:.0f} / "
+        f"{out['extract_stage4_audio_s_per_s']['lm']:.0f}; K1 launches {out['k1_launches']}")
+    for s in (5, 6, 7):
+        log(f"[resnet] stage {s}: base " + "; ".join(done[s]["lines"]) + " | lm "
+            + "; ".join(lm_done[s]["lines"]))
+    log(f"[resnet] stage 8: " + "; ".join(done[8]["lines"] + lm_done[8]["lines"])
+        + f"; the lm run's {init_lines}")
+
+    # K1 on every stage-4 input: the base's against its plain version, and
+    # the lm run's stage 4 gave it the same batches
+    base_in, lm_in = runs["export"]["k1_inputs"], runs["lm"]["k1_inputs"]
+    k1_rows, k1_matched = k1_on_eval_batches(
+        [os.path.join(data, d, "raw.list") for d in ("vox1", "vox2_dev")],
+        base_in) if DEVICE == "cuda" else ([], False)
+    lm_same = len(lm_in) == len(base_in) and all(torch.equal(a, b) for a, b in zip(lm_in, base_in))
+    out["k1_stage4_checks"] = k1_rows
+    log(f"[resnet] K1 on all {len(base_in)} stage-4 inputs against its plain version (bar as "
+        f"[recipe]; inputs {'match' if k1_matched else 'DO NOT match'} EvalPipeline's batches; "
+        f"the lm run's {len(lm_in)} inputs {'equal' if lm_same else 'DIFFER from'} them): "
+        + "; ".join(f"{tuple(r['shape'])} x{r['batches']}: {r['off_bar']} past the bar, valid "
+                    f"max|d| {r['valid']['max_abs_err']:.3e}" for r in k1_rows))
+    n_caught = {"base": len(base_in), "lm": len(lm_in), "stage 3": len(runs["base"]["k1_inputs"])}
+    del base_in, lm_in, runs
+    empty_cache()
+    cpu_bad = recipe_against_cpu(data, exp, out, RESNET_CONFIG, "resnet")
+
+    # the stage-8 program against the eager model, on the card
+    program_cos = {}
+    for d, cfg in ((exp, base_cfg), (exp_lm, lm_cfg)):
+        exported = os.path.join(d, "exported")
+        program = load_program(os.path.join(exported, "model.pt2"), device=DEVICE)
+        net = build_speaker_net(json.loads(Path(exported, "config.json").read_text()))
+        load_speaker_state(net, torch.load(os.path.join(exported, "avg_model.pt"),
+                                           weights_only=True))
+        net.to(DEVICE).eval()
+        for b, t in PROGRAM_SHAPES:
+            feats = torch.from_numpy(np.random.default_rng(b * t).standard_normal(
+                (b, t, cfg["model_args"]["feat_dim"])).astype(np.float32)).to(DEVICE)
+            with torch.inference_mode():
+                got, want = program(feats), net.embed(feats)
+            program_cos[f"{os.path.basename(d)} ({b}, {t})"] = float(
+                torch.nn.functional.cosine_similarity(got.float(), want, dim=1).min())
+        del program, net
+    out["program_min_cosine"] = program_cos
+    log(f"[resnet] stage-8 torch.export program on the card against the eager model: min cosine "
+        + ", ".join(f"{k} {v:.7f}" for k, v in program_cos.items()) + f" (bar {COS_MIN['f32']})")
+
+    # the exported directory through cli.speaker.Speaker against stage 4
+    speaker = Speaker(os.path.join(exp, "exported"), device=DEVICE)
+    card = embeddings_dict(os.path.join(exp, "embeddings", "vox1.npz"))
+    wavs = [ln.split() for ln in Path(data, "vox1", "wav.scp").read_text().splitlines()[:16]]
+    speaker_cos = [cosine(speaker.extract_embedding(w), card[k]) for k, w in wavs]
+    del speaker
+    empty_cache()
+    out["speaker_vs_stage4"] = {"n": len(speaker_cos), "min_cosine": min(speaker_cos),
+                                "bar": SPEAKER_COS_MIN}
+    log(f"[resnet] exported directory through cli.speaker.Speaker against stage 4: "
+        f"{len(speaker_cos)} utterances, min cosine {min(speaker_cos):.7f} (bar {SPEAKER_COS_MIN})")
+    out["profile"] = profile_recipe_steps(base_cfg, data, exp, "resnet profile")
+
+    check(sorted(done) == list(range(1, 10)) and sorted(lm_done) == list(range(3, 9)),
+          f"resnet: stages {sorted(done)}, stage 9's {sorted(lm_done)}")
+    check(out["train"]["base"]["calls"] == [1] * 24 and out["train"]["lm"]["calls"] == [1] * 8,
+          f"resnet: step calls {out['train']['base']['calls']} / {out['train']['lm']['calls']}")
+    check(set(out["train"]["lm"]["margins"]) == {0.5},
+          f"resnet: the lm run's margins {out['train']['lm']['margins']}")
+    check(init_lines == [f"model_init from {exp}/avg_model.pt (epoch 0, 0 missing, 0 unexpected)"],
+          f"resnet: the lm run's initialization {init_lines}")
+    k1 = out["k1_launches"]
+    check(k1["base"] == 0 and n_caught["stage 3"] == 0,
+          f"resnet: the dithered train step launched K1 {k1['base']} times")
+    check(k1["export"] > 0 and k1_matched and n_caught["base"] == k1["export"],
+          f"resnet: stage 4's K1 inputs do not match EvalPipeline's batches ({n_caught}, {k1})")
+    check(lm_same and k1["lm"] == k1["export"],
+          f"resnet: the lm run's K1 launches {k1['lm']} are not its stage 4's")
+    check(all(r["off_bar"] == 0 and r["finite"] for r in k1_rows),
+          "resnet: K1 disagrees with its plain version on a stage-4 input")
+    check(not cpu_bad, "resnet: " + "; ".join(cpu_bad))
+    check(min(program_cos.values()) >= COS_MIN["f32"], f"resnet: program vs eager {program_cos}")
+    check(min(speaker_cos) >= SPEAKER_COS_MIN, f"resnet: Speaker vs stage 4 {speaker_cos}")
+    for s in (5, 6, 7):
+        for lines in (done[s]["lines"], lm_done[s]["lines"]):
+            check(len(lines) == 1 and " EER " in lines[0], f"resnet: stage {s} printed {lines}")
+    return k1["export"], k1["lm"]
+
+
+def phase_resnet_step_check(report):
+    """One float32 train step of ResNet34 at full width (resnet34.yaml: 32
+    channels, 80 mels, 256-d, TSTP, ArcMargin over 17,982 classes; batch 16
+    x 2 s, speed perturbation, 2 reverb and 2 noise rows, dither 0, SpecAug
+    off) on the card against the same step on the CPU: loss within 1e-5
+    relative, every tensor's update by _update_agreement (cosine >= 0.9999,
+    or within CONTROL_SLACK x the control's difference, the control the
+    card on the wav times 1 + 2^-20, or at the noise floor).  The first
+    BatchNorm reduces 16 x 200 x 80 positions per channel with flax's
+    E[x^2] - E[x]^2 in float32, whose rounding the card and the CPU sum in
+    another order: the control measures how far the step moves under an
+    input change of that size, and the bar is relative to it."""
+    batch = _ecapa_check_batch(RESNET_CHECK_SEED, RESNET_CHECK_BATCH)
+    res = {}
+    for tag, dev, scale in (("card", DEVICE, False), ("cpu", "cpu", False),
+                            ("control", DEVICE, True)):
+        net, state, step = _ecapa_net(dev, config_path=RESNET_CONFIG, seed=RESNET_CHECK_SEED)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        t0 = time.perf_counter()
+        res[tag] = _one_step(net, state, step, _perturbed(b) if scale else b, prefix="")
+        res[tag + "_s"] = time.perf_counter() - t0
+        del net, state, step
+    empty_cache()
+    loss_rel = abs(res["card"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    pair = _diff_table(res["card"][1], res["cpu"][1])
+    control = _diff_table(res["control"][1], res["card"][1])
+    failing, how = _update_agreement(pair, control, 0.9999, res["cpu"][2])
+    worst = sorted(pair.items(), key=lambda kv: kv[1][0])[:4]
+    out = report["resnet_step_check"] = {
+        "loss": [res["card"][0], res["cpu"][0]], "loss_rel": loss_rel,
+        "updates_rel_l2": _rel_l2(res["card"][1], res["cpu"][1]),
+        "control_updates_rel_l2": _rel_l2(res["control"][1], res["card"][1]),
+        "n_tensors": len(pair), "passed_by": how, "worst": worst, "failing": failing,
+        "cpu_step_s": res["cpu_s"], "card_step_s_first": res["card_s"]}
+    log(f"[resnet step] f32 ResNet34 step at full width ({3 * RECIPE_SPEAKERS} classes, batch "
+        f"{RESNET_CHECK_BATCH} x 2 s), card vs CPU: loss {res['card'][0]:.6f} vs "
+        f"{res['cpu'][0]:.6f} (rel {loss_rel:.2e}, bar 1e-5); updates relative L2 "
+        f"{out['updates_rel_l2']:.2e} (control {out['control_updates_rel_l2']:.2e}); of "
+        f"{len(pair)} tensors {how['cosine']} at cosine >= 0.9999, {how['within_control']} "
+        f"within the control, {how['noise_floor']} at the noise floor, {len(failing)} failing; "
+        f"least cosines {worst}; CPU step {res['cpu_s']:.1f} s")
+    check(loss_rel <= 1e-5 and not failing, "resnet step: card step vs CPU step")
 
 
 SCORE_SIZES = {"vox1_O": (40, 4874, 37720), "vox1_H": (1251, 153516, 552536)}
@@ -2575,7 +2877,10 @@ def main():
             timed("train checks", phase_train_checks, report, train_dir)
     with tempfile.TemporaryDirectory() as recipe_dir:
         recipe_launches = timed("recipe", phase_recipe, report, recipe_dir)
+        # the same data directory: stages 1-2 run again on it
+        resnet_launches = timed("resnet recipe", phase_resnet_recipe, report, recipe_dir)
     timed("ecapa step check", phase_ecapa_step_check, report)
+    timed("resnet step check", phase_resnet_step_check, report)
     with tempfile.TemporaryDirectory() as score_dir:
         timed("score", phase_score, report, score_dir)
     report["wall_s"] = time.perf_counter() - t_start
@@ -2594,7 +2899,8 @@ def main():
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     if (failures or k1 is None or launches is None or k2_row is None or k2_launches is None
-            or k2_bwd_row is None or train_launches is None or recipe_launches is None):
+            or k2_bwd_row is None or train_launches is None or recipe_launches is None
+            or resnet_launches is None):
         for f in failures:
             print(f"chip_smoke FAILED {f}", file=sys.stderr)
         return 1
@@ -2608,6 +2914,8 @@ def main():
         "launches_f32_service": launches["f32"],
         "launches_recipe": recipe_launches,
         "launches_recipe_scope": "recipes.voxceleb_v2 stage 4: extraction of both lists",
+        "launches_resnet_recipe": {"stage 4": resnet_launches[0],
+                                   "stage 9 (its stage 4)": resnet_launches[1]},
         "max_abs_err": max(r["max_abs_err"] for r in report["fbank_checks"]),
         "max_err": max(r["max_abs_err"] for r in report["fbank_checks"]),
         "ms": k1["ms"],

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
 from wespeaker_hubert_tpu.models import pooling as jax_pooling
 from wespeaker_hubert_tpu.models.convert_to_torch import to_torch_state_dict
 from wespeaker_hubert_tpu.models.ecapa_tdnn import EcapaTdnn as JaxEcapa
@@ -197,7 +198,7 @@ def test_registry_and_build():
         "ECAPA_TDNN_GLOB_c512"
     )
     with pytest.raises(ValueError, match="unknown model"):
-        get_speaker_model("ResNet34")
+        get_speaker_model("CAMPPlus")
     net = build_speaker_net({
         "model": "ECAPA_TDNN_c1024",
         "model_args": {"feat_dim": 24, "embed_dim": 8},

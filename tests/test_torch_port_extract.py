@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from tests.test_torch_port_ssl import SECONDS, cosines, randomize, slice_config, write_slice_list
+from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
 from wespeaker_hubert_tpu.bin.extract import extract as jax_extract
 from wespeaker_hubert_tpu.bin.train import build_speaker_net as jax_build_speaker_net
 from wespeaker_hubert_tpu.utils.checkpoint import save_checkpoint

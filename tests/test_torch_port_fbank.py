@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from tests.golden_fbank import golden_fbank
+from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
 from wespeaker_hubert_tpu.ops import fbank_pallas as jax_fbank_pallas
 from wespeaker_hubert_tpu.ops.fbank import FbankConfig as JaxFbankConfig
 from wespeaker_hubert_tpu.ops.fbank import fbank as jax_fbank

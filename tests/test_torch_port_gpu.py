@@ -599,3 +599,67 @@ def test_train_features_on_gpu_match_cpu(cuda):
     feats, _ = wav_to_features(wav.to(cuda), noisy, train=True, generator=g)
     feats = feats.cpu().numpy()
     assert np.isfinite(feats).all() and np.abs(feats - out["cuda"][0]).max() > 1e-3
+
+
+def _resnet34_net(seed=11):
+    """ResNet34 at its published widths (32 channels, 80 mels, 256-d, TSTP)
+    with seeded random weights, float32, in eval."""
+    from wespeaker_hubert_tpu_torch.models.speaker_net import SpeakerNet
+    from wespeaker_hubert_tpu_torch.models.resnet import ResNet34
+
+    net = SpeakerNet(ResNet34(80, 256))
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for k, v in net.state_dict().items():
+            if v.is_floating_point():
+                scale = 0.1 if v.dim() == 1 else float(np.prod(v.shape[1:])) ** -0.5
+                x = rng.normal(0.0, scale, v.shape)
+                if k.endswith("running_var") or (k.endswith("weight") and v.dim() == 1):
+                    x = rng.uniform(0.5, 1.5, v.shape)
+                v.copy_(torch.from_numpy(x.astype(np.float32)))
+    return net.eval()
+
+
+@pytest.mark.cuda
+def test_resnet34_embedding_on_gpu_matches_cpu(cuda):
+    """ResNet34 embeddings of a padded batch with a mask through
+    make_eval_embed (K1 on the card), the card against the CPU's plain path,
+    float32 with TF32 off: cosine >= 0.99999."""
+    from wespeaker_hubert_tpu_torch.ops.pipeline import FeaturePipelineConfig
+    from wespeaker_hubert_tpu_torch.train.executor import make_eval_embed
+
+    net = _resnet34_net()
+    wav = _wav(6, (3, 48000))
+    lengths = torch.tensor([48000, 30000, 12000], dtype=torch.int32)
+    fcfg = FeaturePipelineConfig(fbank=FbankConfig(dither=0.0, spectrum_impl="kernel"),
+                                 spec_aug=False)
+    want = make_eval_embed(net, fcfg)({"wav": wav, "length": lengths}).numpy()
+    launches = fbank_kernel.LAUNCHES
+    got = make_eval_embed(net.to(cuda), fcfg)({"wav": wav.to(cuda), "length": lengths.to(cuda)})
+    assert fbank_kernel.LAUNCHES - launches == 1
+    got = got.cpu().numpy()
+    assert got.shape == (3, 256) and np.isfinite(got).all()
+    cos = np.sum(got * want, 1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(want, axis=1))
+    assert cos.min() >= 0.99999, cos
+
+
+@pytest.mark.cuda
+def test_exported_resnet34_program_on_gpu_matches_eager(cuda, tmp_path):
+    """bin/export_model.export_program's torch.export program of ResNet34,
+    loaded onto the card, against the eager model on the card at two (B, T)
+    shapes: cosine >= 0.99999 (float32, TF32 off)."""
+    from wespeaker_hubert_tpu_torch.bin.export_model import export_program, load_program
+
+    net = _resnet34_net()
+    config = {"model": "ResNet34", "model_args": {"feat_dim": 80, "embed_dim": 256}}
+    torch.save(net.backbone.state_dict(), tmp_path / "avg_model.pt")
+    program = load_program(export_program(config, str(tmp_path / "avg_model.pt"),
+                                          str(tmp_path / "model.pt2")), device=cuda)
+    net.to(cuda)
+    for b, t in ((4, 200), (3, 517)):
+        feats = _wav(b * t, (b, t, 80)).to(cuda) * 10
+        with torch.inference_mode():
+            got, want = program(feats), net.embed(feats)
+        assert got.device == feats.device and got.shape == (b, 256)
+        cos = torch.nn.functional.cosine_similarity(got, want, dim=1)
+        assert float(cos.min()) >= 0.99999, cos

@@ -1,5 +1,6 @@
 """The port stands alone: no file of `wespeaker_hubert_tpu_torch` or
-`chip_smoke.py` imports JAX, flax, optax or the JAX package, and a process
+`chip_smoke.py` imports JAX, flax, optax, msgpack or the JAX package (the
+port reads flax's msgpack checkpoints with its own reader), and a process
 that imports every port module and serves on the CPU never loads jax."""
 
 import ast
@@ -15,7 +16,7 @@ import setuptools
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "wespeaker_hubert_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "wespeaker_hubert_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "wespeaker_hubert_tpu"}
 
 
 def _port_files():
@@ -52,11 +53,12 @@ def _module_names():
     "data.aug_store", "utils.checkpoint", "utils.config", "ops.pipeline", "train.executor",
     "data.dataset", "data.zstd_io", "utils.embeddings", "backend.score", "backend.metrics",
     "backend.calibration", "bin.score", "bin.score_calibration", "bin.tools",
-    "bin.average_model", "recipes.voxceleb_v2",
+    "bin.average_model", "recipes.voxceleb_v2", "models.resnet", "utils.flax_msgpack",
+    "bin.import_torch", "bin.export_torch", "bin.export_model",
 ])
 def test_training_modules_are_checked(name):
-    """The training and recipe slices' modules are among those the checks
-    above and the no-JAX process below import."""
+    """The training, recipe and interop slices' modules are among those the
+    checks above and the no-JAX process below import."""
     assert "wespeaker_hubert_tpu_torch." + name in set(_module_names())
     assert not FORBIDDEN.intersection(_imported_roots(PORT / (name.replace(".", "/") + ".py")))
 

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
 from wespeaker_hubert_tpu.backend import calibration as jax_cal
 from wespeaker_hubert_tpu.backend import score as jax_score
 from wespeaker_hubert_tpu.bin import score as jax_bin_score

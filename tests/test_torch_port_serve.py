@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from tests.test_torch_port_ecapa import random_variables
+from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
 from wespeaker_hubert_tpu.models import get_speaker_model as jax_get_model
 from wespeaker_hubert_tpu.models.speaker_net import SpeakerNet as JaxSpeakerNet
 from wespeaker_hubert_tpu.ops.fbank import FbankConfig as JaxFbankConfig

@@ -28,6 +28,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
 from wespeaker_hubert_tpu.data import EvalPipeline as JaxEvalPipeline
 from wespeaker_hubert_tpu.data import write_wav
 from wespeaker_hubert_tpu.frontend import SSLEncoder as JaxSSLEncoder

@@ -25,6 +25,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
 from wespeaker_hubert_tpu.data import AugStore as JaxAugStore
 from wespeaker_hubert_tpu.data import TrainPipeline as JaxTrainPipeline
 from wespeaker_hubert_tpu.data import TrainPipelineConfig as JaxPipelineConfig

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
 from tests.test_torch_port_train import _randomize, _store_arrays, _write_list
 from wespeaker_hubert_tpu.data import AugStore as JaxAugStore
 from wespeaker_hubert_tpu.data import TrainPipeline as JaxTrainPipeline

@@ -9,9 +9,11 @@ as an .npz set (utils/embeddings.py).
         --data_list wav.jsonl --checkpoint avg_model.pt --output emb.npz \\
         [--batch_size 32] [--data_type raw|feat] [--device cuda|cpu]
 
-The config is the training config (JSON, or YAML where PyYAML imports);
-`compute_dtype: bf16` runs the model in bf16.  The checkpoint is a torch
-state_dict in the port's names (models/speaker_net.py:load_speaker_state).
+The config is the training config (JSON or YAML, utils/config.py's
+reader); `compute_dtype: bf16` runs the model in bf16.  The checkpoint is a
+torch state_dict in the port's names (models/speaker_net.py:
+load_speaker_state) or a JAX package `.ckpt` (utils/checkpoint.py:
+load_state).
 The device is CUDA unless the caller asks for the CPU.  Rows are not padded
 to the full batch: eager PyTorch compiles nothing per shape, and rows are
 independent.
@@ -34,6 +36,7 @@ from ..models.speaker_net import build_speaker_net, load_speaker_state
 from ..ops.fbank import FbankConfig
 from ..ops.pipeline import FeaturePipelineConfig
 from ..train.executor import cast_variables_bf16, make_eval_embed
+from ..utils.checkpoint import load_state
 from ..utils.config import parse_config_or_kwargs
 from ..utils.device import resolve_device
 from ..utils.embeddings import save_embeddings
@@ -80,7 +83,7 @@ def extract(
             "data_type=feat requires frontend=fbank (precomputed features "
             "cannot feed a wav-domain frontend)"
         )
-    state = torch.load(checkpoint, map_location="cpu", weights_only=True)
+    state = load_state(checkpoint, config["model"], getattr(net.backbone, "feat_dim", 80))
     missing, unexpected = load_speaker_state(net, state)
     if missing:
         logger.info("missing keys in checkpoint: %d", len(missing))

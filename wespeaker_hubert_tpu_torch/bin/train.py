@@ -21,7 +21,12 @@ Checkpoints are the port's `.pt` files (utils/checkpoint.py):
 `exp_dir/models/model_N.pt` per saved epoch, loadable by bin/extract and
 bin/serve, and with `save_optimizer` a full `train_state.pt` (model,
 optimizer, step, data position) from which a later run resumes at the same
-step.  `model_init` and `checkpoint` take port `.pt` files.  Multi-host,
+step.  `model_init` and `checkpoint` take port `.pt` files or the JAX
+package's `.ckpt` files (utils/checkpoint.py:load_state).  The configs'
+`loss: CrossEntropyLoss` and `projection_args.do_lm` are accepted: the loss
+is cross-entropy (or a head's own), and `arc_margin` ignores `do_lm`, as
+the JAX package's does (its large-margin fine-tune is the margin schedule's
+fixed 0.5 and the longer chunks).  Multi-host,
 mesh, FSDP, pipeline and sequence parallelism are not ported yet and raise.
 """
 
@@ -204,7 +209,7 @@ def train(config: Union[str, dict], device="cuda", **overrides) -> TrainState:
         config.get("checkpoint") or latest_checkpoint(os.path.join(exp_dir, "models")))
     init = ckpt or (None if resume_full else config.get("model_init"))
     if init:
-        missing, unexpected = load_partial(init, net)
+        missing, unexpected = load_partial(init, net, config["model"])
         if ckpt and os.path.exists(ckpt + ".json"):
             with open(ckpt + ".json") as f:
                 start_epoch = json.load(f).get("epoch", 0)

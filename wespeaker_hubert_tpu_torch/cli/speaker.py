@@ -9,10 +9,13 @@ A model directory holds
                 `model_args`, `dataset_args.fbank_args` and
                 `dataset_args.resample_rate`;
   avg_model.pt  a torch state_dict with the WeSpeaker parameter names of
-                the backbone (models/ecapa_tdnn.py).  Keys the backbone
-                does not have, such as a WeSpeaker checkpoint's
+                the backbone (models/ecapa_tdnn.py, models/resnet.py).  Keys
+                the backbone does not have, such as a WeSpeaker checkpoint's
                 `projection.*`, are reported and skipped; a missing key
                 raises.
+
+bin/export_model.py writes such a directory (recipe stage 8), from the
+port's experiment directory or a JAX one.
 """
 
 from __future__ import annotations

@@ -1,8 +1,10 @@
 """JAX (flax) variables -> the port's PyTorch state_dict.
 
 Carries weights trained or initialized by the JAX package into the port's
-modules.  The input is the flax `{'params', 'batch_stats'}` tree as numpy
-arrays, of a bare backbone or of a `SpeakerNet` (whose backbone sits under
+modules, for the families the port has: ECAPA-TDNN and ResNet.  The input is
+the flax `{'params', 'batch_stats'}` tree as numpy arrays (a JAX `.ckpt`
+holds one, utils/checkpoint.py:load_jax_checkpoint), of a bare backbone or
+of a `SpeakerNet` (whose backbone sits under
 'backbone', and its SSL frontend under 'frontend'); the output uses the
 WeSpeaker names of the port's modules: the backbone's keys unprefixed, the
 frontend's under `frontend.` with HuggingFace's encoder names
@@ -12,12 +14,24 @@ JAX package's `frontend/convert.py:convert_hf_state_dict`), and a
 SpeakerNet's margin head under `projection.` in WeSpeaker's layout.
 
 Layout rules:
-  Conv    kernel (K, Cin, Cout)  -> weight (Cout, Cin, K)
+  Conv1d  kernel (K, Cin, Cout)  -> weight (Cout, Cin, K)
+  Conv2d  kernel (kT, kF, Cin, Cout) (flax NHWC over (T, F))
+                                 -> weight (Cout, Cin, kF, kT) (torch NCHW
+                                    over (F, T))
   Dense   kernel (in, out)       -> weight (out, in), or (out, in, 1) where
                                     the port holds it as a 1x1 Conv1d
   BN      scale / bias + batch_stats mean / var
                                  -> weight / bias / running_mean / running_var
   head    projection/weight (D, C) -> projection.weight (C, D)
+
+ResNet's names: `layer{L}_{i}/conv{k}` -> `layer{L}.{i}.conv{k}`, and
+`shortcut_conv` / `shortcut_bn` -> `shortcut.0` / `.1`.  The JAX ResNet
+flattens its last frame map (T', F', C') frequency-major before pooling, the
+port (C', F', T') channel-major, as WeSpeaker does, so `seg_1`'s input
+columns are permuted (the inverse of the JAX package's
+`models/convert_torch.py:_stats_permutation`, whose copy is here); that
+needs the frequency rows F' = feat_dim // 8, so a ResNet conversion takes
+the model's `feat_dim`.
 """
 
 from __future__ import annotations
@@ -35,14 +49,37 @@ _SE_RES2 = {"conv1": "0", "res2": "1", "conv2": "2", "se": "3"}
 _CONV1X1_DENSE = ("pool.linear1", "pool.linear2")
 
 
+def _np(leaf) -> np.ndarray:
+    """A leaf as numpy; a bf16 leaf of a JAX checkpoint (a torch tensor,
+    utils/flax_msgpack.py) as its exact float32 values."""
+    return leaf.float().numpy() if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
+
+
 def _flatten(tree, prefix=()) -> Dict[Tuple[str, ...], np.ndarray]:
     out = {}
     for k, v in tree.items():
         if isinstance(v, dict):
             out.update(_flatten(v, prefix + (k,)))
         else:
-            out[prefix + (k,)] = np.asarray(v)
+            out[prefix + (k,)] = _np(v)
     return out
+
+
+def _stats_permutation(channels: int, freq: int) -> np.ndarray:
+    """For flattened frame-map rows: JAX's index f * C + c -> WeSpeaker's
+    c * F + f (a copy of the JAX package's converter's)."""
+    f, c = np.divmod(np.arange(channels * freq), channels)
+    return c * freq + f
+
+
+def _resnet_module(path: Tuple[str, ...]) -> str:
+    """flax module path -> torch module name (ResNet)."""
+    head, rest = path[0], list(path[1:])
+    if head.startswith("layer") and "_" in head:  # layer2_0 -> layer2.0
+        head = head.replace("_", ".")
+        rest = [{"shortcut_conv": "shortcut.0", "shortcut_bn": "shortcut.1"}.get(r, r)
+                for r in rest]
+    return ".".join([head] + rest)
 
 
 def _ecapa_module(path: Tuple[str, ...]) -> str:
@@ -101,16 +138,25 @@ def frontend_from_jax(params: Dict) -> Dict[str, np.ndarray]:
         else:
             raise KeyError(f"unexpected flax frontend parameter {'/'.join(path)}")
     if "featurizer_weights" in params:
-        sd["featurizer_weights"] = np.asarray(params["featurizer_weights"])
+        sd["featurizer_weights"] = _np(params["featurizer_weights"])
     return sd
 
 
-def from_jax_variables(model_name: str, variables: Dict) -> Dict[str, torch.Tensor]:
-    """JAX `{'params', 'batch_stats'}` of an ECAPA model, or of a SpeakerNet
-    with one, -> state_dict of the port's module of the same name (with the
-    SpeakerNet's frontend under `frontend.`)."""
-    if not model_name.upper().startswith("ECAPA_TDNN"):
-        raise NotImplementedError(f"no JAX converter for {model_name!r} yet")
+def from_jax_variables(model_name: str, variables: Dict,
+                       feat_dim: int = 80) -> Dict[str, torch.Tensor]:
+    """JAX `{'params', 'batch_stats'}` of an ECAPA or ResNet model, or of a
+    SpeakerNet with one, -> state_dict of the port's module of the same name
+    (with the SpeakerNet's frontend under `frontend.`).  `feat_dim` is the
+    model's input width, which ResNet's `seg_1` permutation needs."""
+    upper = model_name.upper()
+    if upper.startswith("ECAPA_TDNN"):
+        module_of = _ecapa_module
+    elif upper.startswith("RESNET"):
+        module_of = _resnet_module
+    else:
+        raise NotImplementedError(
+            f"{model_name!r}: the port has no module of this family (ROADMAP.md queue 1, "
+            "item 6)")
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     frontend: Dict[str, np.ndarray] = {}
@@ -120,15 +166,17 @@ def from_jax_variables(model_name: str, variables: Dict) -> Dict[str, torch.Tens
             frontend = frontend_from_jax(params["frontend"])
         proj = params.get("projection", {})
         if set(proj) == {"weight"}:  # the margin heads; other heads are not ported
-            head["projection.weight"] = np.asarray(proj["weight"]).T
+            head["projection.weight"] = _np(proj["weight"]).T
         params = params["backbone"]
         stats = stats.get("backbone", {})
 
-    sd: Dict[str, torch.Tensor] = {}
+    sd: Dict[str, np.ndarray] = {}
     for path, leaf in _flatten(params).items():
-        module, name = _ecapa_module(path[:-1]), path[-1]
+        module, name = module_of(path[:-1]), path[-1]
         if name == "kernel":
-            if leaf.ndim == 3:
+            if leaf.ndim == 4:
+                w = leaf.transpose(3, 2, 1, 0)
+            elif leaf.ndim == 3:
                 w = leaf.transpose(2, 1, 0)
             elif module in _CONV1X1_DENSE:
                 w = leaf.T[:, :, None]
@@ -142,11 +190,24 @@ def from_jax_variables(model_name: str, variables: Dict) -> Dict[str, torch.Tens
         else:
             raise KeyError(f"unexpected flax parameter {'/'.join(path)}")
     for path, leaf in _flatten(stats).items():
-        module, name = _ecapa_module(path[:-1]), path[-1]
+        module, name = module_of(path[:-1]), path[-1]
         if name not in ("mean", "var"):
             raise KeyError(f"unexpected flax batch stat {'/'.join(path)}")
         sd[f"{module}.running_{name}"] = leaf
         sd[f"{module}.num_batches_tracked"] = np.zeros((), np.int64)
+    if module_of is _resnet_module:
+        # the last map's channels: the widest conv of layer4
+        channels = max(v.shape[0] for k, v in sd.items()
+                       if k.startswith("layer4.") and k.endswith(".weight") and v.ndim == 4)
+        perm = _stats_permutation(channels, feat_dim // 8)
+        w = sd["seg_1.weight"]
+        if w.shape[1] % perm.size:
+            raise ValueError(f"seg_1 takes {w.shape[1]} inputs, not a multiple of "
+                             f"{channels} channels x {feat_dim // 8} frequency rows")
+        full = np.concatenate([perm + j * perm.size for j in range(w.shape[1] // perm.size)])
+        ref = np.empty_like(w)
+        ref[:, full] = w  # JAX column i is WeSpeaker's column full[i]
+        sd["seg_1.weight"] = ref
     sd.update({f"frontend.{k}": v for k, v in frontend.items()})
     sd.update(head)
     return {

@@ -71,5 +71,5 @@ def get_projection(conf: dict) -> nn.Module:
             easy_margin=conf.get("easy_margin", False),
         )
     raise NotImplementedError(
-        f"projection {ptype!r} is not ported yet (arc_margin is; ROADMAP.md queue 1a)"
+        f"projection {ptype!r} is not ported yet (arc_margin is; ROADMAP.md queue 1, item 4)"
     )

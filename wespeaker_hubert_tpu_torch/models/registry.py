@@ -1,7 +1,8 @@
 """Model registry: name -> factory returning an nn.Module backbone.
 
-Counterpart of `wespeaker_hubert_tpu/models/registry.py`; only the ECAPA
-family is ported so far.  Factories share the signature
+Counterpart of `wespeaker_hubert_tpu/models/registry.py` for the families
+ported so far: ECAPA-TDNN and ResNet (ROADMAP.md queue 1, item 6 lists the
+rest).  Factories share the signature
 (feat_dim, embed_dim, pooling_func, **kwargs), and the module is called as
 module(x, mask=None) with x = (B, T, feat_dim) features.
 """
@@ -10,7 +11,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
-from . import ecapa_tdnn
+from . import ecapa_tdnn, resnet
 
 __all__ = ["get_speaker_model", "embedding_from_outputs", "MODEL_REGISTRY"]
 
@@ -19,6 +20,13 @@ MODEL_REGISTRY: Dict[str, Callable] = {
     "ECAPA_TDNN_GLOB_c512": ecapa_tdnn.ECAPA_TDNN_GLOB_c512,
     "ECAPA_TDNN_c1024": ecapa_tdnn.ECAPA_TDNN_c1024,
     "ECAPA_TDNN_GLOB_c1024": ecapa_tdnn.ECAPA_TDNN_GLOB_c1024,
+    "ResNet18": resnet.ResNet18,
+    "ResNet34": resnet.ResNet34,
+    "ResNet50": resnet.ResNet50,
+    "ResNet101": resnet.ResNet101,
+    "ResNet152": resnet.ResNet152,
+    "ResNet221": resnet.ResNet221,
+    "ResNet293": resnet.ResNet293,
 }
 
 

@@ -1,6 +1,6 @@
 """VoxCeleb2 supervised speaker-verification recipe on the port.
 
-Counterpart of `examples/voxceleb/v2/run.py`, stages 1-7, with the same
+Counterpart of `examples/voxceleb/v2/run.py`, stages 1-9, with the same
 arguments, file layout and printed lines, each stage through the port's own
 bin modules on `--device` (CUDA unless the caller asks for the CPU):
 
@@ -15,17 +15,25 @@ bin modules on `--device` (CUDA unless the caller asks for the CPU):
      EER / minDCF;
   6. the speaker-mean cohort and AS-Norm (`*.score.asnorm`);
   7. QMF calibration trained on trials generated from the training set,
-     applied to each AS-Norm file (`*.score.asnorm.qmf`).
+     applied to each AS-Norm file (`*.score.asnorm.qmf`);
+  8. export (bin/export_model.py): the model directory `EXP/exported`
+     (`config.json`, `avg_model.pt`, `mean_vec.npy`) and its feats ->
+     embedding `torch.export` program `EXP/exported/model.pt2`;
+  9. the large-margin fine-tune: stages 3 to min(stop_stage, 8) again with
+     `--lm_config`, its `model_init` the base run's `EXP/avg_model.pt`
+     (head included).
 
     python -m wespeaker_hubert_tpu_torch.recipes.voxceleb_v2 --stage 1 \\
-        --stop_stage 7 --config examples/voxceleb/v2/conf/ecapa_tdnn.yaml \\
+        --stop_stage 9 --config examples/voxceleb/v2/conf/resnet34.yaml \\
+        --lm_config examples/voxceleb/v2/conf/resnet_lm.yaml \\
         --data_root data --trials data/vox1/trials/vox1_O_cleaned.kaldi \\
-        [--device cuda|cpu] [a.b.c=value ...]
+        [--device cuda|cpu] [a.b.c=value ...] [lm.a.b.c=value ...]
 
-`a.b.c=value` overrides apply to the config (utils/config.py).  Stages 8
-(export) and 9 (the large-margin fine-tune, which re-enters stage 8) are not
-ported yet (ROADMAP.md queue 1, item 9): asking for them raises before any
-stage runs.
+`a.b.c=value` overrides apply to the config, `lm.a.b.c=value` ones to the
+lm config (utils/config.py).  With stage 9 in range, `--lm_config` is
+required and its `exp_dir` must differ from the base one (else bin/train
+would resume the base run instead of fine-tuning from `model_init`): both
+are checked before any stage runs.
 """
 
 from __future__ import annotations
@@ -33,12 +41,13 @@ from __future__ import annotations
 import argparse
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from ..backend.calibration import apply_calibration, gather_factors
 from ..bin.average_model import average_model
+from ..bin.export_model import export_model, export_program
 from ..bin.extract import extract
 from ..bin.score import compute_metrics, score_norm, score_trials
 from ..bin.score_calibration import (
@@ -51,9 +60,9 @@ from ..bin.train import train
 from ..utils.config import apply_overrides, load_config
 from ..utils.embeddings import load_embeddings
 
-__all__ = ["parse_args", "run_stages", "main"]
+__all__ = ["parse_args", "load_configs", "run_stages", "main"]
 
-UNPORTED_STAGES = {8: "export", 9: "the large-margin fine-tune"}
+LM_PREFIX = "lm."
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -67,18 +76,30 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--calibration_trial_num", type=int, default=10000,
                    help="trial pairs for QMF training")
     p.add_argument("--lm_config", default=None,
-                   help="large-margin fine-tune config for stage 9 (not ported yet)")
+                   help="large-margin fine-tune config for stage 9, which re-enters stages 3-8 "
+                        "with it")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    p.add_argument("overrides", nargs="*", help="a.b.c=value config overrides")
-    return p.parse_args(argv)
+    p.add_argument("overrides", nargs="*",
+                   help="a.b.c=value config overrides, lm.a.b.c=value lm config overrides")
+    args = p.parse_args(argv)
+    if args.stage <= 9 <= args.stop_stage and not args.lm_config:
+        # fail before hours of stages 1-8, not at the stage-9 boundary
+        p.error("--lm_config is required when stage 9 is in range")
+    return args
 
 
-def _refuse_unported(stage: int, stop_stage: int) -> None:
-    asked = [s for s in UNPORTED_STAGES if stage <= s <= stop_stage]
-    if asked:
-        raise NotImplementedError(
-            "stage " + " and ".join(f"{s} ({UNPORTED_STAGES[s]})" for s in asked)
-            + " is not ported yet (ROADMAP.md queue 1, item 9); run --stop_stage 7")
+def load_configs(args: argparse.Namespace) -> Tuple[Dict, Optional[Dict]]:
+    """The config and the lm config (None without `--lm_config`), each with
+    its overrides; raises if the lm run would share the base `exp_dir`."""
+    base = [o for o in args.overrides if not o.startswith(LM_PREFIX)]
+    lm = [o[len(LM_PREFIX):] for o in args.overrides if o.startswith(LM_PREFIX)]
+    config = apply_overrides(load_config(args.config), base)
+    lm_config = apply_overrides(load_config(args.lm_config), lm) if args.lm_config else None
+    if lm_config is not None and lm_config.get("exp_dir") == config.get("exp_dir"):
+        raise ValueError("lm_config exp_dir must differ from the base exp_dir: bin/train "
+                         "would resume the base run's checkpoints instead of fine-tuning "
+                         "from model_init")
+    return config, lm_config
 
 
 def _metrics_line(path: str, lines: List[str]) -> None:
@@ -88,11 +109,11 @@ def _metrics_line(path: str, lines: List[str]) -> None:
     lines.append(line)
 
 
-def run_stages(args: argparse.Namespace, config: Dict, stage: int,
-               stop_stage: int) -> Dict[int, Dict]:
+def run_stages(args: argparse.Namespace, config: Dict, stage: int, stop_stage: int,
+               lm_config: Optional[Dict] = None) -> Dict[int, Dict]:
     """Run stages [stage, stop_stage]; returns {stage: {"s": seconds,
-    "lines": printed result lines}}."""
-    _refuse_unported(stage, stop_stage)
+    "lines": printed result lines}}, and for stage 9 also "stages", the
+    re-entered stages' own."""
     device = args.device
     exp_dir = config["exp_dir"]
     models_dir = os.path.join(exp_dir, "models")
@@ -188,6 +209,22 @@ def run_stages(args: argparse.Namespace, config: Dict, stage: int,
             write_calibrated(out, meta, apply_calibration(params, factors))
             _metrics_line(out, lines)
         end(7)
+
+    if in_range(8):
+        lines = begin(8, "export model bundle")
+        out_dir = export_model(exp_dir, os.path.join(exp_dir, "exported"), checkpoint=avg_ckpt,
+                               mean_vec=mean_vec_path if os.path.exists(mean_vec_path) else None)
+        program = export_program(config, avg_ckpt, os.path.join(out_dir, "model.pt2"))
+        line = f"  exported {out_dir} (+ {os.path.basename(program)})"
+        print(line, flush=True)
+        lines.append(line)
+        end(8)
+
+    if in_range(9):
+        begin(9, "large-margin fine-tune (re-entering stages 3-8)")
+        lm = dict(lm_config, model_init=avg_ckpt)
+        done[9]["stages"] = run_stages(args, lm, 3, min(stop_stage, 8))
+        end(9)
     return done
 
 
@@ -197,13 +234,12 @@ def main(argv: Optional[List[str]] = None) -> Dict[int, Dict]:
     import torch
 
     args = parse_args(argv)
-    _refuse_unported(args.stage, args.stop_stage)
+    config, lm_config = load_configs(args)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     # float32 means float32: no TF32 in cuDNN convolutions or matmuls
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    config = apply_overrides(load_config(args.config), args.overrides)
-    return run_stages(args, config, args.stage, args.stop_stage)
+    return run_stages(args, config, args.stage, args.stop_stage, lm_config)
 
 
 if __name__ == "__main__":

@@ -8,7 +8,14 @@ semantics, so a frontend-only or backbone-only checkpoint initializes what it
 holds), and `latest_checkpoint` finds the newest `model_N.pt`.  A
 `model_N.pt` holds the SpeakerNet's state_dict (backbone unprefixed,
 `frontend.`, `projection.`), which `bin/extract` and `bin/serve` load as it
-is.  Reading the JAX package's flax-msgpack `.ckpt` files is not ported yet.
+is.
+
+The JAX package's own files, flax msgpack (`model_N.ckpt`, `avg_model.ckpt`:
+`{"params": {"backbone", "projection", ["frontend"]}, "batch_stats": ...}`),
+are read by `load_jax_checkpoint` (utils/flax_msgpack.py, no msgpack package)
+and reach the port's names through `models/convert_jax.py`; `load_state` and
+`load_partial` take either format.  JAX's `train_state.ckpt` (with the
+optimizer state) is not read.
 """
 
 from __future__ import annotations
@@ -20,8 +27,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-__all__ = ["save_checkpoint", "load_checkpoint", "load_partial", "latest_checkpoint",
-           "average_checkpoints"]
+__all__ = ["save_checkpoint", "load_checkpoint", "load_jax_checkpoint", "load_state",
+           "load_partial", "latest_checkpoint", "average_checkpoints"]
 
 
 def save_checkpoint(path: str, obj: Any, meta: Optional[Dict] = None) -> None:
@@ -42,13 +49,49 @@ def load_checkpoint(path: str) -> Any:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def load_partial(path: str, net) -> Tuple[List[str], List[str]]:
-    """Load the state_dict at `path` into a SpeakerNet where names and
-    shapes match; returns (missing, unexpected) names, a name whose shape
-    differs counting as unexpected (its parameter keeps its value)."""
+def load_jax_checkpoint(path: str) -> Dict:
+    """The tree of a JAX package checkpoint (flax msgpack): nested dicts of
+    numpy arrays, bfloat16 leaves as torch.bfloat16 tensors."""
+    from .flax_msgpack import load
+
+    return load(path)
+
+
+def load_state(path: str, model: Optional[str] = None,
+               feat_dim: int = 80) -> Dict[str, torch.Tensor]:
+    """The checkpoint at `path` as a state_dict in the port's names: a
+    `torch.save` file (a zip archive, or a legacy pickle) as it is, or a JAX
+    `.ckpt` converted by `from_jax_variables(model, ..., feat_dim)`, which
+    needs the model's name (and, for ResNet, its input width)."""
+    with open(path, "rb") as f:
+        head = f.read(2)
+    # zip's local-file header, or pickle's protocol opcode: a JAX checkpoint
+    # is a msgpack map, whose first byte is 0x80-0x8f, 0xde or 0xdf
+    if head == b"PK" or (head[:1] == b"\x80" and head[1:2] in (b"\x02", b"\x03", b"\x04",
+                                                              b"\x05")):
+        return load_checkpoint(path)
+    from ..models.convert_jax import from_jax_variables
+
+    tree = load_jax_checkpoint(path)
+    if not isinstance(tree, dict) or "params" not in tree:
+        raise ValueError(f"{path}: neither a port .pt nor a JAX model checkpoint")
+    if "opt_state" in tree:
+        raise NotImplementedError(
+            f"{path}: a JAX train_state.ckpt (optimizer state) is not read by the port; "
+            "load the epoch's model_N.ckpt")
+    if model is None:
+        raise ValueError(f"{path} is a JAX checkpoint: its conversion needs the model name")
+    return from_jax_variables(model, tree, feat_dim=feat_dim)
+
+
+def load_partial(path: str, net, model: Optional[str] = None) -> Tuple[List[str], List[str]]:
+    """Load the checkpoint at `path` (a port `.pt`, or a JAX `.ckpt` of the
+    model named `model`) into a SpeakerNet where names and shapes match;
+    returns (missing, unexpected) names, a name whose shape differs counting
+    as unexpected (its parameter keeps its value)."""
     from ..models.speaker_net import load_speaker_state, speaker_state_dict
 
-    state = load_checkpoint(path)
+    state = load_state(path, model, getattr(net.backbone, "feat_dim", 80))
     own = speaker_state_dict(net)
     mismatched = [k for k, v in state.items() if k in own and own[k].shape != v.shape]
     state = {k: v for k, v in state.items() if k not in mismatched}
