@@ -91,7 +91,24 @@ Phases:
  15. one float32 ResNet34 step (batch 16 x 2 s) on the card against the
      CPU;
  16. bin/score at VoxCeleb1-O's and VoxCeleb1-H's sizes on seeded
-     embeddings (5,994-speaker cohort, top 300), card against CPU, timed.
+     embeddings (5,994-speaker cohort, top 300), card against CPU, timed;
+ 17. the Whisper-PMFA recipe: recipes.voxceleb_v1_whisper_pmfa stages 2-7
+     on examples/voxceleb/v1/Whisper-PMFA/conf/whisper_pmfa_stage0.yaml and
+     whisper_pmfa_stage1.yaml as the port's reader parses them
+     (Whisper-large-v2 as the JAX package defines it: 24 blocks of 1,280,
+     20 heads of 64, layers 16-23 concatenated, ln_post2; the PMFA head,
+     ArcMargin over 3 x 1,211 classes, SGD with Nesterov momentum, float32)
+     with attn_impl flash, overriding only the paths, a seeded 32-block
+     OpenAI-layout checkpoint for stage 3 and the run's length (4 frozen
+     steps at batch 64 x 5 s, 6 joint steps at batch 16), on seeded
+     speech-like wavs: K2's float32 kernels launch 24 times per step and
+     per extraction batch (asserted per stage); the frozen encoder stays
+     bitwise as imported; 3 stage-5 embeddings (one past the 30 s cut)
+     against bin/extract on the CPU; one stage-4 step (batch 4) on the card
+     against the CPU and a float64 step; 3 profiled stage-4 steps.  Phases 7
+     and 10 also hold K2 at Whisper's shapes ((16, 1500) and (64, 251)
+     forward, (16, 251) backward; 20 heads, scale 1.0, no bias, float32 and
+     bf16), timed beside scaled_dot_product_attention.
 
 A kernel's bound is the least time the card could take for the work the
 function needs (for log-mel: an FFT and a sparse mel product; for
@@ -997,8 +1014,153 @@ def phase_k2_checks(report):
             del q, k, v, bias, gate, got, want, mask
             torch.cuda.empty_cache()
     report["k2_checks"] = rows
+    whisper = report["k2_whisper_checks"] = [
+        whisper_k2_row(b, t, tag, dtype) for tag, dtype in (("f32", torch.float32),
+                                                            ("bf16", torch.bfloat16))
+        for b, t in WHISPER_K2_FWD]
     check(all(r["ok"] for r in rows), "the flash-attention kernel disagrees with its plain version")
+    check(all(r["ok"] for r in whisper),
+          "the flash-attention kernel disagrees with its plain version at Whisper's shapes")
     return rows[0]
+
+
+# Whisper-large-v2's attention (frontend/whisper.py): 20 heads of 64, q and k
+# each scaled by 64^-0.25 before the call, scale 1.0, no bias, no key
+# lengths.  Forward at the extraction batch of the 32-40 s buckets (T cut at
+# 1,500) and the stage-3 training batch (64 x 5 s: T = 251); backward at
+# stage 4's (16, 251).
+WHISPER_HEADS = 20
+WHISPER_K2_FWD = ((16, 1500), (64, 251))
+WHISPER_K2_BWD = ((16, 251),)
+
+
+def whisper_qkv(b, t, dtype, seed):
+    """Seeded q, k, v (B, T, 20, 64) on the card, q and k at the scale
+    64^-0.25 gives them."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    s = 64 ** -0.25
+    q, k, v = (torch.randn((b, t, WHISPER_HEADS, 64), generator=gen, device="cuda")
+               for _ in range(3))
+    return (q * s).to(dtype), (k * s).to(dtype), v.to(dtype)
+
+
+def whisper_k2_row(b, t, tag, dtype):
+    """K2's forward at a Whisper shape against its plain version (K2_TOL),
+    timed (profiler device time, events around the wrapper) beside the
+    plain version and scaled_dot_product_attention on the same inputs."""
+    from wespeaker_hubert_tpu_torch.ops import flash_attention as k2
+
+    F = torch.nn.functional
+    h = WHISPER_HEADS
+    q, k, v = whisper_qkv(b, t, dtype, 700 + b + t)
+
+    def call():
+        return k2.flash_attention(q, k, v, bias=None, key_len=None, scale=1.0)
+
+    got = call()
+    torch.cuda.synchronize()
+    want = k2.flash_attention_reference(q, k, v, None, None, 1.0)
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    cos = float(F.cosine_similarity(got.float().flatten(), want.float().flatten(), dim=0))
+    exact_err = {}
+    if tag == "bf16":
+        excess = float((diff - bf16_spacing(want).clamp_min(K2_TOL[tag]["atol"])).max())
+        exact = k2.flash_attention_reference(q.float(), k.float(), v.float(), None, None, 1.0)
+        exact_err = {"kernel": float((got.float() - exact).abs().max()),
+                     "plain": float((want.float() - exact).abs().max())}
+        del exact
+        ok = (excess <= 0 and cos >= K2_TOL[tag]["cos"]
+              and exact_err["kernel"] <= K2_TOL[tag]["f32_ratio"] * exact_err["plain"])
+    else:
+        ok = err <= K2_TOL[tag]["atol"]
+    ok = ok and bool(torch.isfinite(got).all())
+    del diff, got, want
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    wrapper_ms = cuda_median_ms(call, reps=10)
+    dev_ms = kernel_device_ms(call, ("flash_fwd",), reps=5)["flash_fwd"]
+    k_ms = dev_ms if dev_ms is not None else wrapper_ms
+    p_ms = cuda_median_ms(lambda: k2.flash_attention_reference(q, k, v, None, None, 1.0),
+                          reps=3, warmup=1)
+    l_ms = cuda_median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=1.0), reps=10)
+    bound_ms, bound_by, flop, nbytes, _ = k2_bound(b, t, h, None, dtype, None)
+    row = dict(dtype=tag, shape=[b, t, h, 64], bias=None, key_len=None, scale=1.0,
+               kernel="flash_fwd_f32" if tag == "f32" else "flash_fwd_bf16_sm90",
+               max_abs_err=err, cosine=cos, ok=ok, max_abs_err_vs_f32=exact_err, ms=k_ms,
+               ms_scope="profiler device time" if dev_ms is not None
+               else "events around each wrapper call", wrapper_ms=wrapper_ms, plain_ms=p_ms,
+               library_ms=l_ms, bound_ms=bound_ms, bound_by=bound_by, gflop=flop / 1e9,
+               mbytes=nbytes / 1e6, roofline_share=bound_ms / k_ms)
+    log(f"[K2 whisper] {tag} ({b}, {t}, {h}, 64) no bias, no key lengths, scale 1.0: max|err|="
+        f"{err:.3e} cos={cos:.7f} {'ok' if ok else 'FAIL'} "
+        f"({'atol 1e-4' if tag == 'f32' else 'atol max(2e-2, one bf16 spacing), cos >= 0.9999'})"
+        + (f" [against float32: kernel {exact_err['kernel']:.3e}, plain "
+           f"{exact_err['plain']:.3e}]" if exact_err else "")
+        + f"; kernel {k_ms:.4f} ms ({row['ms_scope']}; wrapper {wrapper_ms:.4f} ms), plain "
+        f"{p_ms:.4f} ms, SDPA {l_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+        f"{flop / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), roofline share {bound_ms / k_ms:.4f}")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return row
+
+
+def whisper_k2_bwd_row(b, t, tag, dtype):
+    """K2's dQ and dK/dV kernels at a Whisper shape through the wrapper,
+    against the plain backward (K2_BWD_TOL), each kernel's device time
+    beside its bound, the plain backward and SDPA's forward + backward."""
+    from wespeaker_hubert_tpu_torch.ops import flash_attention as k2
+
+    F = torch.nn.functional
+    h = WHISPER_HEADS
+    q, k, v = whisper_qkv(b, t, dtype, 800 + b + t)
+    dout = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(801),
+                       device="cuda").to(dtype)
+    out, lse = k2.flash_attention_fwd(q, k, v, None, None, 1.0, return_lse=True)
+    args = (q, k, v, None, None, 1.0, out, lse, dout)
+    call = lambda: k2.flash_attention_bwd(*args)  # noqa: E731
+    got = call()
+    torch.cuda.synchronize()
+    want = k2.flash_attention_bwd_reference(*args)
+    errs, coss, ok = {}, {}, got.dbias is None and got.dgate is None
+    for name in ("dq", "dk", "dv", "delta"):
+        g, w = getattr(got, name), getattr(want, name)
+        errs[name] = float((g.float() - w.float()).abs().max())
+        coss[name] = float(F.cosine_similarity(g.float().flatten(), w.float().flatten(), dim=0))
+        ok = ok and g.shape == w.shape and g.dtype == w.dtype and bool(torch.isfinite(g).all())
+        ok = ok and (errs[name] <= K2_BWD_TOL["f32"]["atol"] if tag == "f32"
+                     else coss[name] >= K2_BWD_TOL["bf16"]["cos"])
+    del got, want
+    k_ms = cuda_median_ms(call, reps=10)
+    per = kernel_device_ms(call, ("flash_bwd_dkv", "flash_bwd_dq"), reps=5)
+    p_ms = cuda_median_ms(lambda: k2.flash_attention_bwd_reference(*args), reps=3, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    do_t = dout.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qt, kt, vt, scale=1.0)
+        return torch.autograd.grad(o, (qt, kt, vt), do_t)
+
+    l_ms = cuda_median_ms(sdpa_fwd_bwd, reps=10)
+    bounds = k2_bwd_bounds(b, t, h, None, dtype, None)
+    kernel = {"dkv": "flash_bwd_dkv", "dq": "flash_bwd_dq"}
+    row = dict(dtype=tag, shape=[b, t, h, 64], bias=None, key_len=None, scale=1.0,
+               max_abs_err=errs, cosine=coss, ok=ok, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+               dkv_ms=per["flash_bwd_dkv"], dq_ms=per["flash_bwd_dq"],
+               bound_ms=bounds["function"][0], bound_by=bounds["function"][1],
+               dkv_bound_ms=bounds["dkv"][0], dkv_bound_by=bounds["dkv"][1],
+               dq_bound_ms=bounds["dq"][0], dq_bound_by=bounds["dq"][1],
+               kernels={key: f"{name}_{'f32' if tag == 'f32' else 'bf16_sm90'}"
+                        for key, name in kernel.items()})
+    log(f"[K2 bwd whisper] {tag} ({b}, {t}, {h}, 64) no bias, no key lengths, scale 1.0: "
+        + " ".join(f"{n} err {errs[n]:.2e} cos {coss[n]:.7f}" for n in errs)
+        + f" {'ok' if ok else 'FAIL'} ({'atol 1e-4' if tag == 'f32' else 'cos >= 0.9999'}); "
+        f"backward {k_ms:.4f} ms (events around the wrapper), dK/dV {row['dkv_ms']} ms against "
+        f"{row['dkv_bound_ms']:.5f} ({row['dkv_bound_by']}), dQ {row['dq_ms']} ms against "
+        f"{row['dq_bound_ms']:.5f} ({row['dq_bound_by']}), plain {p_ms:.4f} ms, SDPA fwd+bwd "
+        f"{l_ms:.4f} ms, the backward's bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
+    del q, k, v, dout, out, lse, qt, kt, vt
+    torch.cuda.empty_cache()
+    return row
 
 
 def ssl_config(attn_impl="flash", compute_dtype=None):
@@ -1483,7 +1645,13 @@ def phase_k2_bwd_checks(report):
             del q, k, v, dout, bias, gate, out, lse, mask, mask_leaf, qt, kt, vt, ds
             torch.cuda.empty_cache()
     report["k2_bwd_checks"] = rows
+    whisper = report["k2_whisper_bwd_checks"] = [
+        whisper_k2_bwd_row(b, t, tag, dtype) for tag, dtype in (("f32", torch.float32),
+                                                                ("bf16", torch.bfloat16))
+        for b, t in WHISPER_K2_BWD]
     check(all(r["ok"] for r in rows), "the flash-attention backward disagrees with its plain version")
+    check(all(r["ok"] for r in whisper),
+          "the flash-attention backward disagrees with its plain version at Whisper's shape")
     return rows[0]
 
 
@@ -2725,6 +2893,428 @@ def phase_resnet_step_check(report):
     check(loss_rel <= 1e-5 and not failing, "resnet step: card step vs CPU step")
 
 
+# ------------------------------------------------- the Whisper-PMFA recipe
+WHISPER_CONF = Path(__file__).resolve().parent / "examples/voxceleb/v1/Whisper-PMFA/conf"
+WHISPER_SPEAKERS = 1211  # VoxCeleb1 dev: the head has 3 x 1,211 classes
+WHISPER_TRAIN_SPEAKERS, WHISPER_PER_SPEAKER = 64, 4  # 256 utterances of 2-7.9 s
+WHISPER_STEPS = {3: 4, 4: 6}  # stage 3 at batch 64, stage 4 at batch 16
+WHISPER_SEED = 20251022
+WHISPER_CHECK_BATCH = 4
+WHISPER_CPU_UTTS = 3  # stage-5 utterances re-extracted on the CPU, one past 30 s
+WHISPER_VARIANT = "large_v2"  # the configs' own; a CPU rehearsal sets "tiny_test"
+WHISPER_EXTRA = []  # more overrides, for a CPU rehearsal (batch sizes)
+
+
+def write_whisper_data(data):
+    """The Whisper recipe's DATA directory from seeded audio: vox1_dev with
+    256 speech-like utterances of 2-7.9 s over 64 speakers (inside the
+    configs' 1-8 s filter) and 4 of 30-40 s (which the filter keeps out of
+    training and stage 5 extracts), its utt2spk naming all 1,211 VoxCeleb1
+    dev speakers (the rest without audio); vox1 with 24 utterances over 8
+    speakers, 2-8, 8-20 and 30-40 s each, and a labeled trial list over all
+    their pairs; RIR and noise stores.  Returns the audio seconds of each
+    list."""
+    from wespeaker_hubert_tpu_torch.data.wav_io import write_wav
+
+    rng = np.random.default_rng(WHISPER_SEED)
+    seconds = {}
+    for dset in ("vox1_dev", "vox1"):
+        scp, u2s, total = [], [], 0.0
+        n_spk = WHISPER_TRAIN_SPEAKERS if dset == "vox1_dev" else 8
+        for s in range(n_spk):
+            spk, f0 = f"id1{s:04d}" if dset == "vox1_dev" else f"id9{s:04d}", rng.uniform(90, 280)
+            if dset == "vox1_dev":
+                spans = [(2.0, 7.9)] * WHISPER_PER_SPEAKER + ([(30.0, 40.0)] if s < 4 else [])
+            else:
+                spans = [(2.0, 8.0), (8.0, 20.0), (30.0, 40.0)]
+            for j, (lo, hi) in enumerate(spans):
+                x = speechlike(rng, float(rng.uniform(lo, hi)), f0)
+                total += len(x) / SR
+                key = f"{spk}-{j:02d}"
+                path = f"{data}/{dset}/wav/{key}.wav"
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                write_wav(path, x)
+                scp.append(f"{key} {path}")
+                u2s.append(f"{key} {spk}")
+        if dset == "vox1_dev":
+            u2s += [f"id1{s:04d}-absent id1{s:04d}" for s in range(n_spk, WHISPER_SPEAKERS)]
+        Path(f"{data}/{dset}/wav.scp").write_text("\n".join(scp) + "\n")
+        Path(f"{data}/{dset}/utt2spk").write_text("\n".join(u2s) + "\n")
+        seconds[dset] = total
+    keys = [ln.split()[0] for ln in Path(f"{data}/vox1/wav.scp").read_text().splitlines()]
+    Path(f"{data}/vox1/trials.kaldi").write_text("\n".join(
+        f"{a} {b} {'target' if a[:8] == b[:8] else 'nontarget'}"
+        for i, a in enumerate(keys) for b in keys[i + 1:]) + "\n")
+    stores = {"rirs_aug_store": {f"rir{i}": np.exp(-np.arange(4000) / 800.0)
+                                 * rng.standard_normal(4000) for i in range(4)},
+              "musan_aug_store": {f"{kind}{i}": 0.1 * rng.standard_normal(6 * SR)
+                                  for kind in ("noise", "music", "speech") for i in range(2)}}
+    for name, arrays in stores.items():
+        d = os.path.join(data, name)
+        os.makedirs(d)
+        for key, x in arrays.items():
+            np.save(os.path.join(d, key + ".npy"), x.astype(np.float32))
+        with open(os.path.join(d, "index.json"), "w") as f:
+            json.dump({k: k + ".npy" for k in arrays}, f)
+    return seconds
+
+
+def write_openai_whisper(path, cfg, seed=WHISPER_SEED):
+    """A seeded state dict in OpenAI's Whisper encoder layout (large-v2's
+    32 blocks: 8 past `cfg`'s 24, `positional_embedding`, `ln_post`; no
+    `ln_post2`) as an `.npz`, what `whisper_encoder_args.checkpoint` names:
+    weights of std fan_in^-0.5, small biases, LayerNorm scales near 1."""
+    g = torch.Generator().manual_seed(seed)
+    d, m, n_blocks, sd = cfg.n_state, cfg.n_mels, cfg.n_layer + 8, {}
+
+    def put(name, *shape, std=None, center=0.0):
+        std = float(np.prod(shape[1:])) ** -0.5 if std is None else std
+        sd[name] = (center + std * torch.randn(shape, generator=g)).numpy()
+
+    put("conv1.weight", d, m, 3)
+    put("conv1.bias", d, std=0.02)
+    put("conv2.weight", d, d, 3)
+    put("conv2.bias", d, std=0.02)
+    put("positional_embedding", cfg.n_ctx, d, std=0.02)
+    for ln in ["ln_post"] + [f"blocks.{i}.{n}" for i in range(n_blocks)
+                             for n in ("attn_ln", "mlp_ln")]:
+        put(ln + ".weight", d, std=0.1, center=1.0)
+        put(ln + ".bias", d, std=0.02)
+    for i in range(n_blocks):
+        p = f"blocks.{i}"
+        for name in ("query", "key", "value", "out"):
+            put(f"{p}.attn.{name}.weight", d, d)
+            if name != "key":
+                put(f"{p}.attn.{name}.bias", d, std=0.02)
+        put(f"{p}.mlp.0.weight", 4 * d, d)
+        put(f"{p}.mlp.0.bias", 4 * d, std=0.02)
+        put(f"{p}.mlp.2.weight", d, 4 * d)
+        put(f"{p}.mlp.2.bias", d, std=0.02)
+    np.savez(path, **sd)
+
+
+class _EmbedCounter:
+    """Wraps bin/extract's make_eval_embed: counts the batches every
+    embedding function it makes is called on; the counting is the only
+    change to the run."""
+
+    def __init__(self):
+        self.batches = 0
+
+    def __call__(self, make):
+        def counted(*args, **kwargs):
+            fn = make(*args, **kwargs)
+
+            def embed(batch):
+                self.batches += 1
+                return fn(batch)
+            return embed
+        return counted
+
+
+def _chunk(config):
+    from wespeaker_hubert_tpu_torch.data.dataset import chunk_samples_for_frames
+
+    return chunk_samples_for_frames(config["dataset_args"]["num_frms"])
+
+
+def _whisper_step_net(config, ckpt, device, attn_impl="flash", dtype=None):
+    """The stage-4 model (`config`, the encoder unfrozen) with `ckpt`'s
+    weights, its TrainState and float32 (or `dtype`) train step on
+    `device`; built on the card directly where it runs there."""
+    import copy
+
+    from wespeaker_hubert_tpu_torch.bin.train import _feature_cfg
+    from wespeaker_hubert_tpu_torch.models.speaker_net import build_speaker_net, load_speaker_state
+    from wespeaker_hubert_tpu_torch.train.executor import make_train_step
+    from wespeaker_hubert_tpu_torch.train.schedulers import ExponentialDecrease, MarginSchedule
+    from wespeaker_hubert_tpu_torch.train.state import TrainState, make_optimizer
+
+    cfg = copy.deepcopy(config)
+    cfg["dataset_args"]["whisper_encoder_args"]["attn_impl"] = attn_impl
+    with torch.device(device):
+        net = build_speaker_net(cfg, 3 * WHISPER_SPEAKERS)
+    missing, unexpected = load_speaker_state(
+        net, torch.load(ckpt, map_location="cpu", weights_only=True))
+    check(not missing and not unexpected, f"whisper step: {missing} {unexpected}")
+    if dtype is not None:
+        net.to(dtype)
+    lr = ExponentialDecrease(num_epochs=1, epoch_iter=WHISPER_STEPS[4], initial_lr=0.005,
+                             final_lr=0.00073, warm_up_epoch=1)
+    state = TrainState(net, make_optimizer(net), lr)
+    step = make_train_step(net, lr, MarginSchedule(WHISPER_STEPS[4], 0, 8, 0.2, 0.2),
+                           feature_cfg=_feature_cfg(cfg["dataset_args"]),
+                           chunk_samples=_chunk(cfg), seed=43)
+    return net, state, step
+
+
+def _whisper_batch(config, data, n, seed):
+    """A train batch of n from the stage-4 pipeline over vox1_dev (speed
+    perturbation, packed reverb / noise rows), host arrays."""
+    from wespeaker_hubert_tpu_torch.bin.train import read_spk2id
+    from wespeaker_hubert_tpu_torch.data.aug_store import AugStore
+    from wespeaker_hubert_tpu_torch.data.dataset import TrainPipeline, TrainPipelineConfig
+
+    pipe = TrainPipeline(
+        Path(data, "vox1_dev", "raw.list").read_text().splitlines(),
+        read_spk2id(os.path.join(data, "vox1_dev", "utt2spk")),
+        TrainPipelineConfig(num_frms=config["dataset_args"]["num_frms"], batch_size=n,
+                            seed=seed, aug_prob=0.6),
+        AugStore(root=os.path.join(data, "rirs_aug_store")),
+        AugStore(root=os.path.join(data, "musan_aug_store")))
+    check(pipe.chunk_samples == _chunk(config), f"whisper: chunk {pipe.chunk_samples}")
+    return next(iter(pipe))
+
+
+def phase_whisper_recipe(report, root):
+    """recipes.voxceleb_v1_whisper_pmfa stages 2-7 on the card with the
+    Whisper-PMFA configs as the port's reader parses them (Whisper-large-v2
+    as the JAX package defines it: 24 blocks of 1,280, 20 heads; layers
+    16-23 concatenated, ln_post2, the PMFA head over 3 x 1,211 classes,
+    float32), overriding the paths, `attn_impl: flash`, the seeded OpenAI
+    checkpoint and the run's length.  Stages 2-3, 4 and 5-7 are each driven
+    with K2's counts set to 0 just before and read just after.  Then the
+    frozen encoder against its checkpoint, stage-5 embeddings and a stage-4
+    step against the CPU, and 3 profiled stage-4 steps.  Returns K2's
+    launches per stage."""
+    import logging
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from wespeaker_hubert_tpu_torch.bin import extract as bin_extract
+    from wespeaker_hubert_tpu_torch.bin import train as bin_train
+    from wespeaker_hubert_tpu_torch.bin.extract import extract
+    from wespeaker_hubert_tpu_torch.frontend import read_whisper_checkpoint, whisper_encoder_state
+    from wespeaker_hubert_tpu_torch.frontend.whisper import WhisperEncoderConfig
+    from wespeaker_hubert_tpu_torch.recipes import voxceleb_v1_whisper_pmfa as recipe
+    from wespeaker_hubert_tpu_torch.utils.embeddings import embeddings_dict
+
+    data, exp0, exp1 = (os.path.join(root, d) for d in ("data", "exp0", "exp1"))
+    t0 = time.perf_counter()
+    seconds = write_whisper_data(data)
+    npz = os.path.join(root, "large-v2.npz")
+    wcfg = getattr(WhisperEncoderConfig, WHISPER_VARIANT)()
+    write_openai_whisper(npz, wcfg)
+    out = report["whisper_recipe"] = {"data_write_s": time.perf_counter() - t0,
+                                      "audio_s": seconds}
+    trials = os.path.join(data, "vox1", "trials.kaldi")
+    overrides = [f"stage0.exp_dir={exp0}", f"stage1.exp_dir={exp1}",
+                 f"train_data={data}/vox1_dev/raw.list", f"train_label={data}/vox1_dev/utt2spk",
+                 f"dataset_args.reverb_data={data}/rirs_aug_store",
+                 f"dataset_args.noise_data={data}/musan_aug_store",
+                 "dataset_args.whisper_encoder_args.attn_impl=flash",
+                 f"stage0.dataset_args.whisper_encoder_args.checkpoint={npz}",
+                 "num_epochs=1", "save_epoch_interval=1", "log_batch_interval=1",
+                 f"stage0.epoch_iter={WHISPER_STEPS[3]}", f"stage1.epoch_iter={WHISPER_STEPS[4]}",
+                 f"dataset_args.whisper_encoder_args.variant={WHISPER_VARIANT}"] + WHISPER_EXTRA
+    out["overrides"] = overrides
+    common = ["--stage0_config", str(WHISPER_CONF / "whisper_pmfa_stage0.yaml"),
+              "--stage1_config", str(WHISPER_CONF / "whisper_pmfa_stage1.yaml"),
+              "--data_root", data, "--trials", trials, "--device", DEVICE] + overrides
+    cfg0, cfg1 = recipe.load_configs(recipe.parse_args(common))
+    timer, counter = _StepTimer(), _EmbedCounter()
+    make_step, make_embed = bin_train.make_train_step, bin_extract.make_eval_embed
+    bin_train.make_train_step, bin_extract.make_eval_embed = timer(make_step), counter(make_embed)
+    rates = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: rates.append(rec.getMessage())
+    logging.getLogger("extract").addHandler(handler)
+    done, launches, peak_gb, step_calls = {}, {}, {}, {}
+    try:
+        for first, last in ((2, 3), (4, 4), (5, 7)):
+            if DEVICE == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            n_calls = len(timer.calls)
+            _zero_counts()
+            done.update(recipe.main(["--stage", str(first), "--stop_stage", str(last)] + common))
+            sync()
+            launches[last] = dict(zip(("fwd", "dkv", "dq"), _counts()[:3]))
+            peak_gb[last] = (torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda"
+                             else "not measured")
+            step_calls[last] = timer.calls[n_calls:]
+    finally:
+        bin_train.make_train_step, bin_extract.make_eval_embed = make_step, make_embed
+        logging.getLogger("extract").removeHandler(handler)
+    extract_lines, extract_rate = _stage_rates(rates)
+
+    def step_stats(calls, cfg):
+        # all the work over all the time of every call after the first
+        ms = 1e3 * sum(s for _, s in calls[1:]) / max(1, sum(n for n, _ in calls[1:]))
+        audio = cfg["dataloader_args"]["batch_size"] * cfg["dataset_args"]["num_frms"] / 100
+        return {"per_step_ms": [1e3 * s / n for n, s in calls], "step_ms_after_first": ms,
+                "audio_s_per_s": audio / (ms / 1e3)}
+
+    train3, train4 = step_stats(step_calls[3], cfg0), step_stats(step_calls[4], cfg1)
+    losses = {s: [json.loads(ln)["loss"] for ln in open(os.path.join(d, "metrics.jsonl"))]
+              for s, d in ((3, exp0), (4, exp1))}
+    out.update({
+        "stage_s": {s: d["s"] for s, d in done.items()},
+        "lines": {s: d["lines"] for s, d in done.items() if d["lines"]},
+        "launches": {"stage 2-3": launches[3], "stage 4": launches[4],
+                     "stage 5-7": launches[7]},
+        "extract_batches": counter.batches, "peak_mem_gb": {
+            "stage 2-3": peak_gb[3], "stage 4": peak_gb[4], "stage 5-7": peak_gb[7]},
+        "stage3": train3, "stage4": train4, "losses": losses,
+        "extract_log": extract_lines, "extract_audio_s_per_s": extract_rate,
+        "stage5_wall_audio_s_per_s": (seconds["vox1"] + seconds["vox1_dev"]) / done[5]["s"],
+    })
+    log(f"[whisper] data: {WHISPER_TRAIN_SPEAKERS * WHISPER_PER_SPEAKER} training utterances "
+        f"over {WHISPER_TRAIN_SPEAKERS} of {WHISPER_SPEAKERS} speakers and 4 of 30-40 s "
+        f"({seconds['vox1_dev']:.0f} s), 24 eval ({seconds['vox1']:.0f} s), a seeded 32-block "
+        f"OpenAI large-v2 state dict; written in {out['data_write_s']:.1f} s")
+    log("[whisper] stage seconds: " + ", ".join(f"{s} {d['s']:.1f}" for s, d in done.items()))
+    for s, tr, batch in ((3, train3, cfg0["dataloader_args"]["batch_size"]),
+                         (4, train4, cfg1["dataloader_args"]["batch_size"])):
+        log(f"[whisper] stage {s}: batch {batch} x {cfg1['dataset_args']['num_frms'] / 100:g} s, "
+            f"per-step ms "
+            + ", ".join(f"{x:.1f}" for x in tr["per_step_ms"]) + f"; after the first "
+            f"{tr['step_ms_after_first']:.2f} ms = {tr['audio_s_per_s']:.1f} audio-s/s; losses "
+            + ", ".join(f"{x:.4f}" for x in losses[s]) + f"; peak memory "
+            + (f"{peak_gb[s if s == 4 else 3]:.2f} GB" if DEVICE == "cuda" else "not measured")
+            + f"; K2 launches {launches[s if s == 4 else 3]}")
+    log(f"[whisper] stage 5: " + " | ".join(extract_lines) + f"; loop rate {extract_rate:.1f} "
+        f"audio-s/s, stage wall rate {out['stage5_wall_audio_s_per_s']:.1f} audio-s/s "
+        f"(averaging and model loads included); {counter.batches} batches, K2 launches "
+        f"{launches[7]}, peak memory "
+        + (f"{peak_gb[7]:.2f} GB" if DEVICE == "cuda" else "not measured"))
+    for s in (6, 7):
+        log(f"[whisper] stage {s}: " + "; ".join(done[s]["lines"]))
+
+    # the frozen encoder: stage 3's checkpoint holds the imported tensors bitwise
+    imported = whisper_encoder_state(read_whisper_checkpoint(npz), wcfg)
+    saved = torch.load(os.path.join(exp0, "models", "model_1.pt"), map_location="cpu",
+                       weights_only=True)
+    changed = [k for k, v in imported.items() if not torch.equal(saved["frontend." + k], v)]
+    out["frozen_changed"] = changed
+    log(f"[whisper] stage 3 left {len(imported) - len(changed)} of {len(imported)} encoder "
+        f"tensors bitwise as imported (ln_post2 fresh: ones, zeros)")
+    del imported, saved
+
+    # stage-5 embeddings against bin/extract on the CPU
+    lines = Path(data, "vox1", "raw.list").read_text().splitlines()
+    pick = [lines[0], lines[1], lines[2]][:WHISPER_CPU_UTTS]
+    sub = os.path.join(root, "vox1_cpu.list")
+    Path(sub).write_text("\n".join(pick) + "\n")
+    card = embeddings_dict(os.path.join(exp1, "embeddings", "vox1.npz"))
+    t1 = time.perf_counter()
+    keys, emb = extract(cfg1, sub, os.path.join(exp1, "avg_model.pt"), "", device="cpu")
+    cos = [cosine(card[k], e) for k, e in zip(keys, emb)]
+    out["embeddings_vs_cpu"] = {"keys": keys, "cosine": cos, "bar": COS_MIN["f32"],
+                                "cpu_s": time.perf_counter() - t1}
+    log(f"[whisper] stage-5 embeddings of {len(keys)} utterances (2-8, 8-20, 30-40 s) against "
+        f"bin/extract on the CPU: cosines " + ", ".join(f"{c:.7f}" for c in cos)
+        + f" (bar {COS_MIN['f32']}); {out['embeddings_vs_cpu']['cpu_s']:.1f} s on the CPU")
+
+    # one full-width stage-4 step at a small batch, card against CPU
+    init = os.path.join(exp0, "models", "model_1.pt")
+    host = _whisper_batch(cfg1, data, WHISPER_CHECK_BATCH, 11)
+    res = {}
+    for tag, dev, scale, dtype, impl in (
+            ("card", DEVICE, False, None, "flash"), ("cpu", "cpu", False, None, "flash"),
+            ("control", DEVICE, True, None, "flash"),
+            ("float64", DEVICE, False, torch.float64, "einsum")):
+        net, state, step = _whisper_step_net(cfg1, init, dev, impl, dtype)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in host.items() if k != "keys"}
+        if dtype is not None:
+            b = {k: v.to(dtype) if v.is_floating_point() else v for k, v in b.items()}
+        t1 = time.perf_counter()
+        if tag == "float64":
+            res[tag] = (float(step(state, b)["loss"]),)
+        else:
+            res[tag] = _one_step(net, state, step, _perturbed(b) if scale else b, prefix="")
+        res[tag + "_s"] = time.perf_counter() - t1
+        del net, state, step, b
+        empty_cache()
+    exact = res["float64"][0]
+    loss_rel = abs(res["card"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    cpu_off = abs(res["cpu"][0] - exact) / abs(exact)
+    # float32 leaves the loss some 1e-5 off the exact one where the head's
+    # BatchNorm (flax's E[x^2] - E[x]^2) sees pooled statistics nearly equal
+    # across the batch: the bar is 1e-5, or twice the CPU's distance from
+    # the float64 step where that is more
+    loss_bar = max(1e-5, 2 * cpu_off)
+    pair = _diff_table(res["card"][1], res["cpu"][1])
+    control = _diff_table(res["control"][1], res["card"][1])
+    failing, how = _update_agreement(pair, control, 0.9999, res["cpu"][2])
+    worst = sorted(pair.items(), key=lambda kv: kv[1][0])[:4]
+    out["step_vs_cpu"] = {
+        "batch": WHISPER_CHECK_BATCH, "loss": [res["card"][0], res["cpu"][0], exact],
+        "loss_rel": loss_rel, "cpu_vs_float64_rel": cpu_off,
+        "card_vs_float64_rel": abs(res["card"][0] - exact) / abs(exact), "loss_bar": loss_bar,
+        "updates_rel_l2": _rel_l2(res["card"][1], res["cpu"][1]),
+        "control_updates_rel_l2": _rel_l2(res["control"][1], res["card"][1]),
+        "n_tensors": len(pair), "passed_by": how, "worst": worst, "failing": failing,
+        "cpu_step_s": res["cpu_s"], "card_step_s_first": res["card_s"]}
+    r = out["step_vs_cpu"]
+    del res
+    log(f"[whisper step] f32 stage-4 step at full width ({3 * WHISPER_SPEAKERS} classes, batch "
+        f"{WHISPER_CHECK_BATCH} x 5 s, flash), card vs CPU: loss {r['loss'][0]:.7f} vs "
+        f"{r['loss'][1]:.7f} (rel {loss_rel:.2e}; the float64 step on the card {exact:.7f}: CPU "
+        f"{cpu_off:.2e} off it, card {r['card_vs_float64_rel']:.2e}; bar {loss_bar:.2e}); "
+        f"updates relative L2 {r['updates_rel_l2']:.2e} (control "
+        f"{r['control_updates_rel_l2']:.2e}); of {len(pair)} tensors {how['cosine']} at cosine "
+        f">= 0.9999, {how['within_control']} within the control, {how['noise_floor']} at the "
+        f"noise floor, {len(failing)} failing; least cosines {worst}; CPU step "
+        f"{r['cpu_step_s']:.1f} s")
+
+    # 3 profiled stage-4 steps (batch 16) from the stage-4 weights
+    prof_out = "not measured"
+    if DEVICE == "cuda":
+        net, state, step = _whisper_step_net(cfg1, os.path.join(exp1, "avg_model.pt"), DEVICE)
+        batch = {k: torch.from_numpy(v).to(DEVICE)
+                 for k, v in _whisper_batch(cfg1, data, 16, 12).items() if k != "keys"}
+        for _ in range(2):
+            step(state, batch)
+        sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            for _ in range(3):
+                step(state, batch)
+            sync()
+            wall_us = (time.perf_counter() - t1) * 1e6
+        prof_out = grouped_profile(prof, wall_us, {"K2 flash_fwd": ("flash_fwd",),
+                                                   "K2 flash_bwd": ("flash_bwd",),
+                                                   **PROFILE_GROUPS})
+        prof_out["window"] = ("3 float32 stage-4 steps, batch 16 x 5 s, Whisper-large-v2 "
+                              f"unfrozen + PMFA, {3 * WHISPER_SPEAKERS} classes")
+        del net, state, step, batch, prof
+        empty_cache()
+        if prof_out["device_ms"]:
+            log(f"[whisper profile] 3 f32 stage-4 steps: device {prof_out['device_ms']:.2f} ms "
+                f"over {prof_out['wall_ms']:.2f} ms wall (idle share "
+                f"{prof_out['device_idle_share']:.4f}); shares " + ", ".join(
+                    f"{g} {v:.3f}" for g, v in prof_out["shares"].items()))
+            for g in ("K2 flash_fwd", "K2 flash_bwd", "GEMM", "elementwise"):
+                log(f"[whisper profile]   {g}: " + "; ".join(prof_out["group_top"][g][:3]))
+        else:
+            log("[whisper profile] torch.profiler reported no device time: not measured")
+    out["profile"] = prof_out
+
+    check(sorted(done) == list(range(2, 8)), f"whisper: stages {sorted(done)}")
+    check([n for n, _ in step_calls[3]] == [1] * WHISPER_STEPS[3]
+          and [n for n, _ in step_calls[4]] == [1] * WHISPER_STEPS[4],
+          f"whisper: step calls {step_calls}")
+    n = wcfg.n_layer  # K2 launches once per block and batch
+    want = {3: {"fwd": n * WHISPER_STEPS[3], "dkv": 0, "dq": 0},
+            4: {k: n * WHISPER_STEPS[4] for k in ("fwd", "dkv", "dq")},
+            7: {"fwd": n * counter.batches, "dkv": 0, "dq": 0}}
+    check(launches == want and counter.batches > 0,
+          f"whisper: K2 launches {launches}, want {want}")
+    check(all(math.isfinite(x) for s in losses for x in losses[s])
+          and [len(losses[s]) for s in (3, 4)] == [WHISPER_STEPS[3], WHISPER_STEPS[4]],
+          f"whisper: losses {losses}")
+    check(not changed, f"whisper: stage 3 changed frozen encoder tensors {changed[:4]}")
+    check(len(cos) == WHISPER_CPU_UTTS and min(cos) >= COS_MIN["f32"],
+          f"whisper: stage-5 embeddings against the CPU, cosines {cos}")
+    check(r["loss_rel"] <= loss_bar and r["cpu_vs_float64_rel"] <= loss_bar
+          and r["card_vs_float64_rel"] <= loss_bar and not failing,
+          "whisper: the stage-4 step on the card against the CPU")
+    for s in (6, 7):
+        check(len(done[s]["lines"]) == 1 and " EER " in done[s]["lines"][0],
+              f"whisper: stage {s} printed {done[s]['lines']}")
+    return launches
+
+
 SCORE_SIZES = {"vox1_O": (40, 4874, 37720), "vox1_H": (1251, 153516, 552536)}
 
 
@@ -2881,6 +3471,8 @@ def main():
         resnet_launches = timed("resnet recipe", phase_resnet_recipe, report, recipe_dir)
     timed("ecapa step check", phase_ecapa_step_check, report)
     timed("resnet step check", phase_resnet_step_check, report)
+    with tempfile.TemporaryDirectory() as whisper_dir:
+        whisper_launches = timed("whisper recipe", phase_whisper_recipe, report, whisper_dir)
     with tempfile.TemporaryDirectory() as score_dir:
         timed("score", phase_score, report, score_dir)
     report["wall_s"] = time.perf_counter() - t_start
@@ -2900,7 +3492,7 @@ def main():
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     if (failures or k1 is None or launches is None or k2_row is None or k2_launches is None
             or k2_bwd_row is None or train_launches is None or recipe_launches is None
-            or resnet_launches is None):
+            or resnet_launches is None or whisper_launches is None):
         for f in failures:
             print(f"chip_smoke FAILED {f}", file=sys.stderr)
         return 1
@@ -2994,6 +3586,54 @@ def main():
             line["ms"], line["ms_scope"] = k2_bwd_row["ms"], "the whole backward (both kernels)"
         line["roofline_share"] = line["bound_ms"] / line["ms"]
         kernels.append(line)
+    # the float32 instances, at Whisper's shapes, on the Whisper recipe's path
+    fwd_rows = {tuple(r["shape"][:2]): r for r in report["k2_whisper_checks"]
+                if r["dtype"] == "f32"}
+    bwd_row = next(r for r in report["k2_whisper_bwd_checks"] if r["dtype"] == "f32")
+    wl = whisper_launches
+    fwd = fwd_rows[WHISPER_K2_FWD[1]]
+    kernels.append({
+        "name": "flash_fwd_f32",
+        "route": "cuda",
+        "source": "wespeaker_hubert_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "wespeaker_hubert_tpu/frontend/ssl_encoder.py:281",
+        "called_from": "wespeaker_hubert_tpu/frontend/whisper.py:100",
+        "launches": wl[3]["fwd"] + wl[4]["fwd"] + wl[7]["fwd"],
+        "launches_by_stage": {"3": wl[3]["fwd"], "4": wl[4]["fwd"], "5": wl[7]["fwd"]},
+        "max_abs_err": max(r["max_abs_err"] for r in fwd_rows.values()),
+        "ms": fwd["ms"], "ms_scope": fwd["ms_scope"], "plain_ms": fwd["plain_ms"],
+        "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
+        "roofline_share": fwd["roofline_share"], "library_ms": fwd["library_ms"],
+        "library_scope": "scaled_dot_product_attention, scale 1.0, no mask",
+        "shape": fwd["shape"], "dtype": "f32",
+        "at_other_shapes": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms", "max_abs_err")}
+                            for key, r in fwd_rows.items() if key != WHISPER_K2_FWD[1]],
+    })
+    for name, key in (("flash_bwd_dkv_f32", "dkv"), ("flash_bwd_dq_f32", "dq")):
+        ms = bwd_row[key + "_ms"]
+        outputs = ("dk", "dv") if key == "dkv" else ("dq", "delta")
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "wespeaker_hubert_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": ("jax/experimental/pallas/ops/tpu/flash_attention.py:"
+                         + ("941" if key == "dkv" else "1287")),
+            "called_from": "wespeaker_hubert_tpu/frontend/whisper.py:100",
+            "launches": wl[4][key],
+            "launches_scope": "stage 4 (joint fine-tuning); stages 3 and 5 run no backward",
+            "max_abs_err": max(bwd_row["max_abs_err"][o] for o in outputs),
+            "ms": ms if ms is not None else bwd_row["ms"],
+            "ms_scope": "profiler device time" if ms is not None
+            else "the whole backward (both kernels), events",
+            "plain_ms": bwd_row["plain_ms"],
+            "plain_scope": "the whole plain backward (dq, dk, dv)",
+            "bound_ms": bwd_row[key + "_bound_ms"], "bound_by": bwd_row[key + "_bound_by"],
+            "library_ms": bwd_row["library_ms"],
+            "library_scope": "scaled_dot_product_attention forward + backward, scale 1.0",
+            "shape": bwd_row["shape"], "dtype": "f32",
+        })
+        kernels[-1]["roofline_share"] = kernels[-1]["bound_ms"] / kernels[-1]["ms"]
     log(json.dumps({"kernels": kernels}))
     log(f"[device] {smi}")
     log(json.dumps({"ok": True, "device": {

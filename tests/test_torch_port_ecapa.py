@@ -207,4 +207,5 @@ def test_registry_and_build():
     assert net.backbone.conv.weight.shape == (1536, 3072, 1)
     with pytest.raises(NotImplementedError, match="not ported"):
         build_speaker_net({"model": "ECAPA_TDNN_c512",
-                           "dataset_args": {"frontend": "whisper_encoder"}})
+                           "dataset_args": {"frontend": "whisper_encoder",
+                                            "whisper_encoder_args": {"pipeline_parallel": 4}}})

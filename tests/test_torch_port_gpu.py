@@ -663,3 +663,89 @@ def test_exported_resnet34_program_on_gpu_matches_eager(cuda, tmp_path):
         assert got.device == feats.device and got.shape == (b, 256)
         cos = torch.nn.functional.cosine_similarity(got, want, dim=1)
         assert float(cos.min()) >= 0.99999, cos
+
+
+# ------------------------------------------------------------- Whisper
+def _whisper_qkv(seed, b, t, dtype, device):
+    """Whisper's K2 inputs: 20 heads of 64, q and k scaled by 64^-0.25 as the
+    encoder scales them before the call (the call's scale is then 1.0)."""
+    q, k, v, rng = _attn_inputs(seed, b, t, 20, dtype, device)
+    s = 64 ** -0.25
+    return (q.float() * s).to(dtype), (k.float() * s).to(dtype), v, rng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,t", [(16, 1500), (64, 251)], ids=["extract_30s", "train"])
+def test_flash_kernel_whisper_shapes_match_plain(cuda, dtype, b, t):
+    """K2's forward at Whisper-large-v2's shapes: no bias, no key lengths,
+    scale 1.0."""
+    q, k, v, _ = _whisper_qkv(b + t, b, t, dtype, cuda)
+    launches = k2.LAUNCHES
+    got = k2.flash_attention(q, k, v, bias=None, key_len=None, scale=1.0)
+    torch.cuda.synchronize()
+    assert k2.LAUNCHES == launches + 1 and got.dtype == dtype
+    want = k2.flash_attention_reference(q, k, v, None, None, 1.0)
+    torch.testing.assert_close(got.float(), want.float(), **K2_TOL[dtype])
+    assert _cos(got, want) >= 0.9999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_backward_whisper_shape_matches_plain(cuda, dtype):
+    """K2's dK/dV and dQ at the joint fine-tuning shape (16, 251, 20, 64),
+    no bias, no key lengths, scale 1.0."""
+    q, k, v, rng = _whisper_qkv(7, 16, 251, dtype, cuda)
+    out, lse = k2.flash_attention_fwd(q, k, v, None, None, 1.0, return_lse=True)
+    dout = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32)).to(cuda, dtype)
+    dkv, dq = k2.LAUNCHES_BWD_DKV, k2.LAUNCHES_BWD_DQ
+    got = k2.flash_attention_bwd(q, k, v, None, None, 1.0, out, lse, dout)
+    torch.cuda.synchronize()
+    assert (k2.LAUNCHES_BWD_DKV, k2.LAUNCHES_BWD_DQ) == (dkv + 1, dq + 1)
+    want = k2.flash_attention_bwd_reference(q, k, v, None, None, 1.0, out, lse, dout)
+    assert got.dbias is None and got.dgate is None
+    for name, g, w in zip(("dq", "dk", "dv", "delta"), (got.dq, got.dk, got.dv, got.delta),
+                          (want.dq, want.dk, want.dv, want.delta)):
+        assert g.dtype == w.dtype and g.shape == w.shape and bool(torch.isfinite(g).all()), name
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=0.0, msg=name)
+        else:
+            assert _cos(g, w) >= 0.9999, (name, _cos(g, w))
+
+
+@pytest.mark.cuda
+def test_whisper_block_on_gpu_matches_cpu(cuda):
+    """One full-width Whisper-large-v2 block (1280 wide, 20 heads, flash
+    attention) on the card against the CPU's plain path, forward and the
+    input's gradient, float32 with TF32 off."""
+    from wespeaker_hubert_tpu_torch.frontend.whisper import WhisperEncoderConfig, _Block
+
+    torch.manual_seed(0)
+    block = _Block(WhisperEncoderConfig(attn_impl="flash"))
+    x = _wav(8, (2, 251, 1280)) * 10
+    x_cpu = x.clone().requires_grad_()
+    want = block(x_cpu)
+    want.square().sum().backward()
+    block.to(cuda)
+    x_gpu = x.to(cuda).requires_grad_()
+    counts = k2.LAUNCHES, k2.LAUNCHES_BWD_DKV, k2.LAUNCHES_BWD_DQ
+    got = block(x_gpu)
+    got.square().sum().backward()
+    torch.cuda.synchronize()
+    assert (k2.LAUNCHES, k2.LAUNCHES_BWD_DKV, k2.LAUNCHES_BWD_DQ) == tuple(c + 1 for c in counts)
+    torch.testing.assert_close(got.detach().cpu(), want.detach(), atol=2e-4, rtol=1e-3)
+    assert _cos(x_gpu.grad.cpu(), x_cpu.grad) >= 0.99999
+
+
+@pytest.mark.cuda
+def test_whisper_log_mel_on_gpu_matches_cpu(cuda):
+    """ops/whisper_mel on the card (cuFFT, the mel product with TF32 off)
+    against the CPU: atol 1e-4, at the training chunk and a 40 s wav."""
+    from wespeaker_hubert_tpu_torch.ops.whisper_mel import whisper_log_mel
+
+    for shape in ((4, 80240), (1, 640000)):
+        wav = _wav(shape[1], shape)
+        got = whisper_log_mel(wav.to(cuda))
+        want = whisper_log_mel(wav)
+        assert got.shape == (shape[0], shape[1] // 160, 80)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0.0)

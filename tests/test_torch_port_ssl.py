@@ -47,6 +47,7 @@ from wespeaker_hubert_tpu_torch.frontend import (
     SSLEncoder,
     SSLEncoderConfig,
     SSLFrontend,
+    WhisperEncoder,
     convert_hf_state_dict,
     frontend_class_dict,
     load_hf_state_dict,
@@ -104,29 +105,37 @@ def _qkv(seed, b=2, t=150, h=2, hd=64):
     return q, k, v, bias, key_len
 
 
-@pytest.mark.parametrize("case", ["gated_bias_and_padding", "padding_bias", "no_bias"])
+@pytest.mark.parametrize("case", ["gated_bias_and_padding", "padding_bias", "no_bias",
+                                  "whisper_h20_scale1"])
 def test_flash_plain_matches_jax_flash_kernel(case):
     """T = 150 (not a multiple of the TPU kernel's 128 blocks).  JAX gets
     the padding as a -1e9 additive bias (or, with no bias, pads T through
-    SegmentIds); the port masks keys by length."""
+    SegmentIds); the port masks keys by length.  Whisper's convention: 20
+    heads, q and k each scaled by hd^-0.25 before the call, scale 1.0, no
+    bias and no key lengths (frontend/whisper.py:93-100)."""
     q, k, v, bias, key_len = _qkv(3)
+    scale = 0.125
     pad = np.where(np.arange(q.shape[1])[None, :] < key_len[:, None], 0.0, -1e9)
     pad = pad.astype(np.float32)[:, None, None, :]
+    if case == "whisper_h20_scale1":
+        q, k, v, _, _ = _qkv(4, b=1, h=20)
+        q, k, scale = q * 64 ** -0.25, k * 64 ** -0.25, 1.0
     ab, port_bias, port_len = {
         "gated_bias_and_padding": (bias + pad, bias, key_len),
         "padding_bias": (pad, None, key_len),
         "no_bias": (None, None, None),
+        "whisper_h20_scale1": (None, None, None),
     }[case]
     with pltpu.force_tpu_interpret_mode():
         want = _flash_mha(
             jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-            None if ab is None else jnp.asarray(ab), 0.125,
+            None if ab is None else jnp.asarray(ab), scale,
         )
     got = k2.flash_attention(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
         bias=None if port_bias is None else torch.from_numpy(port_bias),
         key_len=None if port_len is None else torch.from_numpy(port_len),
-        scale=0.125,
+        scale=scale,
     )
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
 
@@ -530,9 +539,9 @@ def test_extract_refusals(port_slice, tmp_path):
         extract(config, str(tmp_path / "bad.jsonl"), ckpt, "", device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
         build_speaker_net({"model": "ECAPA_TDNN_c512",
-                           "dataset_args": {"frontend": "whisper_encoder"}})
-    with pytest.raises(NotImplementedError, match="not ported"):
-        frontend_class_dict["whisper_encoder"]()
+                           "dataset_args": {"frontend": "whisper_encoder",
+                                            "whisper_encoder_args": {"pipeline_parallel": 4}}})
+    assert frontend_class_dict["whisper_encoder"] is WhisperEncoder
     assert list(EvalPipeline([], data_type="shard")) == []  # tar shards are read
 
 

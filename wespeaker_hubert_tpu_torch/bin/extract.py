@@ -2,8 +2,11 @@
 
 Counterpart of `wespeaker_hubert_tpu/bin/extract.py`: bucketed
 whole-utterance batches with masks (data/dataset.py:EvalPipeline), the
-fbank + CMVN frontend or an SSL frontend on the device, embeddings written
-as an .npz set (utils/embeddings.py).
+fbank + CMVN frontend, an SSL frontend or the Whisper encoder on the
+device, embeddings written as an .npz set (utils/embeddings.py).  A
+frontend's valid frames mask CMVN and the pooling; the Whisper encoder
+takes utterances past 30 s and keeps their first 1,500 tokens, as the JAX
+package's does.
 
     python -m wespeaker_hubert_tpu_torch.bin.extract --config conf.json \\
         --data_list wav.jsonl --checkpoint avg_model.pt --output emb.npz \\

@@ -10,7 +10,10 @@ The config is the training config, YAML (utils/config.py's reader) or JSON;
 One process drives one device, CUDA unless the caller asks for the CPU.  The
 host pipeline (data/dataset.py:TrainPipeline: `raw` JSONL lists, `shard` tar
 lists or `feat` lists) runs on one prefetch thread;
-`dataloader_args.num_workers` is logged and ignored.  `num_class` is
+`dataloader_args.num_workers` is logged and ignored.  The frontend is
+fbank, an SSL encoder (`s3prl`) or Whisper's encoder (`whisper_encoder`,
+frozen or trained jointly; `whisper_encoder_args.checkpoint` imports an
+OpenAI encoder state dict converted to `.npz`).  `num_class` is
 speakers x 3 with speed perturbation.  The LR schedule is scaled by batch /
 64 as in the JAX package (one host).  `enable_amp` on CUDA (or
 `compute_dtype: bf16`) trains in bf16 mixed precision.  `loop_steps: N`
@@ -45,7 +48,12 @@ import torch
 
 from ..data.aug_store import AugStore
 from ..data.dataset import TrainPipeline, TrainPipelineConfig, load_data_list
-from ..models.speaker_net import build_speaker_net, load_speaker_state, speaker_state_dict
+from ..models.speaker_net import (
+    build_speaker_net,
+    load_speaker_state,
+    refuse_model_parallel,
+    speaker_state_dict,
+)
 from ..ops.fbank import FbankConfig
 from ..ops.pipeline import FeaturePipelineConfig
 from ..train.executor import make_train_step
@@ -97,12 +105,11 @@ def _refuse_unported(config: dict, fe_args: dict) -> None:
         or int(config.get("num_processes", 1) or 1) > 1,
         "model_parallel > 1": int(config.get("model_parallel", 1)) > 1,
         "fsdp": bool(config.get("fsdp")),
-        "pipeline_parallel > 1": int(fe_args.get("pipeline_parallel", 1)) > 1,
-        "sequence_parallel": bool(fe_args.get("sequence_parallel")),
     }
     for what, asked in refusals.items():
         if asked:
             raise NotImplementedError(f"{what} is not ported yet (one device)")
+    refuse_model_parallel(fe_args)
 
 
 def _to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -119,7 +126,9 @@ def train(config: Union[str, dict], device="cuda", **overrides) -> TrainState:
     config = parse_config_or_kwargs(config, **overrides)
     device = resolve_device(device)
     dataset_args = config.get("dataset_args", {})
-    fe_args = dataset_args.get("s3prl_args", {}) if dataset_args.get("frontend") == "s3prl" else {}
+    frontend_name = dataset_args.get("frontend", "fbank")
+    fe_args = dataset_args.get(f"{frontend_name}_args", {}) if frontend_name in (
+        "s3prl", "whisper_encoder") else {}
     _refuse_unported(config, fe_args)
     exp_dir = config.get("exp_dir", "exp/default")
     os.makedirs(exp_dir, exist_ok=True)
@@ -174,6 +183,12 @@ def train(config: Union[str, dict], device="cuda", **overrides) -> TrainState:
         sd = dict(sd.item()) if hasattr(sd, "item") else dict(sd)
         load_hf_state_dict(net.frontend.upstream, sd)
         logger.info("imported SSL frontend weights from %s", fe_args["hf_checkpoint"])
+    if frontend_name == "whisper_encoder" and fe_args.get("checkpoint"):
+        # an OpenAI Whisper encoder state dict, converted offline to .npz
+        from ..frontend import load_whisper_state_dict, read_whisper_checkpoint
+
+        load_whisper_state_dict(net.frontend, read_whisper_checkpoint(fe_args["checkpoint"]))
+        logger.info("imported Whisper encoder weights from %s", fe_args["checkpoint"])
 
     # ---- schedules (LR scaled by batch / 64)
     num_epochs = int(config.get("num_epochs", 150))
@@ -201,7 +216,11 @@ def train(config: Union[str, dict], device="cuda", **overrides) -> TrainState:
 
     # ---- state (+ resume / partial init)
     if net.frontend is not None and getattr(net.frontend, "frozen", False):
-        freeze_paths(net, (("frontend", "upstream"),))
+        # an SSL frontend's pretrained weights sit under `upstream` (its
+        # featurizer weights train); a Whisper encoder freezes whole,
+        # `ln_post2` included
+        freeze_paths(net, (("frontend", "upstream"),) if hasattr(net.frontend, "upstream")
+                     else (("frontend",),))
     start_epoch, start_batch = 0, 0
     full_state_path = os.path.join(exp_dir, "models", "train_state.pt")
     resume_full = config.get("save_optimizer", False) and os.path.exists(full_state_path)

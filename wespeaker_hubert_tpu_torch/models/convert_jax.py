@@ -1,17 +1,21 @@
 """JAX (flax) variables -> the port's PyTorch state_dict.
 
 Carries weights trained or initialized by the JAX package into the port's
-modules, for the families the port has: ECAPA-TDNN and ResNet.  The input is
+modules, for the families the port has: ECAPA-TDNN, ResNet and the
+Whisper-PMFA head.  The input is
 the flax `{'params', 'batch_stats'}` tree as numpy arrays (a JAX `.ckpt`
 holds one, utils/checkpoint.py:load_jax_checkpoint), of a bare backbone or
 of a `SpeakerNet` (whose backbone sits under
-'backbone', and its SSL frontend under 'frontend'); the output uses the
-WeSpeaker names of the port's modules: the backbone's keys unprefixed, the
-frontend's under `frontend.` with HuggingFace's encoder names
+'backbone', and its SSL or Whisper frontend under 'frontend'); the output
+uses the WeSpeaker names of the port's modules: the backbone's keys
+unprefixed, the frontend's under `frontend.`, an SSL frontend with
+HuggingFace's encoder names
 (`frontend.upstream.encoder.layers.0.attention.q_proj.weight`, ...) and
 `frontend.featurizer_weights` (`frontend_from_jax` is the inverse of the
-JAX package's `frontend/convert.py:convert_hf_state_dict`), and a
-SpeakerNet's margin head under `projection.` in WeSpeaker's layout.
+JAX package's `frontend/convert.py:convert_hf_state_dict`), a Whisper
+encoder with OpenAI's (`frontend.blocks.0.attn.query.weight`, ...;
+`whisper_frontend_from_jax`, the inverse of `convert_whisper_state_dict`),
+and a SpeakerNet's margin head under `projection.` in WeSpeaker's layout.
 
 Layout rules:
   Conv1d  kernel (K, Cin, Cout)  -> weight (Cout, Cin, K)
@@ -20,6 +24,7 @@ Layout rules:
                                     over (F, T))
   Dense   kernel (in, out)       -> weight (out, in), or (out, in, 1) where
                                     the port holds it as a 1x1 Conv1d
+  LN      scale / bias           -> weight / bias
   BN      scale / bias + batch_stats mean / var
                                  -> weight / bias / running_mean / running_var
   head    projection/weight (D, C) -> projection.weight (C, D)
@@ -41,12 +46,12 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-__all__ = ["from_jax_variables", "frontend_from_jax"]
+__all__ = ["from_jax_variables", "frontend_from_jax", "whisper_frontend_from_jax"]
 
 # flax module names inside an ECAPA SE-Res2 block -> torch module paths
 _SE_RES2 = {"conv1": "0", "res2": "1", "conv2": "2", "se": "3"}
 # torch modules that are 1x1 Conv1d where flax has a Dense
-_CONV1X1_DENSE = ("pool.linear1", "pool.linear2")
+_CONV1X1_DENSE = ("pool.linear1", "pool.linear2", "pooling.linear1", "pooling.linear2")
 
 
 def _np(leaf) -> np.ndarray:
@@ -142,10 +147,38 @@ def frontend_from_jax(params: Dict) -> Dict[str, np.ndarray]:
     return sd
 
 
+def _whisper_module(path: Tuple[str, ...]) -> str:
+    """flax module path of the JAX WhisperEncoder -> OpenAI's name."""
+    head, rest = path[0], list(path[1:])
+    if head.startswith("block_"):
+        sub = {"mlp_0": "mlp.0", "mlp_2": "mlp.2"}
+        return ".".join([f"blocks.{head[len('block_'):]}"] + [sub.get(r, r) for r in rest])
+    return ".".join([head] + rest)
+
+
+def whisper_frontend_from_jax(params: Dict) -> Dict[str, np.ndarray]:
+    """JAX WhisperEncoder params -> the port's WhisperEncoder state_dict
+    (OpenAI's encoder names, `ln_post2`)."""
+    sd: Dict[str, np.ndarray] = {}
+    for path, leaf in _flatten(params).items():
+        module, name = _whisper_module(path[:-1]), path[-1]
+        if name == "kernel":
+            # conv (3, in, out) -> (out, in, 3); dense (in, out) -> (out, in)
+            sd[f"{module}.weight"] = leaf.transpose(2, 1, 0) if leaf.ndim == 3 else leaf.T
+        elif name == "scale":
+            sd[f"{module}.weight"] = leaf
+        elif name == "bias":
+            sd[f"{module}.bias"] = leaf
+        else:
+            raise KeyError(f"unexpected flax Whisper parameter {'/'.join(path)}")
+    return sd
+
+
 def from_jax_variables(model_name: str, variables: Dict,
                        feat_dim: int = 80) -> Dict[str, torch.Tensor]:
-    """JAX `{'params', 'batch_stats'}` of an ECAPA or ResNet model, or of a
-    SpeakerNet with one, -> state_dict of the port's module of the same name
+    """JAX `{'params', 'batch_stats'}` of an ECAPA, ResNet or Whisper-PMFA
+    model, or of a SpeakerNet with one, -> state_dict of the port's module of
+    the same name
     (with the SpeakerNet's frontend under `frontend.`).  `feat_dim` is the
     model's input width, which ResNet's `seg_1` permutation needs."""
     upper = model_name.upper()
@@ -153,6 +186,11 @@ def from_jax_variables(model_name: str, variables: Dict,
         module_of = _ecapa_module
     elif upper.startswith("RESNET"):
         module_of = _resnet_module
+    elif upper.startswith("WHISPER_PMFA"):
+        # pooling/linear1, bn, fc: the reference names, with the BatchNorm
+        # over the pooled statistics under `bn.norm`
+        module_of = lambda path: ".".join(  # noqa: E731
+            ("bn", "norm") + path[1:] if path[0] == "bn" else path)
     else:
         raise NotImplementedError(
             f"{model_name!r}: the port has no module of this family (ROADMAP.md queue 1, "
@@ -163,7 +201,8 @@ def from_jax_variables(model_name: str, variables: Dict,
     head: Dict[str, np.ndarray] = {}
     if "backbone" in params:  # SpeakerNet
         if "frontend" in params:
-            frontend = frontend_from_jax(params["frontend"])
+            frontend = (frontend_from_jax(params["frontend"]) if "upstream" in params["frontend"]
+                        else whisper_frontend_from_jax(params["frontend"]))
         proj = params.get("projection", {})
         if set(proj) == {"weight"}:  # the margin heads; other heads are not ported
             head["projection.weight"] = _np(proj["weight"]).T

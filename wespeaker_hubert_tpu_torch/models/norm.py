@@ -6,6 +6,9 @@ forward stays bf16 and keeps float32 statistics.  Parameter names are
 torch's (`weight`, `bias`, `running_mean`, `running_var`), as WeSpeaker's
 and HuggingFace's modules use them.
 
+A float64 input keeps float64 throughout (`upcast`), so the modules also
+compute a float64 reference.
+
 `BatchNorm1d` and `BatchNorm2d` in train mode follow flax's `BatchNorm`:
 batch statistics in float32 over every axis but the channels (the variance
 as E[x^2] - E[x]^2, clipped at 0), the running mean and variance updated as
@@ -21,11 +24,17 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-__all__ = ["BatchNorm1d", "BatchNorm2d", "LayerNorm", "GroupNorm"]
+__all__ = ["BatchNorm1d", "BatchNorm2d", "LayerNorm", "GroupNorm", "upcast"]
+
+
+def upcast(x: torch.Tensor) -> torch.Tensor:
+    """x in float32, or as it is when it is float64: statistics are taken
+    in at least float32."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def _f32(p):
-    return None if p is None else p.float()
+    return None if p is None else upcast(p)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -33,7 +42,7 @@ class LayerNorm(nn.LayerNorm):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(
-            x.float(), self.normalized_shape, _f32(self.weight), _f32(self.bias), self.eps
+            upcast(x), self.normalized_shape, _f32(self.weight), _f32(self.bias), self.eps
         ).to(x.dtype)
 
 
@@ -42,7 +51,7 @@ class GroupNorm(nn.GroupNorm):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.group_norm(
-            x.float(), self.num_groups, _f32(self.weight), _f32(self.bias), self.eps
+            upcast(x), self.num_groups, _f32(self.weight), _f32(self.bias), self.eps
         ).to(x.dtype)
 
 
@@ -51,16 +60,16 @@ def _flax_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> to
     module doc); updates `bn`'s running statistics."""
     dims = [0] + list(range(2, x.dim()))
     shape = [1, -1] + [1] * (x.dim() - 2)
-    x32 = x.float()
+    x32 = upcast(x)
     mean = x32.mean(dims)
     # flax's fast variance E[x^2] - E[x]^2, clipped at 0
     var = torch.clamp_min((x32 * x32).mean(dims) - mean * mean, 0.0)
     mul = torch.rsqrt(var + bn.eps)
     if bn.weight is not None:
-        mul = mul * bn.weight.float()
+        mul = mul * upcast(bn.weight)
     y = (x32 - mean.view(shape)) * mul.view(shape)
     if bn.bias is not None:
-        y = y + bn.bias.float().view(shape)
+        y = y + upcast(bn.bias).view(shape)
     if bn.track_running_stats:
         with torch.no_grad():
             m = bn.momentum

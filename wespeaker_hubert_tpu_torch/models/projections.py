@@ -17,14 +17,16 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .norm import upcast
+
 __all__ = ["ArcMarginProduct", "get_projection"]
 
 
 def _cosine_logits(embed: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """cos(theta) between the L2-normalized embeddings (B, D) and class
-    weights (C, D), in float32."""
-    e = F.normalize(embed.float(), dim=-1, eps=1e-12)
-    w = F.normalize(weight.float(), dim=-1, eps=1e-12)
+    weights (C, D), in float32 (float64 for float64 inputs)."""
+    e = F.normalize(upcast(embed), dim=-1, eps=1e-12)
+    w = F.normalize(upcast(weight), dim=-1, eps=1e-12)
     return e @ w.t()
 
 

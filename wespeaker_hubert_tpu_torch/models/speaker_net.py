@@ -6,7 +6,7 @@ points:
 
   * forward(feats, label, margin, mask) -> (embed, logits, aux_loss)  [training]
   * embed(feats, mask)                  -> embedding                  [inference]
-  * features(wav, lengths)              -> SSL frontend features
+  * features(wav, lengths)              -> SSL or Whisper frontend features
 
 A state_dict in the port's names follows WeSpeaker's layout: the backbone's
 keys unprefixed, the frontend's under `frontend.`, the projection's under
@@ -23,7 +23,8 @@ import torch.nn as nn
 
 from .registry import embedding_from_outputs, get_speaker_model
 
-__all__ = ["SpeakerNet", "build_speaker_net", "load_speaker_state", "speaker_state_dict"]
+__all__ = ["SpeakerNet", "build_speaker_net", "load_speaker_state", "refuse_model_parallel",
+           "speaker_state_dict"]
 
 FRONTEND_PREFIX = "frontend."
 PROJECTION_PREFIX = "projection."
@@ -67,11 +68,22 @@ class SpeakerNet(nn.Module):
         return emb, logits, aux
 
 
+def refuse_model_parallel(fe_args: dict) -> None:
+    """Raise on a frontend's pipeline or sequence parallelism, which the
+    port does not have (ROADMAP.md queue 1, item 11)."""
+    asked = {"pipeline_parallel": int(fe_args.get("pipeline_parallel") or 1) > 1,
+             "sequence_parallel": bool(fe_args.get("sequence_parallel"))}
+    for key in (k for k, v in asked.items() if v):
+        raise NotImplementedError(
+            f"{key}={fe_args[key]} is not ported: the port runs a frontend on one device "
+            "(ROADMAP.md queue 1, item 11)")
+
+
 def build_speaker_net(config: dict, num_class: Optional[int] = None) -> SpeakerNet:
     """Frontend (optional), backbone and, given `num_class`, the projection
     from a training config (the YAML schema as a dict), as the JAX
     package's bin/train.py:build_speaker_net assembles them."""
-    from ..frontend import SSLEncoderConfig, frontend_class_dict
+    from ..frontend import SSLEncoderConfig, WhisperEncoderConfig, frontend_class_dict
 
     model_args = dict(config.get("model_args", {}))
     dataset_args = config.get("dataset_args", {})
@@ -91,8 +103,14 @@ def build_speaker_net(config: dict, num_class: Optional[int] = None) -> SpeakerN
             multilayer_feature=s3prl_args.get("multilayer_feature", True),
         )
         model_args["feat_dim"] = enc_cfg.hidden_size
-    elif name != "fbank":
-        frontend_class_dict[name](**dataset_args.get(f"{name}_args", {}))
+    elif name == "whisper_encoder":
+        wargs = dataset_args.get("whisper_encoder_args", {})
+        refuse_model_parallel(wargs)
+        wcfg = getattr(WhisperEncoderConfig, wargs.get("variant", "large_v2"))()
+        overrides = {k: wargs[k] for k in ("attn_impl", "gelu_impl") if k in wargs}
+        wcfg = dataclasses.replace(wcfg, **overrides)
+        frontend = frontend_class_dict[name](wcfg, frozen=wargs.get("frozen", False))
+        model_args["feat_dim"] = wcfg.output_size
     backbone = get_speaker_model(config["model"])(**model_args)
     projection = None
     if num_class is not None:

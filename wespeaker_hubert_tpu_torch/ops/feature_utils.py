@@ -27,14 +27,16 @@ def apply_cmvn(
 
     feats: (B, T, F).  With `lengths` (B,), statistics are computed over the
     valid prefix only and frames past it are zeroed.  Statistics are taken
-    in float32; the output keeps the input dtype.
+    in float32 (float64 for float64 features); the output keeps the input
+    dtype.
     """
     dt = feats.dtype
-    f32 = feats.float()
+    up = torch.promote_types(dt, torch.float32)
+    f32 = feats.to(up)
     if lengths is None:
         if norm_mean:
             feats = (f32 - f32.mean(dim=1, keepdim=True)).to(dt)
-            f32 = feats.float()
+            f32 = feats.to(up)
         if norm_var:
             var = f32.var(dim=1, unbiased=False, keepdim=True)
             feats = (f32 / torch.sqrt(var + 1e-7)).to(dt)

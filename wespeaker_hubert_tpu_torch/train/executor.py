@@ -25,6 +25,7 @@ from typing import Callable, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ..models.norm import upcast
 from ..ops.augment import add_reverb_noise, add_reverb_noise_packed, speed_perturb
 from ..ops.feature_utils import apply_cmvn, spec_aug
 from ..ops.pipeline import FeaturePipelineConfig, wav_to_features
@@ -79,7 +80,7 @@ class _TrainForward(torch.nn.Module):
         if self.compute_dtype is not None:
             feats = feats.to(self.compute_dtype)
         _, logits, aux = net(feats, batch["label"], margin, mask=mask)
-        return logits.float(), aux
+        return upcast(logits), aux
 
 
 def make_train_step(
