@@ -104,11 +104,15 @@ Phases:
      speech-like wavs: K2's float32 kernels launch 24 times per step and
      per extraction batch (asserted per stage); the frozen encoder stays
      bitwise as imported; 3 stage-5 embeddings (one past the 30 s cut)
-     against bin/extract on the CPU; one stage-4 step (batch 4) on the card
-     against the CPU and a float64 step; 3 profiled stage-4 steps.  Phases 7
-     and 10 also hold K2 at Whisper's shapes ((16, 1500) and (64, 251)
-     forward, (16, 251) backward; 20 heads, scale 1.0, no bias, float32 and
-     bf16), timed beside scaled_dot_product_attention.
+     against bin/extract on the CPU; a profile of stage 5's extraction; one
+     stage-4 step (batch 4) on the card against the CPU and a float64 step;
+     3 profiled stage-4 steps.  Phases 7 and 10 also hold K2 at Whisper's
+     shapes ((16, 1500) and (64, 251) forward, (16, 251) backward; 20 heads,
+     scale 1.0, no bias, float32 and bf16), timed beside
+     scaled_dot_product_attention (the backward also alone, its backend
+     pinned), and in float32 with the logits scaled to max |S| = 40 against
+     the plain version, the kernel and the plain version each against
+     float64.  K2's float32 forward and dK/dV run 3xTF32 on wgmma.
 
 A kernel's bound is the least time the card could take for the work the
 function needs (for log-mel: an FFT and a sparse mel product; for
@@ -146,6 +150,7 @@ COS_MIN = {"f32": 0.99999, "bf16": 0.9999}
 # H100 SXM published peaks (dense): float32 outside the tensor cores, bf16
 # on the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 MODEL = "ECAPA_TDNN_GLOB_c512"
@@ -402,8 +407,8 @@ def phase_build(report):
 
 def _demangle(fn):
     """A kernel's name (and template argument) from its mangled SASS name."""
-    for name in ("fbank_fft_kernel", "flash_fwd_bf16_sm90", "flash_fwd_f32",
-                 "flash_bwd_dkv_bf16_sm90", "flash_bwd_dq_bf16_sm90", "flash_bwd_dkv_f32",
+    for name in ("fbank_fft_kernel", "flash_fwd_bf16_sm90", "flash_fwd_f32_sm90",
+                 "flash_bwd_dkv_bf16_sm90", "flash_bwd_dq_bf16_sm90", "flash_bwd_dkv_f32_sm90",
                  "flash_bwd_dq_f32"):
         if name in fn:
             tail = fn.split(name, 1)[1]
@@ -1017,7 +1022,8 @@ def phase_k2_checks(report):
     whisper = report["k2_whisper_checks"] = [
         whisper_k2_row(b, t, tag, dtype) for tag, dtype in (("f32", torch.float32),
                                                             ("bf16", torch.bfloat16))
-        for b, t in WHISPER_K2_FWD]
+        for b, t in WHISPER_K2_FWD] + [
+        whisper_k2_row(b, t, "f32", torch.float32, K2_LARGE_LOGIT) for b, t in WHISPER_K2_FWD]
     check(all(r["ok"] for r in rows), "the flash-attention kernel disagrees with its plain version")
     check(all(r["ok"] for r in whisper),
           "the flash-attention kernel disagrees with its plain version at Whisper's shapes")
@@ -1032,6 +1038,91 @@ def phase_k2_checks(report):
 WHISPER_HEADS = 20
 WHISPER_K2_FWD = ((16, 1500), (64, 251))
 WHISPER_K2_BWD = ((16, 251),)
+# The large-logit rows: q and k scaled alike to max |q k^T| = 40, where
+# 3xTF32's relative error (about 2^-21 per product) is largest in absolute
+# terms.  The gradients reach |dK| of 30-50 there, and float32 itself is
+# 1e-4 or more from float64: the plain backward given the kernel forward's
+# out and lse is as far from it as the kernels are, so a gradient that
+# misses K2_BWD_TOL against the plain version is held to float64 instead,
+# at most K2_LARGE_LOGIT_RATIO x the plain backward's distance on the same
+# inputs (the form of K2_TOL's bf16 f32_ratio) or K2_BWD_TOL's atol.  The
+# plain pipeline's distance (its own forward, then its backward) is
+# reported beside them.
+K2_LARGE_LOGIT = 40.0
+K2_LARGE_LOGIT_RATIO = 1.25
+# The float32 forward's and dK/dV's times before their 3xTF32 redesign (one
+# thread per row on the CUDA cores), from PERF.md's kernel table (H100 80GB
+# HBM3, 700.00 W): not measured by this script.  Printed and kept in the
+# kernels line as text, never as a number.
+F32_FMA_MS = {("fwd", 16, 1500): 10.5427, ("fwd", 64, 251): 1.2656, ("dkv", 16, 251): 0.8824}
+
+
+def tf32x3_bound(flop, nbytes):
+    """The least time of float32 products run as three tf32 products each
+    on the tensor cores (the float32 kernels' design): 3 x flop at the tf32
+    peak, against the bytes."""
+    ops_ms = 3 * flop / PEAK_TF32_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def earlier_text(kind, b, t):
+    ms = F32_FMA_MS.get((kind, b, t))
+    return (f"{ms} ms, the one-thread-per-row FP32-FMA kernel (PERF.md's kernel table; "
+            "not measured by this script)") if ms else None
+
+
+def scale_logits(q, k, s_max):
+    """q and k scaled alike so that max |q k^T| is s_max."""
+    peak = max(float(torch.einsum("qhd,khd->hqk", q[i], k[i]).abs().max())
+               for i in range(q.shape[0]))
+    f = (s_max / peak) ** 0.5
+    return q * f, k * f
+
+
+def attention_f64(q, k, v, scale, dout=None):
+    """Attention and, with dout, its gradients in float64 on the card, one
+    batch row at a time: out, lse and (dq, dk, dv) or None."""
+    outs = {"out": [], "lse": [], "dq": [], "dk": [], "dv": []}
+    for i in range(q.shape[0]):
+        qi, ki, vi = (x[i].double() for x in (q, k, v))
+        s = torch.einsum("qhd,khd->hqk", qi, ki) * scale
+        lse = torch.logsumexp(s, -1)
+        p = torch.exp(s - lse[..., None])
+        out = torch.einsum("hqk,khd->qhd", p, vi)
+        outs["out"].append(out)
+        outs["lse"].append(lse)
+        if dout is not None:
+            do = dout[i].double()
+            delta = (out * do).sum(-1).transpose(0, 1)[..., None]
+            ds = p * (torch.einsum("qhd,khd->hqk", do, vi) - delta)
+            outs["dq"].append(torch.einsum("hqk,khd->qhd", ds, ki) * scale)
+            outs["dk"].append(torch.einsum("hqk,qhd->khd", ds, qi) * scale)
+            outs["dv"].append(torch.einsum("hqk,qhd->khd", p, do))
+        del s, p
+    return {key: torch.stack(x) for key, x in outs.items() if x}
+
+
+def sdpa_backward(qt, kt, vt, do_t, backend, scale=None, mask=None):
+    """SDPA's backward alone (q, k and v's gradients; no mask gradient), its
+    backend pinned: the gradients of a retained graph timed (events, median
+    of 10), and the names of the kernels it launches."""
+    from torch.nn.attention import sdpa_kernel
+
+    F = torch.nn.functional
+    leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+    with sdpa_kernel([backend]):
+        o = F.scaled_dot_product_attention(*leaves, attn_mask=mask, scale=scale)
+    grad = lambda: torch.autograd.grad(o, leaves, do_t, retain_graph=True)  # noqa: E731
+    ms = cuda_median_ms(grad, reps=10)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        grad()
+        torch.cuda.synchronize()
+    names = [n[:90] for n, _, _ in device_rows(prof)][:3]
+    del o, leaves
+    return ms, names
 
 
 def whisper_qkv(b, t, dtype, seed):
@@ -1044,15 +1135,42 @@ def whisper_qkv(b, t, dtype, seed):
     return (q * s).to(dtype), (k * s).to(dtype), v.to(dtype)
 
 
-def whisper_k2_row(b, t, tag, dtype):
+def whisper_k2_row(b, t, tag, dtype, s_max=None):
     """K2's forward at a Whisper shape against its plain version (K2_TOL),
     timed (profiler device time, events around the wrapper) beside the
-    plain version and scaled_dot_product_attention on the same inputs."""
+    plain version and scaled_dot_product_attention on the same inputs.  With
+    `s_max` (float32), q and k scaled to max |S| = s_max, untimed: the
+    kernel's and the plain version's errors against float64 side by side."""
     from wespeaker_hubert_tpu_torch.ops import flash_attention as k2
 
     F = torch.nn.functional
     h = WHISPER_HEADS
     q, k, v = whisper_qkv(b, t, dtype, 700 + b + t)
+    if s_max is not None:
+        q, k = scale_logits(q, k, s_max)
+        got, lse = k2.flash_attention_fwd(q, k, v, None, None, 1.0, return_lse=True)
+        torch.cuda.synchronize()
+        want, lse_ref = k2.flash_attention_reference(q, k, v, None, None, 1.0, return_lse=True)
+        exact = attention_f64(q, k, v, 1.0)
+        err = float((got - want).abs().max())
+        lse_err = float((lse - lse_ref).abs().max())
+        vs64 = {"kernel": float((got.double() - exact["out"]).abs().max()),
+                "plain": float((want.double() - exact["out"]).abs().max()),
+                "kernel_lse": float((lse.double() - exact["lse"]).abs().max()),
+                "plain_lse": float((lse_ref.double() - exact["lse"]).abs().max())}
+        ok = (err <= K2_TOL[tag]["atol"] and lse_err <= K2_TOL[tag]["atol"]
+              and bool(torch.isfinite(got).all()))
+        row = dict(dtype=tag, shape=[b, t, h, 64], bias=None, key_len=None, scale=1.0,
+                   max_abs_s=s_max, kernel="flash_fwd_f32_sm90", max_abs_err=err,
+                   lse_max_abs_err=lse_err, max_abs_err_vs_f64=vs64, ok=ok)
+        log(f"[K2 whisper] f32 ({b}, {t}, {h}, 64) large logits (max |S| = {s_max:g}): "
+            f"max|err|={err:.3e}, lse {lse_err:.3e} against the plain version "
+            f"{'ok' if ok else 'FAIL'} (atol 1e-4); against float64: kernel {vs64['kernel']:.3e} "
+            f"(lse {vs64['kernel_lse']:.3e}), plain {vs64['plain']:.3e} "
+            f"(lse {vs64['plain_lse']:.3e})")
+        del q, k, v, got, want, lse, lse_ref, exact
+        torch.cuda.empty_cache()
+        return row
 
     def call():
         return k2.flash_attention(q, k, v, bias=None, key_len=None, scale=1.0)
@@ -1084,13 +1202,17 @@ def whisper_k2_row(b, t, tag, dtype):
                           reps=3, warmup=1)
     l_ms = cuda_median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=1.0), reps=10)
     bound_ms, bound_by, flop, nbytes, _ = k2_bound(b, t, h, None, dtype, None)
+    x3_ms, x3_by = tf32x3_bound(flop, nbytes)
     row = dict(dtype=tag, shape=[b, t, h, 64], bias=None, key_len=None, scale=1.0,
-               kernel="flash_fwd_f32" if tag == "f32" else "flash_fwd_bf16_sm90",
+               kernel="flash_fwd_f32_sm90" if tag == "f32" else "flash_fwd_bf16_sm90",
                max_abs_err=err, cosine=cos, ok=ok, max_abs_err_vs_f32=exact_err, ms=k_ms,
                ms_scope="profiler device time" if dev_ms is not None
                else "events around each wrapper call", wrapper_ms=wrapper_ms, plain_ms=p_ms,
                library_ms=l_ms, bound_ms=bound_ms, bound_by=bound_by, gflop=flop / 1e9,
                mbytes=nbytes / 1e6, roofline_share=bound_ms / k_ms)
+    if tag == "f32":
+        row.update(tf32x3_bound_ms=x3_ms, tf32x3_bound_by=x3_by,
+                   tf32x3_roofline_share=x3_ms / k_ms, earlier=earlier_text("fwd", b, t))
     log(f"[K2 whisper] {tag} ({b}, {t}, {h}, 64) no bias, no key lengths, scale 1.0: max|err|="
         f"{err:.3e} cos={cos:.7f} {'ok' if ok else 'FAIL'} "
         f"({'atol 1e-4' if tag == 'f32' else 'atol max(2e-2, one bf16 spacing), cos >= 0.9999'})"
@@ -1098,16 +1220,23 @@ def whisper_k2_row(b, t, tag, dtype):
            f"{exact_err['plain']:.3e}]" if exact_err else "")
         + f"; kernel {k_ms:.4f} ms ({row['ms_scope']}; wrapper {wrapper_ms:.4f} ms), plain "
         f"{p_ms:.4f} ms, SDPA {l_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
-        f"{flop / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), roofline share {bound_ms / k_ms:.4f}")
+        f"{flop / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), roofline share {bound_ms / k_ms:.4f}"
+        + (f"; 3xTF32 bound {x3_ms:.5f} ms ({x3_by}), share {x3_ms / k_ms:.4f}; earlier "
+           f"{row['earlier']}" if tag == "f32" else ""))
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return row
 
 
-def whisper_k2_bwd_row(b, t, tag, dtype):
+def whisper_k2_bwd_row(b, t, tag, dtype, s_max=None):
     """K2's dQ and dK/dV kernels at a Whisper shape through the wrapper,
     against the plain backward (K2_BWD_TOL), each kernel's device time
-    beside its bound, the plain backward and SDPA's forward + backward."""
+    beside its bound, the plain backward, SDPA's backward alone (its backend
+    pinned) and SDPA's forward + backward.  With `s_max` (float32), q and k
+    scaled to max |S| = s_max, untimed: each gradient's error against the
+    plain version and, kernel and plain side by side, against float64."""
+    from torch.nn.attention import SDPBackend
+
     from wespeaker_hubert_tpu_torch.ops import flash_attention as k2
 
     F = torch.nn.functional
@@ -1115,12 +1244,50 @@ def whisper_k2_bwd_row(b, t, tag, dtype):
     q, k, v = whisper_qkv(b, t, dtype, 800 + b + t)
     dout = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(801),
                        device="cuda").to(dtype)
+    if s_max is not None:
+        q, k = scale_logits(q, k, s_max)
     out, lse = k2.flash_attention_fwd(q, k, v, None, None, 1.0, return_lse=True)
     args = (q, k, v, None, None, 1.0, out, lse, dout)
     call = lambda: k2.flash_attention_bwd(*args)  # noqa: E731
     got = call()
     torch.cuda.synchronize()
     want = k2.flash_attention_bwd_reference(*args)
+    if s_max is not None:
+        # the plain backward from the plain forward, and float64
+        p_out, p_lse = k2.flash_attention_reference(q, k, v, None, None, 1.0, return_lse=True)
+        own = k2.flash_attention_bwd_reference(q, k, v, None, None, 1.0, p_out, p_lse, dout)
+        exact = attention_f64(q, k, v, 1.0, dout)
+        errs, vs64, how, ok = {}, {}, {}, got.dbias is None and got.dgate is None
+        atol = K2_BWD_TOL["f32"]["atol"]
+        for name in ("dq", "dk", "dv", "delta"):
+            g, w = getattr(got, name), getattr(want, name)
+            errs[name] = float((g - w).abs().max())
+            ok = ok and bool(torch.isfinite(g).all())
+            if name == "delta":
+                ok = ok and errs[name] <= atol
+                continue
+            vs64[name] = {"kernel": float((g.double() - exact[name]).abs().max()),
+                          "plain": float((w.double() - exact[name]).abs().max()),
+                          "plain_pipeline": float(
+                              (getattr(own, name).double() - exact[name]).abs().max())}
+            if errs[name] <= atol:
+                how[name] = "atol 1e-4 against the plain version"
+            else:
+                bar = max(atol, K2_LARGE_LOGIT_RATIO * vs64[name]["plain"])
+                how[name] = f"against float64 at most {bar:.3e}"
+                ok = ok and vs64[name]["kernel"] <= bar
+        row = dict(dtype=tag, shape=[b, t, h, 64], bias=None, key_len=None, scale=1.0,
+                   max_abs_s=s_max, max_abs_err=errs, max_abs_err_vs_f64=vs64, held_by=how,
+                   ok=ok, kernels={"dkv": "flash_bwd_dkv_f32_sm90", "dq": "flash_bwd_dq_f32"})
+        log(f"[K2 bwd whisper] f32 ({b}, {t}, {h}, 64) large logits (max |S| = {s_max:g}): "
+            + "; ".join(f"{n} err {errs[n]:.2e}" + (
+                f" (float64: kernel {vs64[n]['kernel']:.2e}, plain on the same inputs "
+                f"{vs64[n]['plain']:.2e}, the plain pipeline {vs64[n]['plain_pipeline']:.2e}; "
+                f"held by {how[n]})" if n in vs64 else "") for n in errs)
+            + f" {'ok' if ok else 'FAIL'}")
+        del q, k, v, dout, out, lse, got, want, p_out, p_lse, own, exact
+        torch.cuda.empty_cache()
+        return row
     errs, coss, ok = {}, {}, got.dbias is None and got.dgate is None
     for name in ("dq", "dk", "dv", "delta"):
         g, w = getattr(got, name), getattr(want, name)
@@ -1140,24 +1307,53 @@ def whisper_k2_bwd_row(b, t, tag, dtype):
         o = F.scaled_dot_product_attention(qt, kt, vt, scale=1.0)
         return torch.autograd.grad(o, (qt, kt, vt), do_t)
 
+    # SDPA forward + backward as PyTorch dispatches it, three times apart,
+    # then its backward alone with the backend pinned: memory-efficient
+    # attention for float32 (flash attention takes no float32), flash for
+    # bf16, and the math backend (unfused) beside them
     l_ms = cuda_median_ms(sdpa_fwd_bwd, reps=10)
+    backend = SDPBackend.EFFICIENT_ATTENTION if tag == "f32" else SDPBackend.FLASH_ATTENTION
+    bwd_ms, bwd_kernels = sdpa_backward(qt, kt, vt, do_t, backend, scale=1.0)
+    math_ms, math_kernels = sdpa_backward(qt, kt, vt, do_t, SDPBackend.MATH, scale=1.0)
+    with torch.nn.attention.sdpa_kernel([backend]):
+        pinned_fwd_bwd = cuda_median_ms(sdpa_fwd_bwd, reps=10)
+    with torch.nn.attention.sdpa_kernel([SDPBackend.MATH]):
+        math_fwd_bwd = cuda_median_ms(sdpa_fwd_bwd, reps=10)
+    repeats = [l_ms, cuda_median_ms(sdpa_fwd_bwd, reps=10), cuda_median_ms(sdpa_fwd_bwd, reps=10)]
+    sdpa = {"fwd_bwd_dispatched_ms": repeats, "fwd_bwd_pinned_ms": pinned_fwd_bwd,
+            "fwd_bwd_math_ms": math_fwd_bwd, "backend": backend.name, "bwd_ms": bwd_ms,
+            "bwd_kernels": bwd_kernels, "math_bwd_ms": math_ms, "math_bwd_kernels": math_kernels}
     bounds = k2_bwd_bounds(b, t, h, None, dtype, None)
     kernel = {"dkv": "flash_bwd_dkv", "dq": "flash_bwd_dq"}
+    names = {"dkv": "flash_bwd_dkv_f32_sm90", "dq": "flash_bwd_dq_f32"} if tag == "f32" else {
+        key: f"{name}_bf16_sm90" for key, name in kernel.items()}
     row = dict(dtype=tag, shape=[b, t, h, 64], bias=None, key_len=None, scale=1.0,
-               max_abs_err=errs, cosine=coss, ok=ok, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+               max_abs_err=errs, cosine=coss, ok=ok, ms=k_ms, plain_ms=p_ms,
+               library_ms=bwd_ms, library_fwd_bwd_ms=l_ms, sdpa=sdpa,
                dkv_ms=per["flash_bwd_dkv"], dq_ms=per["flash_bwd_dq"],
                bound_ms=bounds["function"][0], bound_by=bounds["function"][1],
                dkv_bound_ms=bounds["dkv"][0], dkv_bound_by=bounds["dkv"][1],
-               dq_bound_ms=bounds["dq"][0], dq_bound_by=bounds["dq"][1],
-               kernels={key: f"{name}_{'f32' if tag == 'f32' else 'bf16_sm90'}"
-                        for key, name in kernel.items()})
+               dq_bound_ms=bounds["dq"][0], dq_bound_by=bounds["dq"][1], kernels=names)
+    if tag == "f32":
+        for key in ("dkv", "dq"):
+            ms_x3, by_x3 = tf32x3_bound(bounds[key][2], bounds[key][3])
+            row[key + "_tf32x3_bound_ms"], row[key + "_tf32x3_bound_by"] = ms_x3, by_x3
+        row["dkv_earlier"] = earlier_text("dkv", b, t)
     log(f"[K2 bwd whisper] {tag} ({b}, {t}, {h}, 64) no bias, no key lengths, scale 1.0: "
         + " ".join(f"{n} err {errs[n]:.2e} cos {coss[n]:.7f}" for n in errs)
         + f" {'ok' if ok else 'FAIL'} ({'atol 1e-4' if tag == 'f32' else 'cos >= 0.9999'}); "
         f"backward {k_ms:.4f} ms (events around the wrapper), dK/dV {row['dkv_ms']} ms against "
-        f"{row['dkv_bound_ms']:.5f} ({row['dkv_bound_by']}), dQ {row['dq_ms']} ms against "
-        f"{row['dq_bound_ms']:.5f} ({row['dq_bound_by']}), plain {p_ms:.4f} ms, SDPA fwd+bwd "
-        f"{l_ms:.4f} ms, the backward's bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
+        f"{row['dkv_bound_ms']:.5f} ({row['dkv_bound_by']})"
+        + (f" / 3xTF32 {row['dkv_tf32x3_bound_ms']:.5f}, earlier {row['dkv_earlier']}"
+           if tag == "f32" else "")
+        + f", dQ {row['dq_ms']} ms against {row['dq_bound_ms']:.5f} ({row['dq_bound_by']})"
+        + (f" / 3xTF32 {row['dq_tf32x3_bound_ms']:.5f}" if tag == "f32" else "")
+        + f", plain {p_ms:.4f} ms; SDPA backward alone ({backend.name}) {bwd_ms:.4f} ms "
+        f"[{'; '.join(bwd_kernels)}], math backend's backward {math_ms:.4f} ms, SDPA fwd+bwd "
+        f"as dispatched {', '.join(f'{x:.4f}' for x in repeats)} ms (pinned "
+        f"{pinned_fwd_bwd:.4f}, math backend {math_fwd_bwd:.4f}), the backward's bound "
+        f"{row['bound_ms']:.5f} ms "
+        f"({row['bound_by']})")
     del q, k, v, dout, out, lse, qt, kt, vt
     torch.cuda.empty_cache()
     return row
@@ -1600,6 +1796,15 @@ def phase_k2_bwd_checks(report):
                 mask_leaf.requires_grad_(False)
                 l_ms = cuda_median_ms(sdpa_fwd_bwd, reps=10)
                 lib_bias_grad = False
+            # SDPA's backward alone (memory-efficient attention pinned: flash
+            # attention takes no mask), the same mask, no mask gradient
+            from torch.nn.attention import SDPBackend
+
+            try:
+                lib_bwd_ms, lib_bwd_kernels = sdpa_backward(
+                    qt, kt, vt, do_t, SDPBackend.EFFICIENT_ATTENTION, mask=mask.detach())
+            except RuntimeError as e:  # the backend refuses these inputs
+                lib_bwd_ms, lib_bwd_kernels = None, [f"refused: {str(e)[:120]}"]
             bounds = k2_bwd_bounds(b, t, h, key_len if len_kind != "full" else None, dtype,
                                    bias_kind)
             bound_ms = bounds["function"][0]
@@ -1607,6 +1812,7 @@ def phase_k2_bwd_checks(report):
                        tile_q=k2.key_tile(t) if tag == "bf16" else 16,
                        max_abs_err=errs, cosine=coss, ok=ok, ms=k_ms, host_us=host_us,
                        plain_ms=p_ms, library_ms=l_ms, library_bias_grad=lib_bias_grad,
+                       library_bwd_ms=lib_bwd_ms, library_bwd_kernels=lib_bwd_kernels,
                        factored_grads_ms=red_ms, graph_ms=g_ms,
                        dkv_ms=per["flash_bwd_dkv"], dq_ms=per["flash_bwd_dq"],
                        launches_traced=[per["flash_bwd_dkv_launches_traced"],
@@ -1637,7 +1843,9 @@ def phase_k2_bwd_checks(report):
                 + (f", the table gradient's reduction {red_ms:.4f} ms" if red_ms is not None
                    else "")
                 + f", plain {p_ms:.4f} ms, SDPA fwd+bwd {l_ms:.4f} ms "
-                f"({'with' if lib_bias_grad else 'no'} mask gradient), bound {bound_ms:.5f} ms "
+                f"({'with' if lib_bias_grad else 'no'} mask gradient), SDPA backward alone "
+                f"(EFFICIENT_ATTENTION, no mask gradient) {lib_bwd_ms} ms "
+                f"[{'; '.join(lib_bwd_kernels)}], bound {bound_ms:.5f} ms "
                 f"({bounds['function'][1]}: {bounds['function'][2] / 1e9:.2f} GFLOP, "
                 f"{bounds['function'][3] / 1e6:.1f} MB; "
                 f"{row['materialized_bound_ms']:.5f} with the bias materialized), "
@@ -1648,6 +1856,8 @@ def phase_k2_bwd_checks(report):
     whisper = report["k2_whisper_bwd_checks"] = [
         whisper_k2_bwd_row(b, t, tag, dtype) for tag, dtype in (("f32", torch.float32),
                                                                 ("bf16", torch.bfloat16))
+        for b, t in WHISPER_K2_BWD] + [
+        whisper_k2_bwd_row(b, t, "f32", torch.float32, K2_LARGE_LOGIT)
         for b, t in WHISPER_K2_BWD]
     check(all(r["ok"] for r in rows), "the flash-attention backward disagrees with its plain version")
     check(all(r["ok"] for r in whisper),
@@ -3205,6 +3415,58 @@ def phase_whisper_recipe(report, root):
         f"bin/extract on the CPU: cosines " + ", ".join(f"{c:.7f}" for c in cos)
         + f" (bar {COS_MIN['f32']}); {out['embeddings_vs_cpu']['cpu_s']:.1f} s on the CPU")
 
+    # stage 5's profile: bin/extract on the 24 eval utterances (2-40 s, T up
+    # to 1,500 tokens) with the stage-4 average, once to warm, once traced
+    # from its first embedding call to its end (the model's load and build
+    # before it are not in the window)
+    s5_prof = "not measured"
+    if DEVICE == "cuda":
+        eval_list, avg = os.path.join(data, "vox1", "raw.list"), os.path.join(exp1, "avg_model.pt")
+        extract(cfg1, eval_list, avg, "", device=DEVICE)
+        sync()
+        traced = {}
+
+        def tracing(make):
+            def made(*args, **kwargs):
+                fn = make(*args, **kwargs)
+
+                def call(*a, **kw):
+                    if not traced:
+                        sync()
+                        traced["prof"] = profile(
+                            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                        traced["prof"].start()
+                        traced["t"] = time.perf_counter()
+                    return fn(*a, **kw)
+                return call
+            return made
+
+        bin_extract.make_eval_embed = tracing(make_embed)
+        try:
+            extract(cfg1, eval_list, avg, "", device=DEVICE)
+            sync()
+        finally:
+            bin_extract.make_eval_embed = make_embed
+        wall_us = (time.perf_counter() - traced["t"]) * 1e6
+        traced["prof"].stop()
+        s5_prof = grouped_profile(traced["prof"], wall_us, {"K2 flash_fwd": ("flash_fwd",),
+                                                            "log-mel FFT": ("fft", "radix"),
+                                                            **PROFILE_GROUPS})
+        s5_prof["window"] = ("bin/extract.extract of the 24 eval utterances (2-40 s), float32, "
+                             "from its first embedding call to its end")
+        del traced
+        empty_cache()
+        if s5_prof["device_ms"]:
+            log(f"[whisper stage-5 profile] 24 utterances: device {s5_prof['device_ms']:.2f} ms "
+                f"over {s5_prof['wall_ms']:.2f} ms wall (idle share "
+                f"{s5_prof['device_idle_share']:.4f}); shares " + ", ".join(
+                    f"{g} {v:.3f}" for g, v in s5_prof["shares"].items()))
+            for g in ("K2 flash_fwd", "GEMM", "elementwise"):
+                log(f"[whisper stage-5 profile]   {g}: " + "; ".join(s5_prof["group_top"][g][:3]))
+        else:
+            log("[whisper stage-5 profile] torch.profiler reported no device time: not measured")
+    out["stage5_profile"] = s5_prof
+
     # one full-width stage-4 step at a small batch, card against CPU
     init = os.path.join(exp0, "models", "model_1.pt")
     host = _whisper_batch(cfg1, data, WHISPER_CHECK_BATCH, 11)
@@ -3577,8 +3839,11 @@ def main():
             "bound_ms": k2_bwd_row[key + "_bound_ms"],
             "bound_by": k2_bwd_row[key + "_bound_by"],
             "backward_bound_ms": k2_bwd_row["bound_ms"],
-            "library_ms": k2_bwd_row["library_ms"],
-            "library_scope": "scaled_dot_product_attention forward + backward",
+            "library_ms": k2_bwd_row["library_bwd_ms"],
+            "library_scope": "scaled_dot_product_attention's backward alone (dq, dk, dv in one "
+                             "fused kernel; EFFICIENT_ATTENTION pinned, the materialized bias "
+                             "as attn_mask, no mask gradient)",
+            "library_fwd_bwd_ms": k2_bwd_row["library_ms"],
             "shape": k2_bwd_row["shape"],
             "dtype": k2_bwd_row["dtype"],
         }
@@ -3586,14 +3851,19 @@ def main():
             line["ms"], line["ms_scope"] = k2_bwd_row["ms"], "the whole backward (both kernels)"
         line["roofline_share"] = line["bound_ms"] / line["ms"]
         kernels.append(line)
-    # the float32 instances, at Whisper's shapes, on the Whisper recipe's path
+    # the float32 instances, at Whisper's shapes, on the Whisper recipe's path;
+    # the forward and dK/dV run 3xTF32 on the tensor cores (their bound_ms),
+    # dQ one thread per row on the CUDA cores (its bound_ms)
     fwd_rows = {tuple(r["shape"][:2]): r for r in report["k2_whisper_checks"]
-                if r["dtype"] == "f32"}
-    bwd_row = next(r for r in report["k2_whisper_bwd_checks"] if r["dtype"] == "f32")
+                if r["dtype"] == "f32" and "max_abs_s" not in r}
+    large = [r for r in report["k2_whisper_checks"] + report["k2_whisper_bwd_checks"]
+             if "max_abs_s" in r]
+    bwd_row = next(r for r in report["k2_whisper_bwd_checks"]
+                   if r["dtype"] == "f32" and "max_abs_s" not in r)
     wl = whisper_launches
     fwd = fwd_rows[WHISPER_K2_FWD[1]]
     kernels.append({
-        "name": "flash_fwd_f32",
+        "name": "flash_fwd_f32_sm90",
         "route": "cuda",
         "source": "wespeaker_hubert_tpu_torch/csrc/flash_attention.cu",
         "replaces": "wespeaker_hubert_tpu/frontend/ssl_encoder.py:281",
@@ -3601,19 +3871,26 @@ def main():
         "launches": wl[3]["fwd"] + wl[4]["fwd"] + wl[7]["fwd"],
         "launches_by_stage": {"3": wl[3]["fwd"], "4": wl[4]["fwd"], "5": wl[7]["fwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in fwd_rows.values()),
+        "max_abs_err_large_logits": {str(r["shape"]): r["max_abs_err_vs_f64"] | {
+            "vs_plain": r["max_abs_err"]} for r in large if "kernel" in r},
         "ms": fwd["ms"], "ms_scope": fwd["ms_scope"], "plain_ms": fwd["plain_ms"],
-        "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
-        "roofline_share": fwd["roofline_share"], "library_ms": fwd["library_ms"],
+        "earlier_ms": fwd["earlier"],
+        "bound_ms": fwd["tf32x3_bound_ms"], "bound_by": fwd["tf32x3_bound_by"],
+        "bound_scope": "3 x the FLOP at the tf32 tensor-core peak (3xTF32, the design)",
+        "bound_fp32_cuda_cores_ms": fwd["bound_ms"],
+        "roofline_share": fwd["tf32x3_roofline_share"], "library_ms": fwd["library_ms"],
         "library_scope": "scaled_dot_product_attention, scale 1.0, no mask",
         "shape": fwd["shape"], "dtype": "f32",
         "at_other_shapes": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
-                                               "bound_by", "library_ms", "max_abs_err")}
+                                               "tf32x3_bound_ms", "library_ms", "max_abs_err",
+                                               "earlier")}
                             for key, r in fwd_rows.items() if key != WHISPER_K2_FWD[1]],
     })
-    for name, key in (("flash_bwd_dkv_f32", "dkv"), ("flash_bwd_dq_f32", "dq")):
+    for name, key in (("flash_bwd_dkv_f32_sm90", "dkv"), ("flash_bwd_dq_f32", "dq")):
         ms = bwd_row[key + "_ms"]
         outputs = ("dk", "dv") if key == "dkv" else ("dq", "delta")
-        kernels.append({
+        x3 = key == "dkv"  # the redesigned kernel's bound is 3xTF32's
+        line = {
             "name": name,
             "route": "cuda",
             "source": "wespeaker_hubert_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -3623,17 +3900,31 @@ def main():
             "launches": wl[4][key],
             "launches_scope": "stage 4 (joint fine-tuning); stages 3 and 5 run no backward",
             "max_abs_err": max(bwd_row["max_abs_err"][o] for o in outputs),
+            "max_abs_err_large_logits": {o: r["max_abs_err_vs_f64"].get(o, {}) | {
+                "vs_plain": r["max_abs_err"][o], "held_by": r["held_by"].get(o)}
+                for r in large if "held_by" in r for o in outputs},
             "ms": ms if ms is not None else bwd_row["ms"],
             "ms_scope": "profiler device time" if ms is not None
             else "the whole backward (both kernels), events",
             "plain_ms": bwd_row["plain_ms"],
             "plain_scope": "the whole plain backward (dq, dk, dv)",
-            "bound_ms": bwd_row[key + "_bound_ms"], "bound_by": bwd_row[key + "_bound_by"],
+            "bound_ms": bwd_row[key + ("_tf32x3_bound_ms" if x3 else "_bound_ms")],
+            "bound_by": bwd_row[key + ("_tf32x3_bound_by" if x3 else "_bound_by")],
+            "bound_scope": ("3 x the FLOP at the tf32 tensor-core peak (3xTF32, the design)"
+                            if x3 else "the FLOP at the float32 CUDA-core peak (the design)"),
+            ("bound_fp32_cuda_cores_ms" if x3 else "bound_tf32x3_ms"):
+                bwd_row[key + ("_bound_ms" if x3 else "_tf32x3_bound_ms")],
             "library_ms": bwd_row["library_ms"],
-            "library_scope": "scaled_dot_product_attention forward + backward, scale 1.0",
+            "library_scope": "scaled_dot_product_attention's backward alone, scale 1.0 "
+                             f"({bwd_row['sdpa']['backend']} pinned; dq, dk, dv in one fused "
+                             "kernel: " + "; ".join(bwd_row["sdpa"]["bwd_kernels"]) + ")",
+            "library_fwd_bwd_ms": bwd_row["library_fwd_bwd_ms"],
             "shape": bwd_row["shape"], "dtype": "f32",
-        })
-        kernels[-1]["roofline_share"] = kernels[-1]["bound_ms"] / kernels[-1]["ms"]
+        }
+        if x3:
+            line["earlier_ms"] = bwd_row["dkv_earlier"]
+        line["roofline_share"] = line["bound_ms"] / line["ms"]
+        kernels.append(line)
     log(json.dumps({"kernels": kernels}))
     log(f"[device] {smi}")
     log(json.dumps({"ok": True, "device": {

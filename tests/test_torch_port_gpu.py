@@ -14,7 +14,10 @@ rounds the unnormalized probabilities to bf16 before P V, the plain version
 the normalized ones).  K2's backward (dq, dk, dv, dbias) against its plain
 version: float32 atol 1e-4; bf16 cosine >= 0.9999 per gradient (the kernels
 round P and dS to bf16 as the A operand of their products), and so are the
-gate's gradient and D, which the dQ kernel forms.  WavLM's gated bias in
+gate's gradient and D, which the dQ kernel forms.  The float32 forward and
+dK/dV run 3xTF32 on wgmma; at logits scaled to max |S| = 40 a gradient that
+misses atol 1e-4 against the plain version, which is itself 1e-4 or more
+from float64 there, is held to float64 (LARGE_LOGIT_RATIO).  WavLM's gated bias in
 factored form (an (h, T, T) table, a (B, h, T) gate) at the bars above, T in
 {75, 99, 131, 499, 1599}.  Float32 embeddings cosine >= 0.99999
 against the CPU (TF32 off)."""
@@ -711,6 +714,80 @@ def test_flash_backward_whisper_shape_matches_plain(cuda, dtype):
             torch.testing.assert_close(g, w, atol=1e-4, rtol=0.0, msg=name)
         else:
             assert _cos(g, w) >= 0.9999, (name, _cos(g, w))
+
+
+F32_CASES = [
+    # (B, T, h, key lengths, max |S|): a partial last tile at T = 1,500 with a
+    # ragged key length; the logits scaled to max |S| = 40, where 3xTF32's
+    # relative error (about 2^-21 per product) is largest in absolute terms;
+    # Whisper's joint fine-tuning shape narrowed in B
+    (2, 1500, 3, [1500, 1037], None),
+    (2, 251, 4, None, 40.0),
+    (2, 251, 20, None, None),
+]
+# At max |S| = 40 the gradients reach |dK| of 30-50 and float32 itself is
+# 1e-4 or more from float64 there (the plain backward given the kernel
+# forward's out and lse as much as the kernels): a gradient that misses
+# atol 1e-4 against the plain version is held to float64 instead, at most
+# 1.25 x the plain backward's distance on the same inputs (the form of the
+# bf16 forward's f32_ratio) or 1e-4.
+LARGE_LOGIT_RATIO = 1.25
+
+
+def attention_f64(q, k, v, key_len, scale, dout):
+    """The function and its gradients in float64: out, dq, dk, dv."""
+    q, k, v, do = (x.double() for x in (q, k, v, dout))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    if key_len is not None:
+        valid = torch.arange(s.shape[-1], device=s.device)[None, :] < key_len[:, None]
+        s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    p = torch.softmax(s, -1).nan_to_num(0.0)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v)
+    delta = (out * do).sum(-1).transpose(1, 2)[..., None]
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", do, v) - delta)
+    return (out, torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale,
+            torch.einsum("bhqk,bqhd->bkhd", ds, q) * scale, torch.einsum("bhqk,bqhd->bkhd", p, do))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", F32_CASES, ids=["T1500_partial_tile", "large_logits",
+                                                 "whisper_train_B2"])
+def test_flash_f32_tf32x3_kernels_match_plain(cuda, case):
+    """The float32 forward and dK/dV kernels (3xTF32 on wgmma) and dQ against
+    their plain versions, scale 1.0 as Whisper calls them: atol 1e-4 (at max
+    |S| = 40 a gradient may instead meet LARGE_LOGIT_RATIO against float64)."""
+    b, t, h, lens, s_max = case
+    q, k, v, rng = _attn_inputs(4000 + t + h, b, t, h, torch.float32, cuda)
+    q, k = q * 64 ** -0.25, k * 64 ** -0.25  # as the encoder scales them
+    if s_max is not None:  # q and k scaled alike to max |q k^T| = s_max
+        peak = float(torch.einsum("bqhd,bkhd->bhqk", q, k).abs().max())
+        q, k = q * (s_max / peak) ** 0.5, k * (s_max / peak) ** 0.5
+    key_len = None if lens is None else torch.tensor(lens, device=cuda)
+    launches = k2.LAUNCHES
+    out, lse = k2.flash_attention_fwd(q, k, v, None, key_len, 1.0, return_lse=True)
+    torch.cuda.synchronize()
+    assert k2.LAUNCHES == launches + 1
+    want, lse_ref = k2.flash_attention_reference(q, k, v, None, key_len, 1.0, return_lse=True)
+    torch.testing.assert_close(out, want, atol=1e-4, rtol=0.0)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0.0)
+    dout = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32)).to(cuda)
+    got = k2.flash_attention_bwd(q, k, v, None, key_len, 1.0, out, lse, dout)
+    torch.cuda.synchronize()
+    ref = k2.flash_attention_bwd_reference(q, k, v, None, key_len, 1.0, out, lse, dout)
+    exact = dict(zip(("out", "dq", "dk", "dv"), attention_f64(q, k, v, key_len, 1.0, dout)))
+    for name in ("dq", "dk", "dv", "delta"):
+        g, w = getattr(got, name), getattr(ref, name)
+        assert bool(torch.isfinite(g).all()), name
+        err = float((g - w).abs().max())
+        if err > 1e-4 and s_max is not None and name != "delta":
+            err64 = float((g.double() - exact[name]).abs().max())
+            plain64 = float((w.double() - exact[name]).abs().max())
+            assert err64 <= max(1e-4, LARGE_LOGIT_RATIO * plain64), (name, err, err64, plain64)
+        else:
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=0.0, msg=name)
+    if lens is not None:  # keys past key_len: dK = dV = 0
+        assert float(got.dk[1, lens[1]:].abs().max()) == 0.0
+        assert float(got.dv[1, lens[1]:].abs().max()) == 0.0
 
 
 @pytest.mark.cuda

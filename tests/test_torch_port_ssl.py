@@ -239,6 +239,59 @@ def test_flash_plain_broadcast_bias_and_empty_rows():
     assert float(out[0].abs().max()) == 0.0 and bool(torch.isfinite(out).all())
 
 
+def _tf32(x):
+    """float32 rounded to tf32 (10 mantissa bits), to nearest with ties away
+    from zero, as cvt.rna.tf32.f32 rounds: by bit masking."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the float32 kernels form it: each operand split into tf32 hi
+    and lo; the passes lo x hi, hi x lo, hi x hi, each in k8 steps (an
+    exact product of tf32 values) added in order into one float32
+    accumulator, as wgmma accumulates."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    for x, y in ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)):
+        steps = torch.einsum("hqcj,hcjk->chqk", x.double().unflatten(-1, (-1, 8)),
+                             y.double().unflatten(-2, (-1, 8))).float()
+        for step in steps:
+            acc = acc + step
+    return acc
+
+
+@pytest.mark.parametrize("part", ["forward", "dkv"])
+def test_flash_f32_tf32x3_split_error(part):
+    """The float32 K2 kernels' arithmetic (3xTF32, csrc/flash_sm90.cuh)
+    emulated on softmax(q k^T) v and its dK, dV at max |S| = 40 (scale 1.0,
+    Whisper's convention), where the split's relative error of about 2^-21
+    per product is largest in absolute terms: within the kernels' bar, atol
+    1e-4, of float64 (softmax and D in float32, as the kernels take them)."""
+    rng = np.random.default_rng(21)
+    q, k, v, do = (rng.standard_normal((2, 96, 64)) for _ in range(4))  # (h, T, 64)
+    s64 = q @ k.transpose(0, 2, 1)
+    q, k = q * (40.0 / np.abs(s64).max()) ** 0.5, k * (40.0 / np.abs(s64).max()) ** 0.5
+    q32, k32, v32, do32 = (torch.from_numpy(x.astype(np.float32)) for x in (q, k, v, do))
+    q, k, v, do = (torch.from_numpy(x.astype(np.float32)).double() for x in (q, k, v, do))
+    s = _mm_3xtf32(q32, k32.transpose(1, 2))
+    assert abs(float(s.abs().max()) - 40.0) < 1e-3
+    lse = torch.logsumexp(s, -1, keepdim=True)
+    p = torch.exp(s - lse)
+    p64 = torch.softmax(q @ k.transpose(1, 2), -1)
+    out = _mm_3xtf32(p, v32)
+    out64 = p64 @ v
+    if part == "forward":
+        torch.testing.assert_close(out.double(), out64, atol=1e-4, rtol=0.0)
+        return
+    delta = (out * do32).sum(-1, keepdim=True)
+    ds = p * (_mm_3xtf32(do32, v32.transpose(1, 2)) - delta)
+    dv, dk = _mm_3xtf32(p.transpose(1, 2), do32), _mm_3xtf32(ds.transpose(1, 2), q32)
+    ds64 = p64 * (do @ v.transpose(1, 2) - (out64 * do).sum(-1, keepdim=True))
+    torch.testing.assert_close(dv.double(), p64.transpose(1, 2) @ do, atol=1e-4, rtol=0.0)
+    torch.testing.assert_close(dk.double(), ds64.transpose(1, 2) @ q, atol=1e-4, rtol=0.0)
+
+
 def test_flash_kernel_checks_refuse():
     q, k, v, bias, key_len = (torch.from_numpy(x) for x in _qkv(6, t=20))
     bias16 = bias.to(torch.bfloat16)

@@ -43,10 +43,39 @@
 //     per T (ops/flash_attention.py:key_tile) and passes it as `tile`: 80
 //     when all keys fit one tile (T <= 80, the training shape T = 75), else
 //     64 (128-byte bias rows, swizzled like the other tiles).
-// f32 design (flash_fwd_f32, the checking path): one thread per query row
-// (q row and output row in registers), 32 keys per tile read as
-// shared-memory broadcasts, FP32 FMA (no TF32: the JAX flash path does not
-// round to TF32); bias and gate read through their strides.
+// f32 design (flash_fwd_f32_sm90): 3xTF32 on wgmma, for float32 accuracy
+// with TF32 off (the JAX flash path does not round to TF32).  Whisper-large-v2
+// at (16, 1500, 20) does 1.84e11 FLOP: 2.75 ms on the CUDA cores' 67 TFLOP/s,
+// 1.12 ms as three tf32 products at 495 TFLOP/s, against 0.15 ms of bytes,
+// so the operations bound it; the earlier design (one thread per query row,
+// FP32 FMA) ran at 0.26 of the CUDA-core bound and at half SDPA's speed.
+// Every operand x is split into tf32 hi + lo (flash_sm90.cuh) and each
+// product is the three wgmma passes lo x hi, hi x lo, hi x hi.
+//   - One block per (128-query tile, head, batch row): two consumer
+//     warpgroups of 64 rows each, one producer warp keeping a 2-stage TMA
+//     ring of raw float32 K and V tiles (64 keys; each tile two boxes of 32
+//     columns, 128B-swizzled).  Q is loaded once and split in place (hi)
+//     and into a lo tile.
+//   - The split pass: both warpgroups turn the stage's raw K into hi / lo
+//     tiles of the same layout and raw V into hi / lo tiles of V^T (64 rows
+//     of d x 64 keys), since wgmma takes tf32 B operands K-major only; the
+//     keys of each 8-key step are permuted (perm8) so that P goes from the
+//     scores' accumulator to wgmma's A registers as it lies.  The stage is
+//     released, and one barrier of the 256 consumers precedes the products.
+//   - S = Q K^T runs as 3 x 8 wgmma m64n64k8 from shared memory; the online
+//     softmax is float32 in registers (log2 domain); P is split in
+//     registers and O += P V runs as 3 x 8 wgmma with P from registers.  A
+//     second barrier keeps the split tiles until both warpgroups' products
+//     are done.
+//   - The bias (anything broadcasting to (B, h, T, T), or the factored table
+//     and gate, whose product is taken in float32) is read with plain loads
+//     through its strides: it is off Whisper's path, and an f32 bias row of
+//     odd T is no 16-byte stride for TMA, so nothing is padded or copied.
+//   - Keys at or past key_len are masked, tiles past it are not loaded; rows
+//     and keys past T arrive as zeros and rows past T are not written.  The
+//     output and lse leave by plain stores (float2 per thread and row).
+// Shared memory: Q hi / lo 64 KB, the raw ring 64 KB, K and V^T hi / lo
+// 64 KB: 192 KB, one block per SM.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -60,8 +89,7 @@ namespace {
 using namespace sm90;
 
 constexpr int HD = 64;       // head dim, the kernels' only one
-constexpr int BM = 64;       // query rows per block
-constexpr int BN_F32 = 32;   // keys per shared-memory tile, f32
+constexpr int BM = 64;       // query rows per block (bf16), per warpgroup (f32)
 
 // ------------------------------------------------------------------- bf16
 struct FwdParams {
@@ -268,124 +296,239 @@ __global__ void __launch_bounds__(160) flash_fwd_bf16_sm90(const __grid_constant
 }
 
 // -------------------------------------------------------------------- f32
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* bias;     // null: no bias
-  const void* gate;     // null: the bias is used as it is
+struct F32Params {
+  CUtensorMap tq, tk, tv;
+  const float* bias;    // null: no bias; else read through its strides
+  const float* gate;    // null: the bias is used as it is
   const int* key_len;   // null: every key is valid
-  void* out;
+  float* out;
   float* lse;           // null: not written; else (B, h, T) row log-sum-exp
-  // element strides of the (B, T, h) axes; the head dim is contiguous
-  long long q_sb, q_st, q_sh;
-  long long k_sb, k_st, k_sh;
-  long long v_sb, v_st, v_sh;
   long long o_sb, o_st, o_sh;
   // element strides of the bias over (B, h, query, key); 0 broadcasts
   long long bias_sb, bias_sh, bias_sq, bias_sk;
   long long gate_sb, gate_sh, gate_st;
-  int T;
+  int T, H;
   float scale;
 };
 
-__global__ void __launch_bounds__(BM) flash_fwd_f32(const Params p) {
-  __shared__ __align__(16) float sk[BN_F32 * HD];
-  __shared__ __align__(16) float sv[BN_F32 * HD];
+struct F32Tile {
+  static constexpr int NWG = 2;               // consumer warpgroups, 64 rows each
+  static constexpr int NT = 128 * NWG;        // consumer threads
+  static constexpr int BMQ = BM * NWG;        // query rows per block
+  static constexpr int BN = 64;               // keys per tile
+  static constexpr int Q_BYTES = BMQ * HD * 4;  // Q hi or lo: two chunks of BMQ x 128 B
+  static constexpr int KV_BYTES = BN * HD * 4;  // a K or V tile, raw or split: 16 KB
+  static constexpr int STAGES = 2;
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;  // raw K, then raw V
+  static constexpr int SMEM = 1024 + 2 * Q_BYTES + STAGES * STAGE_BYTES + 4 * KV_BYTES;
+};
 
-  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int t = q0 + tid;
+__global__ void __launch_bounds__(F32Tile::NT + 32, 1)
+    flash_fwd_f32_sm90(const __grid_constant__ F32Params p) {
+  using C = F32Tile;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[C::STAGES], empty_bar[C::STAGES], q_bar;
+  uint8_t* const qhi = align1024(smem_raw);   // Q as loaded, then its hi part
+  uint8_t* const qlo = qhi + C::Q_BYTES;
+  uint8_t* const ring = qlo + C::Q_BYTES;
+  uint8_t* const khi = ring + C::STAGES * C::STAGE_BYTES;
+  uint8_t* const klo = khi + C::KV_BYTES;
+  uint8_t* const vthi = klo + C::KV_BYTES;    // V^T: 64 rows of d x 64 keys
+  uint8_t* const vtlo = vthi + C::KV_BYTES;
+
+  const int q0 = blockIdx.x * C::BMQ, h = blockIdx.y, b = blockIdx.z;
   const int T = p.T;
   const int kv_len = p.key_len == nullptr ? T : min(max(p.key_len[b], 0), T);
-  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const float* bias = static_cast<const float*>(p.bias);
-  if (bias != nullptr) bias += b * p.bias_sb + h * p.bias_sh + min(t, T - 1) * p.bias_sq;
-  const float gate = p.gate == nullptr ? 1.f
-      : static_cast<const float*>(p.gate)[b * p.gate_sb + h * p.gate_sh + min(t, T - 1) * p.gate_st];
+  const int n_tiles = (kv_len + C::BN - 1) / C::BN;
 
-  float qr[HD], o[HD];
-#pragma unroll
-  for (int d = 0; d < HD; d += 4) {
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (t < T) x = *reinterpret_cast<const float4*>(q + t * p.q_st + d);
-    qr[d] = x.x;
-    qr[d + 1] = x.y;
-    qr[d + 2] = x.z;
-    qr[d + 3] = x.w;
-    o[d] = o[d + 1] = o[d + 2] = o[d + 3] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(&q_bar, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full_bar[s], 1);
+      mbar_init(&empty_bar[s], C::NT);
+    }
+    fence_barrier_init();
   }
-  float m = -CUDART_INF_F, l = 0.f;
+  __syncthreads();
 
-  for (int k0 = 0; k0 < kv_len; k0 += BN_F32) {
-    __syncthreads();
-    for (int c = tid; c < BN_F32 * HD / 4; c += blockDim.x) {
-      const int r = c / (HD / 4), col = (c % (HD / 4)) * 4;
-      float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
-      if (k0 + r < T) {
-        kk = *reinterpret_cast<const float4*>(k + (k0 + r) * p.k_st + col);
-        vv = *reinterpret_cast<const float4*>(v + (k0 + r) * p.v_st + col);
+  if (threadIdx.x >= C::NT) {  // the producer warp; one lane issues the copies
+    if (threadIdx.x == C::NT) {
+      prefetch_map(&p.tq);
+      prefetch_map(&p.tk);
+      prefetch_map(&p.tv);
+      mbar_arrive_expect_tx(&q_bar, C::Q_BYTES);
+      for (int kc = 0; kc < 2; ++kc)
+        tma_load_4d(qhi + kc * C::BMQ * 128, &p.tq, &q_bar, 32 * kc, h, q0, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % C::STAGES;
+        uint8_t* st = ring + s * C::STAGE_BYTES;
+        mbar_wait(&empty_bar[s], ((i / C::STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full_bar[s], C::STAGE_BYTES);
+        for (int kc = 0; kc < 2; ++kc) {
+          tma_load_4d(st + kc * C::BN * 128, &p.tk, &full_bar[s], 32 * kc, h, i * C::BN, b);
+          tma_load_4d(st + C::KV_BYTES + kc * C::BN * 128, &p.tv, &full_bar[s], 32 * kc, h,
+                      i * C::BN, b);
+        }
       }
-      *reinterpret_cast<float4*>(sk + r * HD + col) = kk;
-      *reinterpret_cast<float4*>(sv + r * HD + col) = vv;
     }
-    __syncthreads();
+    return;
+  }
 
-    float s[BN_F32];
-    float mx = m;
+  // ---- the consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63; a thread
+  // rows r0 and r0 + 8 of them
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  const int r0 = wg * BM + warp * 16 + g;
+  const float* brow[2] = {nullptr, nullptr};  // this thread's rows of the bias
+  float gate[2] = {1.f, 1.f};
+  if (p.bias != nullptr) {
 #pragma unroll
-    for (int j = 0; j < BN_F32; ++j) {
-      float acc = 0.f;
-#pragma unroll
-      for (int d = 0; d < HD; d += 4) {
-        const float4 kk = *reinterpret_cast<const float4*>(sk + j * HD + d);
-        acc = fmaf(qr[d], kk.x, acc);
-        acc = fmaf(qr[d + 1], kk.y, acc);
-        acc = fmaf(qr[d + 2], kk.z, acc);
-        acc = fmaf(qr[d + 3], kk.w, acc);
-      }
-      const int key = k0 + j;
-      float x = -CUDART_INF_F;
-      if (key < kv_len) {
-        x = acc * p.scale;
-        if (bias != nullptr) x += gate * bias[key * p.bias_sk];
-      }
-      s[j] = x;
-      mx = fmaxf(mx, x);  // key k0 is valid: finite
-    }
-    const float alpha = expf(m - mx);  // 0 on the first tile
-    m = mx;
-    l *= alpha;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) o[d] *= alpha;
-#pragma unroll
-    for (int j = 0; j < BN_F32; ++j) {
-      const float pj = expf(s[j] - mx);
-      l += pj;
-#pragma unroll
-      for (int d = 0; d < HD; d += 4) {
-        const float4 vv = *reinterpret_cast<const float4*>(sv + j * HD + d);
-        o[d] = fmaf(pj, vv.x, o[d]);
-        o[d + 1] = fmaf(pj, vv.y, o[d + 1]);
-        o[d + 2] = fmaf(pj, vv.z, o[d + 2]);
-        o[d + 3] = fmaf(pj, vv.w, o[d + 3]);
-      }
+    for (int ii = 0; ii < 2; ++ii) {
+      const int t = min(q0 + r0 + 8 * ii, T - 1);
+      brow[ii] = p.bias + b * p.bias_sb + h * p.bias_sh + t * p.bias_sq;
+      if (p.gate != nullptr) gate[ii] = p.gate[b * p.gate_sb + h * p.gate_sh + t * p.gate_st];
     }
   }
 
-  if (p.lse != nullptr && t < T)
-    p.lse[((long long)b * gridDim.y + h) * T + t] = l > 0.f ? m + logf(l) : -CUDART_INF_F;
-  if (t < T) {
-    const float inv = l > 0.f ? 1.f / l : 0.f;  // no valid key: 0
-    float* out = static_cast<float*>(p.out) + b * p.o_sb + h * p.o_sh + t * p.o_st;
+  float o[32];
 #pragma unroll
-    for (int d = 0; d < HD; d += 4) {
-      *reinterpret_cast<float4*>(out + d) =
-          make_float4(o[d] * inv, o[d + 1] * inv, o[d + 2] * inv, o[d + 3] * inv);
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l[2] = {0.f, 0.f};
+  const float scale2 = p.scale * LOG2E;  // scores in the log2 domain
+  const uint32_t qrows = wg * BM * 128;   // this warpgroup's rows in each Q chunk
+
+  mbar_wait(&q_bar, 0);
+  split_tile(qhi, qhi, qlo, C::Q_BYTES / 16, tid, C::NT);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % C::STAGES;
+    const uint8_t* st = ring + s * C::STAGE_BYTES;
+    mbar_wait(&full_bar[s], (i / C::STAGES) & 1);
+    split_tile(st, khi, klo, C::KV_BYTES / 16, tid, C::NT);
+    split_transposed<C::BN>(st + C::KV_BYTES, vthi, vtlo, tid, C::NT);
+    mbar_arrive(&empty_bar[s]);
+    fence_proxy_async();  // the split tiles, written by threads, read by wgmma
+    named_barrier(1, C::NT);
+
+    // S = Q K^T (64 x 64): lo x hi, hi x lo, hi x hi, 8 k8 steps each
+    float sacc[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) sacc[j] = 0.f;
+    fence_regs(sacc);
+    wgmma_fence();
+#pragma unroll
+    for (int term = 0; term < 3; ++term) {
+      const uint8_t* a = (term == 0 ? qlo : qhi) + qrows;
+      const uint8_t* kb = term == 1 ? klo : khi;
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks)
+        wgmma_tf32_ss<64>(sacc, desc_k(a + (ks >> 2) * C::BMQ * 128) + (ks & 3) * K_STEP,
+                          desc_k(kb + (ks >> 2) * C::BN * 128) + (ks & 3) * K_STEP);
     }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(sacc);
+
+    // scale, bias and key mask; the tile's row max
+    const int k0 = i * C::BN;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ii = e >> 1;
+        const int key = k0 + 8 * j + c2 + (e & 1);
+        float x = -CUDART_INF_F;
+        if (key < kv_len) {
+          x = sacc[4 * j + e] * scale2;
+          if (brow[ii] != nullptr) x = fmaf(gate[ii] * brow[ii][key * p.bias_sk], LOG2E, x);
+        }
+        sacc[4 * j + e] = x;
+        mx[ii] = fmaxf(mx[ii], x);
+      }
+    }
+    // a row's columns are spread over the 4 lanes of its quad; key k0 is
+    // valid, so the max is finite
+#pragma unroll
+    for (int ii = 0; ii < 2; ++ii) {
+      mx[ii] = fmaxf(mx[ii], __shfl_xor_sync(0xffffffffu, mx[ii], 1));
+      mx[ii] = fmaxf(mx[ii], __shfl_xor_sync(0xffffffffu, mx[ii], 2));
+      const float alpha = exp2f(m[ii] - mx[ii]);  // 0 on the first tile
+      m[ii] = mx[ii];
+      l[ii] *= alpha;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        o[4 * j + 2 * ii] *= alpha;
+        o[4 * j + 2 * ii + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      sacc[j] = exp2f(sacc[j] - m[(j >> 1) & 1]);
+      l[(j >> 1) & 1] += sacc[j];  // this lane's part of the row sum
+    }
+
+    // O += P V: P split in registers, V^T (hi, lo) as the K-major B
+    uint32_t ph[8][4], pl[8][4];
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) acc_to_a_tf32(ph[ks], pl[ks], sacc, ks);
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks)
+      wgmma_tf32_rs64(o, pl[ks], desc_k(vthi + (ks >> 2) * C::BN * 128) + (ks & 3) * K_STEP);
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks)
+      wgmma_tf32_rs64(o, ph[ks], desc_k(vtlo + (ks >> 2) * C::BN * 128) + (ks & 3) * K_STEP);
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks)
+      wgmma_tf32_rs64(o, ph[ks], desc_k(vthi + (ks >> 2) * C::BN * 128) + (ks & 3) * K_STEP);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(o);
+    fence_regs(ph);
+    fence_regs(pl);
+    named_barrier(1, C::NT);  // both warpgroups are done with the split tiles
   }
+
+#pragma unroll
+  for (int ii = 0; ii < 2; ++ii) {
+    l[ii] += __shfl_xor_sync(0xffffffffu, l[ii], 1);
+    l[ii] += __shfl_xor_sync(0xffffffffu, l[ii], 2);
+    const float inv = l[ii] > 0.f ? 1.f / l[ii] : 0.f;  // no valid key: 0
+    const int t = q0 + r0 + 8 * ii;
+    if (t >= T) continue;
+    // m is in the log2 domain; one lane of the quad writes the row's value
+    if (p.lse != nullptr && (lane & 3) == 0)
+      p.lse[((long long)b * p.H + h) * T + t] =
+          l[ii] > 0.f ? (m[ii] + log2f(l[ii])) / LOG2E : -CUDART_INF_F;
+    float* orow = p.out + b * p.o_sb + h * p.o_sh + t * p.o_st;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<float2*>(orow + 8 * j + c2) =
+          make_float2(o[4 * j + 2 * ii] * inv, o[4 * j + 2 * ii + 1] * inv);
+  }
+}
+
+int launch_f32(F32Params& p, const void* q, const void* k, const void* v, int B, int T, int H,
+               const long long* s, cudaStream_t stream) {
+  using C = F32Tile;
+  int rc = sm90_host::encode_rows_f32(&p.tq, q, B, T, H, s + 0, C::BMQ);
+  if (rc == 0) rc = sm90_host::encode_rows_f32(&p.tk, k, B, T, H, s + 3, C::BN);
+  if (rc == 0) rc = sm90_host::encode_rows_f32(&p.tv, v, B, T, H, s + 6, C::BN);
+  if (rc != 0) return rc;
+  static bool smem_set[sm90_host::MAX_DEVICES] = {};  // per device
+  const int dev = sm90_host::current_device();
+  if (dev < 0) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!smem_set[dev]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_f32_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set[dev] = true;
+  }
+  const dim3 grid((T + C::BMQ - 1) / C::BMQ, H, B);
+  flash_fwd_f32_sm90<<<grid, C::NT + 32, C::SMEM, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int BN>
@@ -423,12 +566,13 @@ extern "C" {
 // query).  bias, gate and key_len (B int32) may be null; with a gate the
 // effective bias is round(gate * bias).  lse may be null, or a contiguous
 // (B, H, T) float32 output of each row's log-sum-exp (natural log) for the
-// backward.  bf16 needs what TMA takes: 16-byte aligned bases, strides of
-// multiples of 8 elements, the bias's key stride 1 and its b and h strides
-// 0 or multiples of 8.  `tile` is the bf16 kernel's key-tile width, 64 or 80
-// (ops/flash_attention.py:key_tile picks it per T); float32 ignores it.
-// Launches on `stream` and returns cudaGetLastError() or an encoding error
-// (flash_attention_error_string).
+// backward.  q, k, v need what TMA takes: 16-byte aligned bases and
+// strides of multiples of 16 bytes; a bf16 bias also a key stride 1 and b
+// and h strides 0 or multiples of 8 (the float32 kernel reads the bias and
+// gate through any strides).  `tile` is the bf16 kernel's key-tile width,
+// 64 or 80 (ops/flash_attention.py:key_tile picks it per T); float32
+// ignores it.  Launches on `stream` and returns cudaGetLastError() or an
+// encoding error (flash_attention_error_string).
 int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                         const void* bias, const void* gate, const int* key_len, void* out,
                         float* lse, int B, int T, int H, const long long* strides, float scale,
@@ -454,24 +598,12 @@ int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
-  Params p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.bias = bias;
-  p.gate = bias != nullptr ? gate : nullptr;
+  F32Params p;
+  p.bias = static_cast<const float*>(bias);
+  p.gate = static_cast<const float*>(bias != nullptr ? gate : nullptr);
   p.key_len = key_len;
-  p.out = out;
+  p.out = static_cast<float*>(out);
   p.lse = lse;
-  p.q_sb = strides[0];
-  p.q_st = strides[1];
-  p.q_sh = strides[2];
-  p.k_sb = strides[3];
-  p.k_st = strides[4];
-  p.k_sh = strides[5];
-  p.v_sb = strides[6];
-  p.v_st = strides[7];
-  p.v_sh = strides[8];
   p.o_sb = strides[9];
   p.o_st = strides[10];
   p.o_sh = strides[11];
@@ -483,10 +615,9 @@ int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
   p.gate_sh = strides[17];
   p.gate_st = strides[18];
   p.T = T;
+  p.H = H;
   p.scale = scale;
-  const dim3 grid((T + BM - 1) / BM, H, B);
-  flash_fwd_f32<<<grid, BM, 0, s>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return launch_f32(p, q, k, v, B, T, H, strides, s);
 }
 
 const char* flash_attention_error_string(int code) {

@@ -79,12 +79,29 @@
 // bias block is read transposed from shared memory (128B-swizzled rows of 64
 // keys: the four query rows a load touches fall on distinct banks).  dK and
 // dV go out by TMA stores through shared memory.
-// f32 (the checking path): one thread per row of the block's tile, FP32 FMA
-// (no TF32); the thread's own q / dO (or k / v) row in padded shared memory,
-// the other side's tile read as shared-memory broadcasts; the dQ kernel
-// writes D and the gate's gradient as the bf16 one does.  Every version is
-// held against the plain PyTorch backward
-// (ops/flash_attention.py:flash_attention_bwd_reference).
+// dK/dV, f32 (flash_bwd_dkv_f32_sm90): 3xTF32 on wgmma (flash_sm90.cuh), for
+// float32 accuracy with TF32 off.  Whisper's joint fine-tuning (16, 251, 20)
+// needs 1.03e10 FLOP: 0.154 ms on the CUDA cores, 0.063 ms as three tf32
+// products at 495 TFLOP/s, against 0.037 ms of bytes: the operations bound
+// it.  One block per (64-key tile, head, batch row): a consumer warpgroup
+// owns the 64 keys, a producer warp loads K and V once (by TMA, split in
+// place into hi and lo) and query tiles of 32 rows of Q and dO into a
+// 2-stage ring, with each row's lse (log2) and D and gate in the same stage.
+// The split pass writes Q and dO hi / lo as loaded (the B operands of
+// S^T = K Q^T and dP^T = V dO^T) and transposed (64 rows of d x 32 queries,
+// permuted per perm8: the B operands of dV += P^T dO and dK += dS^T Q, which
+// contract over queries); then the stage is released.  Each product runs as
+// the three wgmma passes lo x hi, hi x lo, hi x hi; P^T and dS^T are split
+// in registers as the A operands.  32 query rows per stage keep shared
+// memory at 163 KB (64 rows would need 128 KB of split query tiles alone).
+// The bias and gate are read with plain loads through their strides (off
+// Whisper's path).  dK and dV leave by plain float2 stores; a key tile wholly
+// past key_len writes zeros and loads nothing.
+// dQ, f32 (the checking path): one thread per query row, FP32 FMA (no
+// TF32); the thread's own q / dO row in padded shared memory, the key tile
+// read as shared-memory broadcasts; it writes D and the gate's gradient as
+// the bf16 one does.  Every version is held against the plain PyTorch
+// backward (ops/flash_attention.py:flash_attention_bwd_reference).
 
 #include <algorithm>
 #include <cstdint>
@@ -98,11 +115,12 @@ namespace {
 
 constexpr int HD = 64;       // head dim, the kernel's only one
 constexpr int BM = 64;       // rows (queries or keys) per block
-constexpr int F32_TILE = 16; // the other side's rows per shared tile, f32
+constexpr int F32_TILE = 16; // the other side's rows per shared tile, f32 dQ
 constexpr int LDF = HD + 1;  // f32 row stride of a thread's own row: the
                              // 32 rows a warp reads fall on distinct banks
 constexpr float LOG2E = 1.4426950408889634f;
 
+// the float32 dQ kernel's arguments
 struct Params {
   const void* q;
   const void* k;
@@ -115,8 +133,6 @@ struct Params {
   const float* lse;     // (B, H, T), natural log
   float* delta;         // (B, H, T), rowsum(out * dout): dQ writes it, dK/dV reads it
   void* dq;             // (B, T, H, 64) contiguous
-  void* dk;
-  void* dv;
   void* dbias;          // null: not written; else (B, H, T, ds_stride) contiguous
   void* dgate;          // null: not written; else (B, H, T) contiguous
   long long q_sb, q_st, q_sh;
@@ -156,96 +172,265 @@ __device__ __forceinline__ long long stat_row(const Params& p, int b, int h, int
   return (static_cast<long long>(b) * p.H + h) * p.T + t;
 }
 
-// f32, dK / dV: thread tid owns key k0 + tid; its k and v rows sit in padded
-// shared memory, dK and dV in registers; query tiles of F32_TILE rows are
-// read as broadcasts
-__global__ void __launch_bounds__(BM) flash_bwd_dkv_f32(const Params p) {
-  __shared__ float sk[BM * LDF], sv[BM * LDF];
-  __shared__ __align__(16) float sq[F32_TILE * HD], sdo[F32_TILE * HD];
-  __shared__ float slse[F32_TILE], sdelta[F32_TILE], sgate[F32_TILE];
+// ------------------------------------------------ dK / dV, f32 (3xTF32 wgmma)
+struct DkvF32Params {
+  CUtensorMap tq, tk, tv, tdo;
+  const float* bias;    // null: no bias; else read through its strides
+  const float* gate;    // null: the bias is used as it is
+  const int* key_len;   // null: every key is valid
+  const float* lse;     // (B, H, T), natural log
+  const float* delta;   // (B, H, T)
+  float* dk;            // (B, T, H, 64) contiguous
+  float* dv;
+  long long bias_sb, bias_sh, bias_sq, bias_sk;
+  long long gate_sb, gate_sh, gate_st;
+  int T, H;
+  float scale;
+};
+
+struct DkvF32Tile {
+  static constexpr int BQ = 32;                 // query rows per stage
+  static constexpr int KV_BYTES = BM * HD * 4;  // K or V (64 keys), hi or lo: 16 KB
+  static constexpr int QT_BYTES = BQ * HD * 4;  // a query tile of Q or dO, any layout: 8 KB
+  static constexpr int STAT_BYTES = 1024;       // lse (log2), D, gate: 3 x BQ floats
+  static constexpr int STAGES = 2;
+  static constexpr int STAGE_BYTES = 2 * QT_BYTES + STAT_BYTES;  // raw Q, raw dO, statistics
+  static constexpr int SMEM = 1024 + 4 * KV_BYTES + STAGES * STAGE_BYTES + 8 * QT_BYTES;
+};
+
+__global__ void __launch_bounds__(160, 1)
+    flash_bwd_dkv_f32_sm90(const __grid_constant__ DkvF32Params p) {
+  using C = DkvF32Tile;
+  using sm90::desc_k;
+  using sm90::K_STEP;
+  using sm90::wgmma_tf32_rs64;
+  static_assert(3 * C::BQ * 4 <= C::STAT_BYTES, "row statistics overflow their slot");
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[C::STAGES], empty_bar[C::STAGES], kv_bar;
+  uint8_t* const khi = sm90::align1024(smem_raw);  // K as loaded, then its hi part
+  uint8_t* const klo = khi + C::KV_BYTES;
+  uint8_t* const vhi = klo + C::KV_BYTES;
+  uint8_t* const vlo = vhi + C::KV_BYTES;
+  uint8_t* const ring = vlo + C::KV_BYTES;
+  uint8_t* const qhi = ring + C::STAGES * C::STAGE_BYTES;
+  uint8_t* const qlo = qhi + C::QT_BYTES;
+  uint8_t* const qthi = qlo + C::QT_BYTES;   // Q^T: 64 rows of d x 32 queries
+  uint8_t* const qtlo = qthi + C::QT_BYTES;
+  uint8_t* const dohi = qtlo + C::QT_BYTES;
+  uint8_t* const dolo = dohi + C::QT_BYTES;
+  uint8_t* const dothi = dolo + C::QT_BYTES;
+  uint8_t* const dotlo = dothi + C::QT_BYTES;
 
   const int k0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, key = k0 + tid;
   const int T = p.T;
-  const int kv_len = valid_keys(p, b);
-  float dk[HD], dv[HD];
-#pragma unroll
-  for (int d = 0; d < HD; ++d) dk[d] = dv[d] = 0.f;
+  const int kv_len = p.key_len == nullptr ? T : min(max(p.key_len[b], 0), T);
+  const int n_q = (T + C::BQ - 1) / C::BQ;
 
-  if (k0 < kv_len) {
-    const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
-    const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-    const float* dout = static_cast<const float*>(p.dout) + b * p.o_sb + h * p.o_sh;
-    const float* bias = static_cast<const float*>(p.bias);
-    if (bias != nullptr) bias += b * p.bias_sb + h * p.bias_sh + min(key, T - 1) * p.bias_sk;
-    for (int c = tid; c < BM * HD / 4; c += blockDim.x) {
-      const int r = c / (HD / 4), col = (c % (HD / 4)) * 4;
-      float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
-      if (k0 + r < T) {
-        kk = *reinterpret_cast<const float4*>(k + (k0 + r) * p.k_st + col);
-        vv = *reinterpret_cast<const float4*>(v + (k0 + r) * p.v_st + col);
-      }
-      float* kd = sk + r * LDF + col;
-      float* vd = sv + r * LDF + col;
-      kd[0] = kk.x; kd[1] = kk.y; kd[2] = kk.z; kd[3] = kk.w;
-      vd[0] = vv.x; vd[1] = vv.y; vd[2] = vv.z; vd[3] = vv.w;
+  if (k0 >= kv_len) {  // every key of the tile is masked: dK = dV = 0
+    for (int u = threadIdx.x; u < BM * HD / 4; u += blockDim.x) {
+      const int key = k0 + u / (HD / 4), col = (u % (HD / 4)) * 4;
+      if (key >= T) break;
+      const long long off = ((static_cast<long long>(b) * T + key) * p.H + h) * HD + col;
+      *reinterpret_cast<float4*>(p.dk + off) = make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(p.dv + off) = make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    const float* kr = sk + tid * LDF;
-    const float* vr = sv + tid * LDF;
-    const bool valid = key < kv_len;
-
-    for (int q0 = 0; q0 < T; q0 += F32_TILE) {
-      __syncthreads();
-      for (int c = tid; c < F32_TILE * HD / 4; c += blockDim.x) {
-        const int r = c / (HD / 4), col = (c % (HD / 4)) * 4;
-        float4 qq = make_float4(0.f, 0.f, 0.f, 0.f), oo = qq;
-        if (q0 + r < T) {
-          qq = *reinterpret_cast<const float4*>(q + (q0 + r) * p.q_st + col);
-          oo = *reinterpret_cast<const float4*>(dout + (q0 + r) * p.o_st + col);
-        }
-        *reinterpret_cast<float4*>(sq + r * HD + col) = qq;
-        *reinterpret_cast<float4*>(sdo + r * HD + col) = oo;
-      }
-      for (int r = tid; r < F32_TILE; r += blockDim.x) {
-        const bool in = q0 + r < T;
-        slse[r] = in ? p.lse[stat_row(p, b, h, q0 + r)] : -CUDART_INF_F;
-        sdelta[r] = in ? p.delta[stat_row(p, b, h, q0 + r)] : 0.f;
-        sgate[r] = in ? gate_of<float>(p, b, h, q0 + r) : 1.f;
-      }
-      __syncthreads();
-      if (!valid) continue;  // a masked key: P = 0 for every query
-      for (int j = 0; j < F32_TILE; ++j) {
-        const float lse = slse[j];
-        if (lse == -CUDART_INF_F) continue;  // past T or an empty row
-        const float* qj = sq + j * HD;
-        const float* oj = sdo + j * HD;
-        float s = 0.f, dp = 0.f;
-#pragma unroll
-        for (int d = 0; d < HD; ++d) {
-          s = fmaf(kr[d], qj[d], s);
-          dp = fmaf(vr[d], oj[d], dp);
-        }
-        float x = s * p.scale;
-        if (bias != nullptr) x += sgate[j] * bias[(q0 + j) * p.bias_sq];
-        const float pr = expf(x - lse);
-        const float ds = pr * (dp - sdelta[j]);
-#pragma unroll
-        for (int d = 0; d < HD; ++d) {
-          dv[d] = fmaf(pr, oj[d], dv[d]);
-          dk[d] = fmaf(ds, qj[d], dk[d]);
-        }
-      }
-    }
+    return;
   }
-  if (key < T) {
-    float* dkr = static_cast<float*>(p.dk) + out_row(p, b, key, h);
-    float* dvr = static_cast<float*>(p.dv) + out_row(p, b, key, h);
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&kv_bar, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      sm90::mbar_init(&full_bar[s], 1 + 32);  // the copies' bytes + the warp's statistics
+      sm90::mbar_init(&empty_bar[s], 128);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // the producer warp: lane 0 issues the copies,
+                             // every lane loads one row's statistics
+    const int lane = threadIdx.x - 128;
+    if (lane == 0) {
+      sm90::prefetch_map(&p.tk);
+      sm90::prefetch_map(&p.tv);
+      sm90::prefetch_map(&p.tq);
+      sm90::prefetch_map(&p.tdo);
+      sm90::mbar_arrive_expect_tx(&kv_bar, 2 * C::KV_BYTES);
+      for (int kc = 0; kc < 2; ++kc) {
+        sm90::tma_load_4d(khi + kc * BM * 128, &p.tk, &kv_bar, 32 * kc, h, k0, b);
+        sm90::tma_load_4d(vhi + kc * BM * 128, &p.tv, &kv_bar, 32 * kc, h, k0, b);
+      }
+    }
+    const long long srow = (static_cast<long long>(b) * p.H + h) * T;
+    const float* gp = p.gate == nullptr ? nullptr : p.gate + b * p.gate_sb + h * p.gate_sh;
+    for (int i = 0; i < n_q; ++i) {
+      const int s = i % C::STAGES;
+      uint8_t* st = ring + s * C::STAGE_BYTES;
+      const int t = i * C::BQ + lane;
+      const bool in = t < T;
+      const float lse2 = in ? __ldg(p.lse + srow + t) * LOG2E : -CUDART_INF_F;  // past T: P = 0
+      const float delta = in ? __ldg(p.delta + srow + t) : 0.f;
+      const float gate = gp != nullptr && in ? gp[t * p.gate_st] : 1.f;
+      sm90::mbar_wait(&empty_bar[s], ((i / C::STAGES) & 1) ^ 1);
+      if (lane == 0) {
+        sm90::mbar_arrive_expect_tx(&full_bar[s], 2 * C::QT_BYTES);
+        for (int kc = 0; kc < 2; ++kc) {
+          sm90::tma_load_4d(st + kc * C::BQ * 128, &p.tq, &full_bar[s], 32 * kc, h, i * C::BQ, b);
+          sm90::tma_load_4d(st + C::QT_BYTES + kc * C::BQ * 128, &p.tdo, &full_bar[s], 32 * kc,
+                            h, i * C::BQ, b);
+        }
+      }
+      float* stats = reinterpret_cast<float*>(st + 2 * C::QT_BYTES);
+      stats[lane] = lse2;
+      stats[C::BQ + lane] = delta;
+      stats[2 * C::BQ + lane] = gate;
+      sm90::mbar_arrive(&full_bar[s]);
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroup: key rows r0 and r0 + 8 of the tile
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  const int r0 = warp * 16 + g;
+  const bool valid[2] = {k0 + r0 < kv_len, k0 + r0 + 8 < kv_len};
+  const float* bcol[2] = {nullptr, nullptr};  // this thread's keys' column of the bias
+  if (p.bias != nullptr) {
 #pragma unroll
-    for (int d = 0; d < HD; d += 4) {
-      *reinterpret_cast<float4*>(dkr + d) = make_float4(
-          dk[d] * p.scale, dk[d + 1] * p.scale, dk[d + 2] * p.scale, dk[d + 3] * p.scale);
-      *reinterpret_cast<float4*>(dvr + d) = make_float4(dv[d], dv[d + 1], dv[d + 2], dv[d + 3]);
+    for (int ii = 0; ii < 2; ++ii)
+      bcol[ii] = p.bias + b * p.bias_sb + h * p.bias_sh + min(k0 + r0 + 8 * ii, T - 1) * p.bias_sk;
+  }
+  const float scale2 = p.scale * LOG2E;
+  float dk[32], dv[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+
+  sm90::mbar_wait(&kv_bar, 0);
+  sm90::split_tile(khi, khi, klo, C::KV_BYTES / 16, tid, 128);
+  sm90::split_tile(vhi, vhi, vlo, C::KV_BYTES / 16, tid, 128);
+  for (int i = 0; i < n_q; ++i) {
+    const int s = i % C::STAGES;
+    const uint8_t* st = ring + s * C::STAGE_BYTES;
+    sm90::mbar_wait(&full_bar[s], (i / C::STAGES) & 1);
+    sm90::split_tile(st, qhi, qlo, C::QT_BYTES / 16, tid, 128);
+    sm90::split_transposed<C::BQ>(st, qthi, qtlo, tid, 128);
+    sm90::split_tile(st + C::QT_BYTES, dohi, dolo, C::QT_BYTES / 16, tid, 128);
+    sm90::split_transposed<C::BQ>(st + C::QT_BYTES, dothi, dotlo, tid, 128);
+    // this thread's query columns' statistics: 8 j + c2 + e -> [2 j + e]
+    const float* stats = reinterpret_cast<const float*>(st + 2 * C::QT_BYTES);
+    float lse2[8], dlt[8], gt[8];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + c2 + e;
+        lse2[2 * j + e] = stats[col];
+        dlt[2 * j + e] = stats[C::BQ + col];
+        gt[2 * j + e] = stats[2 * C::BQ + col];
+      }
+    sm90::mbar_arrive(&empty_bar[s]);
+    sm90::fence_proxy_async();  // the split tiles, written by threads, read by wgmma
+    sm90::named_barrier(1, 128);
+
+    // S^T = K Q^T and dP^T = V dO^T (64 keys x 32 queries), three passes
+    // each.  S^T's passes are the forward's (Q_lo K_hi, Q_hi K_lo, Q_hi K_hi)
+    // in the same k8 steps, so each score is the one the forward's lse was
+    // formed from: at large logits a score rounded otherwise moves P by its
+    // error times |S|
+    float sacc[16], dp[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) sacc[j] = dp[j] = 0.f;
+    sm90::fence_regs(sacc);
+    sm90::fence_regs(dp);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int term = 0; term < 3; ++term) {
+      const uint8_t* ka = term == 1 ? klo : khi;
+      const uint8_t* qb = term == 0 ? qlo : qhi;
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks)
+        sm90::wgmma_tf32_ss<C::BQ>(sacc, desc_k(ka + (ks >> 2) * BM * 128) + (ks & 3) * K_STEP,
+                                   desc_k(qb + (ks >> 2) * C::BQ * 128) + (ks & 3) * K_STEP);
+    }
+#pragma unroll
+    for (int term = 0; term < 3; ++term) {
+      const uint8_t* va = term == 0 ? vlo : vhi;
+      const uint8_t* ob = term == 1 ? dolo : dohi;
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks)
+        sm90::wgmma_tf32_ss<C::BQ>(dp, desc_k(va + (ks >> 2) * BM * 128) + (ks & 3) * K_STEP,
+                                   desc_k(ob + (ks >> 2) * C::BQ * 128) + (ks & 3) * K_STEP);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait0();
+    sm90::fence_regs(sacc);
+    sm90::fence_regs(dp);
+
+    // P^T = exp(S^T + bias^T - lse), dS^T = P^T (dP^T - D)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ii = e >> 1, idx = 2 * j + (e & 1);
+        float pr = 0.f;
+        if (valid[ii] && lse2[idx] != -CUDART_INF_F) {  // lse2 is -inf past T
+          float x = sacc[4 * j + e] * scale2;
+          if (bcol[ii] != nullptr) {
+            const int t = i * C::BQ + 8 * j + c2 + (e & 1);
+            x = fmaf(gt[idx] * bcol[ii][t * p.bias_sq], LOG2E, x);
+          }
+          pr = exp2f(x - lse2[idx]);
+        }
+        sacc[4 * j + e] = pr;
+        dp[4 * j + e] = pr * (dp[4 * j + e] - dlt[idx]);
+      }
+    }
+
+    // dV += P^T dO, dK += dS^T Q: A split in registers, dO^T and Q^T (hi,
+    // lo) as the K-major B, one chunk of 32 queries (4 k8 steps)
+    uint32_t ph[4][4], pl[4][4], sh[4][4], sl[4][4];
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      sm90::acc_to_a_tf32(ph[ks], pl[ks], sacc, ks);
+      sm90::acc_to_a_tf32(sh[ks], sl[ks], dp, ks);
+    }
+    sm90::fence_regs(dv);
+    sm90::fence_regs(dk);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) wgmma_tf32_rs64(dv, pl[ks], desc_k(dothi) + ks * K_STEP);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) wgmma_tf32_rs64(dv, ph[ks], desc_k(dotlo) + ks * K_STEP);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) wgmma_tf32_rs64(dv, ph[ks], desc_k(dothi) + ks * K_STEP);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) wgmma_tf32_rs64(dk, sl[ks], desc_k(qthi) + ks * K_STEP);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) wgmma_tf32_rs64(dk, sh[ks], desc_k(qtlo) + ks * K_STEP);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) wgmma_tf32_rs64(dk, sh[ks], desc_k(qthi) + ks * K_STEP);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait0();
+    sm90::fence_regs(dv);
+    sm90::fence_regs(dk);
+    sm90::fence_regs(ph);
+    sm90::fence_regs(pl);
+    sm90::fence_regs(sh);
+    sm90::fence_regs(sl);
+    sm90::named_barrier(1, 128);  // the split query tiles are read
+  }
+
+#pragma unroll
+  for (int ii = 0; ii < 2; ++ii) {
+    const int key = k0 + r0 + 8 * ii;
+    if (key >= T) continue;
+    const long long off = ((static_cast<long long>(b) * T + key) * p.H + h) * HD;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<float2*>(p.dk + off + 8 * j + c2) =
+          make_float2(dk[4 * j + 2 * ii] * p.scale, dk[4 * j + 2 * ii + 1] * p.scale);
+      *reinterpret_cast<float2*>(p.dv + off + 8 * j + c2) =
+          make_float2(dv[4 * j + 2 * ii], dv[4 * j + 2 * ii + 1]);
     }
   }
 }
@@ -1008,11 +1193,33 @@ int launch_dq_bf16(DqParams& p, const void* q, const void* k, const void* v, con
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_dkv_f32(DkvF32Params& p, const void* q, const void* k, const void* v,
+                   const void* dout, int B, int T, int H, const long long* s,
+                   cudaStream_t stream) {
+  using C = DkvF32Tile;
+  int rc = sm90_host::encode_rows_f32(&p.tq, q, B, T, H, s + 0, C::BQ);
+  if (rc == 0) rc = sm90_host::encode_rows_f32(&p.tk, k, B, T, H, s + 3, BM);
+  if (rc == 0) rc = sm90_host::encode_rows_f32(&p.tv, v, B, T, H, s + 6, BM);
+  if (rc == 0) rc = sm90_host::encode_rows_f32(&p.tdo, dout, B, T, H, s + 9, C::BQ);
+  if (rc != 0) return rc;
+  static bool smem_set[sm90_host::MAX_DEVICES] = {};  // per device
+  const int dev = sm90_host::current_device();
+  if (dev < 0) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!smem_set[dev]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_dkv_f32_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set[dev] = true;
+  }
+  const dim3 grid((T + BM - 1) / BM, H, B);
+  flash_bwd_dkv_f32_sm90<<<grid, 160, C::SMEM, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 Params make_params(const void* q, const void* k, const void* v, const void* bias,
                    const void* gate, const int* key_len, const void* dout, const void* out,
-                   const float* lse, float* delta, void* dq, void* dk, void* dv, void* dbias,
-                   void* dgate, int T, int H, const long long* strides, long long ds_stride,
-                   float scale) {
+                   const float* lse, float* delta, void* dq, void* dbias, void* dgate, int T,
+                   int H, const long long* strides, long long ds_stride, float scale) {
   Params p;
   p.q = q;
   p.k = k;
@@ -1025,8 +1232,6 @@ Params make_params(const void* q, const void* k, const void* v, const void* bias
   p.lse = lse;
   p.delta = delta;
   p.dq = dq;
-  p.dk = dk;
-  p.dv = dv;
   p.dbias = dbias;
   p.dgate = p.gate != nullptr ? dgate : nullptr;
   p.q_sb = strides[0];
@@ -1068,8 +1273,9 @@ extern "C" {
 // v_*, dout_*, then the bias's (b, h, query, key) strides (0 broadcasts),
 // then the gate's (b, h, query).  With a gate the effective bias is
 // round(gate * bias).  lse and delta are contiguous (B, H, T) float32; dk, dv
-// contiguous (B, T, H, 64).  bias, gate and key_len may be null.  bf16 needs
-// what TMA takes (csrc/flash_attention.cu:flash_attention_fwd).  `tile` is
+// contiguous (B, T, H, 64).  bias, gate and key_len may be null.  q, k, v
+// and dout need what TMA takes (csrc/flash_attention.cu:flash_attention_fwd);
+// the float32 kernel reads the bias and gate through any strides.  `tile` is
 // the bf16 kernel's query-tile width, 64 or 80 (ops/flash_attention.py:
 // key_tile); float32 ignores it.  Launches on `stream`; returns
 // cudaGetLastError() or an encoding error.
@@ -1103,12 +1309,25 @@ int flash_attention_bwd_dkv(int dtype, const void* q, const void* k, const void*
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Params p = make_params(q, k, v, bias, gate, key_len, dout, nullptr, lse,
-                               const_cast<float*>(delta), nullptr, dk, dv, nullptr, nullptr, T, H,
-                               strides, 0, scale);
-  const dim3 grid((T + BM - 1) / BM, H, B);
-  flash_bwd_dkv_f32<<<grid, BM, 0, s>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  DkvF32Params p;
+  p.bias = static_cast<const float*>(bias);
+  p.gate = static_cast<const float*>(bias != nullptr ? gate : nullptr);
+  p.key_len = key_len;
+  p.lse = lse;
+  p.delta = delta;
+  p.dk = static_cast<float*>(dk);
+  p.dv = static_cast<float*>(dv);
+  p.bias_sb = strides[12];
+  p.bias_sh = strides[13];
+  p.bias_sq = strides[14];
+  p.bias_sk = strides[15];
+  p.gate_sb = strides[16];
+  p.gate_sh = strides[17];
+  p.gate_st = strides[18];
+  p.T = T;
+  p.H = H;
+  p.scale = scale;
+  return launch_dkv_f32(p, q, k, v, dout, B, T, H, strides, s);
 }
 
 // The first of the two backward launches; dK/dV, launched after it on the
@@ -1158,8 +1377,8 @@ int flash_attention_bwd_dq(int dtype, const void* q, const void* k, const void* 
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Params p = make_params(q, k, v, bias, gate, key_len, dout, out, lse, delta, dq, nullptr,
-                               nullptr, dbias, dgate, T, H, strides, ds_stride, scale);
+  const Params p = make_params(q, k, v, bias, gate, key_len, dout, out, lse, delta, dq, dbias,
+                               dgate, T, H, strides, ds_stride, scale);
   const dim3 grid((T + BM - 1) / BM, H, B);
   flash_bwd_dq_f32<<<grid, BM, 0, s>>>(p);
   return static_cast<int>(cudaGetLastError());

@@ -25,6 +25,26 @@
 //        pack(d[8s+4], d[8s+5]), pack(d[8s+6], d[8s+7])},
 // so P (or dS) goes from the scores' accumulator to the next product
 // without shared memory.
+//
+// float32 (3xTF32).  A float32 row of 64 elements is 256 bytes, two 128-byte
+// swizzle atoms: a tile of R rows is stored K-major as two chunks of R x 128 B
+// (columns 0-31, then 32-63), each loaded by its own TMA box of 32 floats
+// (f32_off below).  wgmma .tf32 takes k8 steps of 32 bytes, so the K_STEP
+// and the descriptors of the bf16 tiles serve unchanged, and step s of a
+// 64-wide contraction reads chunk s / 4 at 32 (s % 4) bytes.  wgmma takes
+// both tf32 operands K-major only (no transpose flag for .tf32), so a B
+// operand whose contraction runs over rows (V in P V; Q and dO in dK/dV) is
+// written transposed into shared memory by the pass that splits it.  Each
+// float32 x is split into hi = rna_tf32(x) and lo = rna_tf32(x - hi), and a
+// product is A_lo B_hi + A_hi B_lo + A_hi B_hi in float32 accumulation, the
+// small terms first (A_lo B_lo, about 2^-22 of the product, is dropped).
+// The accumulator's layout is not the tf32 A-register layout: a k8 step's A
+// fragment holds columns (l % 4, l % 4 + 4) of rows (g, g + 8), the
+// accumulator columns (c, c + 1).  acc_to_a_tf32 hands the accumulator's
+// columns over as they lie, so fragment column l % 4 is key 8 s + c and
+// column l % 4 + 4 is key 8 s + c + 1: the B operand's contraction index j
+// of each k8 step holds row 8 s + perm8(j), which the transposing split
+// writes (perm8 below).
 
 #pragma once
 
@@ -59,6 +79,71 @@ template <int BN>
 __device__ __forceinline__ uint32_t bias_off(int r, int col) {
   if constexpr (BN == 64) return swz128(r, col);
   else return r * (BN * 2) + col * 2;
+}
+
+// byte offset of float32 element (r, col), col < 64, of a tile of `rows`
+// rows stored as two 128B-swizzled chunks of 32 columns (the tile 1024-byte
+// aligned, `rows` a multiple of 8)
+__device__ __forceinline__ uint32_t f32_off(int rows, int r, int col) {
+  return (col >> 5) * rows * 128 + r * 128 + ((((col >> 2) ^ r) & 7) << 4) + (col & 3) * 4;
+}
+
+// the row of a k8 step (0-7) that a transposed B operand holds at
+// contraction index j: the accumulator's columns c, c + 1 (c = 2 (l % 4))
+// are the A fragment's l % 4 and l % 4 + 4
+__device__ __forceinline__ int perm8(int j) { return j < 4 ? 2 * j : 2 * (j - 4) + 1; }
+
+// x rounded to tf32 (10 mantissa bits), to nearest with ties away from
+// zero: the bits of cvt.rna.tf32.f32 for every finite x, in two integer
+// operations, which took the float32 forward 9% less time on an H100 than
+// the conversion (perf_k2_f32_ablate.py, variant cvt_split)
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo to about 2^-22 |x|, both tf32 (the low 13 bits zero)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// A float32 tile as TMA wrote it (f32_off's layout, `n16` 16-byte units)
+// split into hi and lo tiles of the same layout by `nt` threads (`hi` may
+// be `raw`: each unit is read, then written, by one thread).
+__device__ __forceinline__ void split_tile(const uint8_t* raw, uint8_t* hi, uint8_t* lo, int n16,
+                                           int tid, int nt) {
+  for (int u = tid; u < n16; u += nt) {
+    const float4 x = reinterpret_cast<const float4*>(raw)[u];
+    uint4 a, b;
+    split_tf32(x.x, a.x, b.x);
+    split_tf32(x.y, a.y, b.y);
+    split_tf32(x.z, a.z, b.z);
+    split_tf32(x.w, a.w, b.w);
+    reinterpret_cast<uint4*>(hi)[u] = a;
+    reinterpret_cast<uint4*>(lo)[u] = b;
+  }
+}
+
+// A float32 tile of R rows x 64 columns (f32_off's layout) split into hi and
+// lo tiles of its transpose, 64 rows x R columns, column 8 s + j holding row
+// 8 s + perm8(j): the K-major B operand of a product contracting over the
+// R rows.  A warp reads 32 columns of one row (distinct banks) and writes a
+// 16-byte unit of 32 rows (8 distinct units per quarter warp).
+template <int R>
+__device__ __forceinline__ void split_transposed(const uint8_t* raw, uint8_t* hi, uint8_t* lo,
+                                                 int tid, int nt) {
+  for (int u = tid; u < 64 * (R / 4); u += nt) {
+    const int d = u & 63, grp = u >> 6;  // columns 4 grp .. 4 grp + 3 of row d
+    const int r = 8 * (grp >> 1) + (grp & 1);  // perm8 of 4 (grp & 1) + e is 2 e + (grp & 1)
+    uint4 a, b;
+    split_tf32(*reinterpret_cast<const float*>(raw + f32_off(R, r, d)), a.x, b.x);
+    split_tf32(*reinterpret_cast<const float*>(raw + f32_off(R, r + 2, d)), a.y, b.y);
+    split_tf32(*reinterpret_cast<const float*>(raw + f32_off(R, r + 4, d)), a.z, b.z);
+    split_tf32(*reinterpret_cast<const float*>(raw + f32_off(R, r + 6, d)), a.w, b.w);
+    const uint32_t off = f32_off(64, d, 4 * grp);
+    *reinterpret_cast<uint4*>(hi + off) = a;
+    *reinterpret_cast<uint4*>(lo + off) = b;
+  }
 }
 
 // ------------------------------------------------------------- mbarriers
@@ -240,8 +325,48 @@ __device__ __forceinline__ void wgmma_rs_t64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+#define SM90_D16 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+// d (64 x N, f32) += A (64 x 8, shared, K-major) B (8 x N, shared, K-major),
+// tf32 operands
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t a, uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<64>(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " SM90_D32
+      ", %32, %33, p, 1, 1;\n}\n"
+      : SM90_F32
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<32>(float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " SM90_D16
+      ", %16, %17, p, 1, 1;\n}\n"
+      : SM90_F4(0), SM90_F4(4), SM90_F4(8), SM90_F4(12)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x 64, f32) += A (64 x 8, registers) B (8 x 64, shared, K-major), tf32
+__device__ __forceinline__ void wgmma_tf32_rs64(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " SM90_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : SM90_F32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 #undef SM90_F4
 #undef SM90_F32
+#undef SM90_D16
 #undef SM90_D32
 #undef SM90_D40
 
@@ -258,6 +383,18 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[N], 
   a[1] = pack_bf16x2(d[8 * s + 2], d[8 * s + 3]);
   a[2] = pack_bf16x2(d[8 * s + 4], d[8 * s + 5]);
   a[3] = pack_bf16x2(d[8 * s + 6], d[8 * s + 7]);
+}
+
+// the tf32 A fragments (hi and lo) of k8 step s from an accumulator in the
+// layout above: rows (g, g + 8) x fragment columns (l % 4, l % 4 + 4) take
+// the accumulator's keys 8 s + c and 8 s + c + 1 (see perm8)
+template <int N>
+__device__ __forceinline__ void acc_to_a_tf32(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                              const float (&d)[N], int s) {
+  split_tf32(d[4 * s], hi[0], lo[0]);
+  split_tf32(d[4 * s + 2], hi[1], lo[1]);
+  split_tf32(d[4 * s + 1], hi[2], lo[2]);
+  split_tf32(d[4 * s + 3], hi[3], lo[3]);
 }
 
 // the effective bias of one (query, key) pair: the bias element, or with a
@@ -304,12 +441,15 @@ inline int current_device() {
   return dev;
 }
 
-// A rank-4 bf16 tensor map: dims innermost first, byte strides of dims 1..3
-// (a dim of extent 1 gets a stride TMA accepts; it is never stepped), the
-// box, and the swizzle.  Returns 0 or an error code.
+// A rank-4 tensor map (bf16 unless `type` says otherwise): dims innermost
+// first, element strides of dims 1..3 (a dim of extent 1 gets a stride TMA
+// accepts; it is never stepped), the box, and the swizzle.  Returns 0 or an
+// error code.
 inline int encode4(CUtensorMap* map, const void* base, const long long dims_in[4],
                    const long long strides_elems[3], const int box_in[4],
-                   CUtensorMapSwizzle swizzle) {
+                   CUtensorMapSwizzle swizzle,
+                   CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+  const cuuint64_t elem_bytes = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return ERR_NO_ENCODER;
   cuuint64_t dims[4], strides[3];
@@ -318,14 +458,14 @@ inline int encode4(CUtensorMap* map, const void* base, const long long dims_in[4
     dims[i] = static_cast<cuuint64_t>(dims_in[i]);
     box[i] = static_cast<cuuint32_t>(box_in[i]);
   }
-  cuuint64_t span = dims[0] * 2;  // bytes spanned by the dims so far
+  cuuint64_t span = dims[0] * elem_bytes;  // bytes spanned by the dims so far
   for (int i = 0; i < 3; ++i) {
-    cuuint64_t s = static_cast<cuuint64_t>(strides_elems[i]) * 2;
+    cuuint64_t s = static_cast<cuuint64_t>(strides_elems[i]) * elem_bytes;
     if (dims[i + 1] == 1) s = (span + 15) / 16 * 16;
     strides[i] = s;
     span = s * dims[i + 1];
   }
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+  const CUresult r = fn(map, type, 4, const_cast<void*>(base), dims,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ERR_ENCODE;
@@ -339,6 +479,19 @@ inline int encode_rows(CUtensorMap* map, const void* base, int B, int T, int H,
   const long long strides[3] = {sbth[2], sbth[1], sbth[0]};
   const int box[4] = {64, 1, rows, 1};
   return encode4(map, base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// a float32 (B, T, H, 64) tensor read through its (b, t, h) element
+// strides, in boxes of `rows` rows x 32 columns of one (batch, head): the
+// two 128B-swizzled chunks of a tile (f32_off) are two boxes, at columns 0
+// and 32
+inline int encode_rows_f32(CUtensorMap* map, const void* base, int B, int T, int H,
+                           const long long* sbth, int rows) {
+  const long long dims[4] = {64, H, T, B};
+  const long long strides[3] = {sbth[2], sbth[1], sbth[0]};
+  const int box[4] = {32, 1, rows, 1};
+  return encode4(map, base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B,
+                 CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
 }
 
 // a bias (Bb, Hb, T, T) (Bb in {1, B}: a stride of 0 broadcasts) read in
