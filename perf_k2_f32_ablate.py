@@ -18,6 +18,11 @@ under build/ablate/ with a textual change each, and are wrong on purpose
 Each is timed by torch.profiler (the kernel's device time per launch) in
 turns: design, variants, design.  Writes k2_f32_ablate.json into
 chip_smoke's output directory.
+
+The textual changes match the float32 kernels' sources as they were when
+PERF.md §7's ablation was taken; an edit to those kernels can make a change
+miss (`str.index` raises) or break the build, and the script then has to be
+brought up to date with them before it measures anything.
 """
 
 import ctypes

@@ -725,13 +725,14 @@ F32_CASES = [
     (2, 251, 4, None, 40.0),
     (2, 251, 20, None, None),
 ]
-# At max |S| = 40 the gradients reach |dK| of 30-50 and float32 itself is
-# 1e-4 or more from float64 there (the plain backward given the kernel
-# forward's out and lse as much as the kernels): a gradient that misses
-# atol 1e-4 against the plain version is held to float64 instead, at most
-# 1.25 x the plain backward's distance on the same inputs (the form of the
-# bf16 forward's f32_ratio) or 1e-4.
-LARGE_LOGIT_RATIO = 1.25
+# At max |S| = 40 the gradients reach |dK| of 30-50 and any float32 pipeline
+# is about 1e-4 from float64 there; the plain backward given the kernel
+# forward's out and lse, which rounds S otherwise than that forward, 2.7e-4.
+# So there each gradient of the kernel pipeline (the kernel forward, then
+# the kernel backward) is held to float64, at most LARGE_LOGIT_RATIO x the
+# plain pipeline's distance (the plain forward, then the plain backward) or
+# 1e-4, as chip_smoke.py's large-logit rows are.
+LARGE_LOGIT_RATIO = 2.0
 
 
 def attention_f64(q, k, v, key_len, scale, dout):
@@ -755,7 +756,7 @@ def attention_f64(q, k, v, key_len, scale, dout):
 def test_flash_f32_tf32x3_kernels_match_plain(cuda, case):
     """The float32 forward and dK/dV kernels (3xTF32 on wgmma) and dQ against
     their plain versions, scale 1.0 as Whisper calls them: atol 1e-4 (at max
-    |S| = 40 a gradient may instead meet LARGE_LOGIT_RATIO against float64)."""
+    |S| = 40 the gradients against float64, LARGE_LOGIT_RATIO)."""
     b, t, h, lens, s_max = case
     q, k, v, rng = _attn_inputs(4000 + t + h, b, t, h, torch.float32, cuda)
     q, k = q * 64 ** -0.25, k * 64 ** -0.25  # as the encoder scales them
@@ -775,14 +776,14 @@ def test_flash_f32_tf32x3_kernels_match_plain(cuda, case):
     torch.cuda.synchronize()
     ref = k2.flash_attention_bwd_reference(q, k, v, None, key_len, 1.0, out, lse, dout)
     exact = dict(zip(("out", "dq", "dk", "dv"), attention_f64(q, k, v, key_len, 1.0, dout)))
+    pipe = k2.flash_attention_bwd_reference(q, k, v, None, key_len, 1.0, want, lse_ref, dout)
     for name in ("dq", "dk", "dv", "delta"):
         g, w = getattr(got, name), getattr(ref, name)
         assert bool(torch.isfinite(g).all()), name
-        err = float((g - w).abs().max())
-        if err > 1e-4 and s_max is not None and name != "delta":
+        if s_max is not None and name != "delta":
             err64 = float((g.double() - exact[name]).abs().max())
-            plain64 = float((w.double() - exact[name]).abs().max())
-            assert err64 <= max(1e-4, LARGE_LOGIT_RATIO * plain64), (name, err, err64, plain64)
+            plain64 = float((getattr(pipe, name).double() - exact[name]).abs().max())
+            assert err64 <= max(1e-4, LARGE_LOGIT_RATIO * plain64), (name, err64, plain64)
         else:
             torch.testing.assert_close(g, w, atol=1e-4, rtol=0.0, msg=name)
     if lens is not None:  # keys past key_len: dK = dV = 0

@@ -261,13 +261,15 @@ def _mm_3xtf32(a, b):
     return acc
 
 
-@pytest.mark.parametrize("part", ["forward", "dkv"])
+@pytest.mark.parametrize("part", ["forward", "dkv", "dq"])
 def test_flash_f32_tf32x3_split_error(part):
     """The float32 K2 kernels' arithmetic (3xTF32, csrc/flash_sm90.cuh)
     emulated on softmax(q k^T) v and its dK, dV at max |S| = 40 (scale 1.0,
     Whisper's convention), where the split's relative error of about 2^-21
     per product is largest in absolute terms: within the kernels' bar, atol
-    1e-4, of float64 (softmax and D in float32, as the kernels take them)."""
+    1e-4, of float64 (softmax and D in float32, as the kernels take them).
+    The backward kernels form S in the forward's passes, so P = exp(S - lse)
+    is formed from the scores lse was."""
     rng = np.random.default_rng(21)
     q, k, v, do = (rng.standard_normal((2, 96, 64)) for _ in range(4))  # (h, T, 64)
     s64 = q @ k.transpose(0, 2, 1)
@@ -286,8 +288,11 @@ def test_flash_f32_tf32x3_split_error(part):
         return
     delta = (out * do32).sum(-1, keepdim=True)
     ds = p * (_mm_3xtf32(do32, v32.transpose(1, 2)) - delta)
-    dv, dk = _mm_3xtf32(p.transpose(1, 2), do32), _mm_3xtf32(ds.transpose(1, 2), q32)
     ds64 = p64 * (do @ v.transpose(1, 2) - (out64 * do).sum(-1, keepdim=True))
+    if part == "dq":
+        torch.testing.assert_close(_mm_3xtf32(ds, k32).double(), ds64 @ k, atol=1e-4, rtol=0.0)
+        return
+    dv, dk = _mm_3xtf32(p.transpose(1, 2), do32), _mm_3xtf32(ds.transpose(1, 2), q32)
     torch.testing.assert_close(dv.double(), p64.transpose(1, 2) @ do, atol=1e-4, rtol=0.0)
     torch.testing.assert_close(dk.double(), ds64.transpose(1, 2) @ q, atol=1e-4, rtol=0.0)
 

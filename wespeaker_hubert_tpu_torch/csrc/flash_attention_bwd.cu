@@ -97,11 +97,21 @@
 // The bias and gate are read with plain loads through their strides (off
 // Whisper's path).  dK and dV leave by plain float2 stores; a key tile wholly
 // past key_len writes zeros and loads nothing.
-// dQ, f32 (the checking path): one thread per query row, FP32 FMA (no
-// TF32); the thread's own q / dO row in padded shared memory, the key tile
-// read as shared-memory broadcasts; it writes D and the gate's gradient as
-// the bf16 one does.  Every version is held against the plain PyTorch
-// backward (ops/flash_attention.py:flash_attention_bwd_reference).
+// dQ, f32 (flash_bwd_dq_f32_sm90): 3xTF32 on wgmma as well.  One block per
+// (64-query tile, head, batch row): a consumer warpgroup owns the 64 rows,
+// a producer warp loads Q and dO once (split in place) and raw K and V
+// tiles of 64 keys into a 2-stage ring.  The split pass writes K and V
+// hi / lo as loaded (the B operands of S = Q K^T and dP = dO V^T) and K
+// transposed (64 rows of d x 64 keys, perm8: the B operand of dQ += dS K);
+// dS is split in registers as the A operand.  S runs in the forward's passes
+// and k8 steps on the forward's key tiles, so P = exp(S - lse) is formed
+// from the very scores lse was: a score rounded otherwise (as FP32 FMA rounds
+// it) moves P by its error times |S| and, where dP - D cancels, moved dQ by
+// 2.9e-4 at max |S| = 40.  D comes from out and dO by plain loads, 16
+// columns per lane of a row's quad; dS and the bias are read and written by
+// plain loads and float2 stores.  224 KB of shared memory.  Every version is
+// held against the plain PyTorch backward
+// (ops/flash_attention.py:flash_attention_bwd_reference).
 
 #include <algorithm>
 #include <cstdint>
@@ -115,62 +125,7 @@ namespace {
 
 constexpr int HD = 64;       // head dim, the kernel's only one
 constexpr int BM = 64;       // rows (queries or keys) per block
-constexpr int F32_TILE = 16; // the other side's rows per shared tile, f32 dQ
-constexpr int LDF = HD + 1;  // f32 row stride of a thread's own row: the
-                             // 32 rows a warp reads fall on distinct banks
 constexpr float LOG2E = 1.4426950408889634f;
-
-// the float32 dQ kernel's arguments
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* bias;     // null: no bias
-  const void* gate;     // null: the bias is used as it is
-  const int* key_len;   // null: every key is valid
-  const void* dout;
-  const void* out;      // the forward's output, read by dQ for D
-  const float* lse;     // (B, H, T), natural log
-  float* delta;         // (B, H, T), rowsum(out * dout): dQ writes it, dK/dV reads it
-  void* dq;             // (B, T, H, 64) contiguous
-  void* dbias;          // null: not written; else (B, H, T, ds_stride) contiguous
-  void* dgate;          // null: not written; else (B, H, T) contiguous
-  long long q_sb, q_st, q_sh;
-  long long k_sb, k_st, k_sh;
-  long long v_sb, v_st, v_sh;
-  long long o_sb, o_st, o_sh;  // of dout
-  long long bias_sb, bias_sh, bias_sq, bias_sk;
-  long long gate_sb, gate_sh, gate_st;
-  long long out_sb, out_st, out_sh;
-  long long ds_stride;  // dbias's row stride, T rounded up to a multiple of 8
-  int T;
-  int H;
-  float scale;
-};
-
-// the gate of query row t of (b, h), 1 without a gate
-template <typename E>
-__device__ __forceinline__ float gate_of(const Params& p, int b, int h, int t) {
-  if (p.gate == nullptr) return 1.f;
-  const E x = static_cast<const E*>(p.gate)[b * p.gate_sb + h * p.gate_sh + t * p.gate_st];
-  if constexpr (sizeof(E) == 2) return __bfloat162float(x);
-  else return x;
-}
-
-__device__ __forceinline__ int valid_keys(const Params& p, int b) {
-  if (p.key_len == nullptr) return p.T;
-  return min(max(p.key_len[b], 0), p.T);
-}
-
-// offset of row t of (b, h) in a contiguous (B, T, H, 64) output
-__device__ __forceinline__ long long out_row(const Params& p, int b, int t, int h) {
-  return ((static_cast<long long>(b) * p.T + t) * p.H + h) * HD;
-}
-
-// offset of (b, h, t) in a contiguous (B, H, T) row statistic
-__device__ __forceinline__ long long stat_row(const Params& p, int b, int h, int t) {
-  return (static_cast<long long>(b) * p.H + h) * p.T + t;
-}
 
 // ------------------------------------------------ dK / dV, f32 (3xTF32 wgmma)
 struct DkvF32Params {
@@ -435,115 +390,265 @@ __global__ void __launch_bounds__(160, 1)
   }
 }
 
-// f32, dQ (+ dBias, D, the gate's gradient): thread tid owns query q0 + tid;
-// its q and dO rows sit in padded shared memory, dQ in registers; key tiles
-// of F32_TILE rows are read as broadcasts.  It writes its row's D for the
-// dK/dV kernel, which runs after it on the same stream.
-__global__ void __launch_bounds__(BM) flash_bwd_dq_f32(const Params p) {
-  __shared__ float sq[BM * LDF], sdo[BM * LDF];
-  __shared__ __align__(16) float sk[F32_TILE * HD], sv[F32_TILE * HD];
+// ------------------------------------------------ dQ, f32 (3xTF32 wgmma)
+struct DqF32Params {
+  CUtensorMap tq, tk, tv, tdo;
+  const float* bias;    // null: no bias; else read through its strides
+  const float* gate;    // null: the bias is used as it is
+  const int* key_len;   // null: every key is valid
+  const float* out;     // the forward's output, for D
+  const float* dout;    // dO, for D (the products read it by TMA)
+  const float* lse;     // (B, H, T), natural log
+  float* delta;         // (B, H, T): D = rowsum(out * dO), which dK/dV reads
+  float* dq;            // (B, T, H, 64) contiguous
+  float* dbias;         // null: not written; else (B, H, T, ds_stride) contiguous
+  float* dgate;         // null: not written; else (B, H, T) contiguous
+  long long o_sb, o_st, o_sh;        // dO's element strides
+  long long out_sb, out_st, out_sh;  // out's
+  long long bias_sb, bias_sh, bias_sq, bias_sk;
+  long long gate_sb, gate_sh, gate_st;
+  long long ds_stride;
+  int T, H;
+  float scale;
+};
+
+struct DqF32Tile {
+  static constexpr int BN = 64;                   // keys per tile
+  static constexpr int TILE_BYTES = BM * HD * 4;  // 64 rows of Q, dO, K or V, hi or lo: 16 KB
+  static constexpr int STAGES = 2;
+  static constexpr int STAGE_BYTES = 2 * TILE_BYTES;  // raw K, then raw V
+  static constexpr int SMEM = 1024 + 4 * TILE_BYTES + STAGES * STAGE_BYTES + 6 * TILE_BYTES;
+};
+
+__global__ void __launch_bounds__(160, 1)
+    flash_bwd_dq_f32_sm90(const __grid_constant__ DqF32Params p) {
+  using C = DqF32Tile;
+  using sm90::desc_k;
+  using sm90::K_STEP;
+  using sm90::wgmma_tf32_rs64;
+  using sm90::wgmma_tf32_ss;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[C::STAGES], empty_bar[C::STAGES], q_bar;
+  uint8_t* const qhi = sm90::align1024(smem_raw);  // Q as loaded, then its hi part
+  uint8_t* const qlo = qhi + C::TILE_BYTES;
+  uint8_t* const dohi = qlo + C::TILE_BYTES;       // dO as loaded, then its hi part
+  uint8_t* const dolo = dohi + C::TILE_BYTES;
+  uint8_t* const ring = dolo + C::TILE_BYTES;
+  uint8_t* const khi = ring + C::STAGES * C::STAGE_BYTES;
+  uint8_t* const klo = khi + C::TILE_BYTES;
+  uint8_t* const vhi = klo + C::TILE_BYTES;
+  uint8_t* const vlo = vhi + C::TILE_BYTES;
+  uint8_t* const kthi = vlo + C::TILE_BYTES;       // K^T: 64 rows of d x 64 keys
+  uint8_t* const ktlo = kthi + C::TILE_BYTES;
 
   const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, t = q0 + tid;
   const int T = p.T;
-  const int kv_len = valid_keys(p, b);
-  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const float* dout = static_cast<const float*>(p.dout) + b * p.o_sb + h * p.o_sh;
-  const float* bias = static_cast<const float*>(p.bias);
-  if (bias != nullptr) bias += b * p.bias_sb + h * p.bias_sh + min(t, T - 1) * p.bias_sq;
-  float* dbias = static_cast<float*>(p.dbias);
-  if (dbias != nullptr) dbias += stat_row(p, b, h, min(t, T - 1)) * p.ds_stride;
+  const int kv_len = p.key_len == nullptr ? T : min(max(p.key_len[b], 0), T);
+  const int n_tiles = (kv_len + C::BN - 1) / C::BN;
 
-  for (int c = tid; c < BM * HD / 4; c += blockDim.x) {
-    const int r = c / (HD / 4), col = (c % (HD / 4)) * 4;
-    float4 qq = make_float4(0.f, 0.f, 0.f, 0.f), oo = qq;
-    if (q0 + r < T) {
-      qq = *reinterpret_cast<const float4*>(q + (q0 + r) * p.q_st + col);
-      oo = *reinterpret_cast<const float4*>(dout + (q0 + r) * p.o_st + col);
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&q_bar, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      sm90::mbar_init(&full_bar[s], 1);
+      sm90::mbar_init(&empty_bar[s], 128);
     }
-    float* qd = sq + r * LDF + col;
-    float* od = sdo + r * LDF + col;
-    qd[0] = qq.x; qd[1] = qq.y; qd[2] = qq.z; qd[3] = qq.w;
-    od[0] = oo.x; od[1] = oo.y; od[2] = oo.z; od[3] = oo.w;
+    sm90::fence_barrier_init();
   }
-  __syncthreads();  // the rows are staged by every thread
-  const float* qr = sq + tid * LDF;
-  const float* dor = sdo + tid * LDF;
-  const bool in = t < T;
-  const float lse = in ? p.lse[stat_row(p, b, h, t)] : -CUDART_INF_F;
-  // D = rowsum(out * dO) of this row
-  float delta = 0.f;
-  if (in) {
-    const float* o = static_cast<const float*>(p.out) + b * p.out_sb + h * p.out_sh + t * p.out_st;
-#pragma unroll
-    for (int d = 0; d < HD; d += 4) {
-      const float4 oo = *reinterpret_cast<const float4*>(o + d);
-      delta = fmaf(oo.x, dor[d], delta);
-      delta = fmaf(oo.y, dor[d + 1], delta);
-      delta = fmaf(oo.z, dor[d + 2], delta);
-      delta = fmaf(oo.w, dor[d + 3], delta);
-    }
-    p.delta[stat_row(p, b, h, t)] = delta;
-  }
-  const float gate = gate_of<float>(p, b, h, min(t, T - 1));
-  const bool live = lse != -CUDART_INF_F;
-  float dgate = 0.f;  // sum over keys of dS * table
+  __syncthreads();
 
-  float dq[HD];
-#pragma unroll
-  for (int d = 0; d < HD; ++d) dq[d] = 0.f;
-
-  for (int k0 = 0; k0 < T; k0 += F32_TILE) {
-    if (k0 >= kv_len) {  // masked keys: dS = 0
-      if (dbias != nullptr && in)
-        for (int j = k0; j < min(k0 + F32_TILE, T); ++j) dbias[j] = 0.f;
-      continue;
-    }
-    __syncthreads();
-    for (int c = tid; c < F32_TILE * HD / 4; c += blockDim.x) {
-      const int r = c / (HD / 4), col = (c % (HD / 4)) * 4;
-      float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
-      if (k0 + r < T) {
-        kk = *reinterpret_cast<const float4*>(k + (k0 + r) * p.k_st + col);
-        vv = *reinterpret_cast<const float4*>(v + (k0 + r) * p.v_st + col);
+  if (threadIdx.x >= 128) {  // the producer warp; one lane issues the copies
+    if (threadIdx.x == 128) {
+      sm90::prefetch_map(&p.tq);
+      sm90::prefetch_map(&p.tdo);
+      sm90::prefetch_map(&p.tk);
+      sm90::prefetch_map(&p.tv);
+      sm90::mbar_arrive_expect_tx(&q_bar, 2 * C::TILE_BYTES);
+      for (int kc = 0; kc < 2; ++kc) {
+        sm90::tma_load_4d(qhi + kc * BM * 128, &p.tq, &q_bar, 32 * kc, h, q0, b);
+        sm90::tma_load_4d(dohi + kc * BM * 128, &p.tdo, &q_bar, 32 * kc, h, q0, b);
       }
-      *reinterpret_cast<float4*>(sk + r * HD + col) = kk;
-      *reinterpret_cast<float4*>(sv + r * HD + col) = vv;
-    }
-    __syncthreads();
-    for (int j = 0; j < F32_TILE; ++j) {
-      const int key = k0 + j;
-      if (key >= T) break;
-      float ds = 0.f;
-      if (live && key < kv_len) {
-        const float* kj = sk + j * HD;
-        const float* vj = sv + j * HD;
-        float s = 0.f, dp = 0.f;
-#pragma unroll
-        for (int d = 0; d < HD; ++d) {
-          s = fmaf(qr[d], kj[d], s);
-          dp = fmaf(dor[d], vj[d], dp);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % C::STAGES;
+        uint8_t* st = ring + s * C::STAGE_BYTES;
+        sm90::mbar_wait(&empty_bar[s], ((i / C::STAGES) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&full_bar[s], C::STAGE_BYTES);
+        for (int kc = 0; kc < 2; ++kc) {
+          sm90::tma_load_4d(st + kc * C::BN * 128, &p.tk, &full_bar[s], 32 * kc, h, i * C::BN, b);
+          sm90::tma_load_4d(st + C::TILE_BYTES + kc * C::BN * 128, &p.tv, &full_bar[s], 32 * kc,
+                            h, i * C::BN, b);
         }
-        float x = s * p.scale;
-        const float tab = bias != nullptr ? bias[key * p.bias_sk] : 0.f;
-        x += gate * tab;
-        ds = expf(x - lse) * (dp - delta);
-        dgate = fmaf(ds, tab, dgate);
-#pragma unroll
-        for (int d = 0; d < HD; ++d) dq[d] = fmaf(ds, kj[d], dq[d]);
       }
-      if (dbias != nullptr && in) dbias[key] = ds;
     }
+    return;
   }
-  if (in && p.dgate != nullptr) static_cast<float*>(p.dgate)[stat_row(p, b, h, t)] = dgate;
-  if (in) {
-    float* dqr = static_cast<float*>(p.dq) + out_row(p, b, t, h);
+
+  // ---- the consumer warpgroup: query rows r0 and r0 + 8 of the tile; a
+  // row's 64 keys of a tile are spread over the 4 lanes of its quad
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  const int r0 = warp * 16 + g;
+  const long long srow = (static_cast<long long>(b) * p.H + h) * T;
+  float lse2[2], dlt[2], gate[2] = {1.f, 1.f};
+  const float* brow[2] = {nullptr, nullptr};  // this thread's rows of the bias
+  float* dsrow[2] = {nullptr, nullptr};       // and of dS
 #pragma unroll
-    for (int d = 0; d < HD; d += 4)
-      *reinterpret_cast<float4*>(dqr + d) = make_float4(
-          dq[d] * p.scale, dq[d + 1] * p.scale, dq[d + 2] * p.scale, dq[d + 3] * p.scale);
+  for (int ii = 0; ii < 2; ++ii) {
+    const int t = q0 + r0 + 8 * ii;
+    const bool in = t < T;
+    lse2[ii] = in ? p.lse[srow + t] * LOG2E : -CUDART_INF_F;  // past T: P = 0
+    // D = rowsum(out * dO), 16 columns per lane of the quad
+    float d = 0.f;
+    if (in) {
+      const float* o = p.out + b * p.out_sb + h * p.out_sh + t * p.out_st + 16 * (lane & 3);
+      const float* od = p.dout + b * p.o_sb + h * p.o_sh + t * p.o_st + 16 * (lane & 3);
+#pragma unroll
+      for (int c = 0; c < 16; c += 4) {
+        const float4 x = *reinterpret_cast<const float4*>(o + c);
+        const float4 y = *reinterpret_cast<const float4*>(od + c);
+        d = fmaf(x.x, y.x, d);
+        d = fmaf(x.y, y.y, d);
+        d = fmaf(x.z, y.z, d);
+        d = fmaf(x.w, y.w, d);
+      }
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    d += __shfl_xor_sync(0xffffffffu, d, 2);
+    dlt[ii] = d;
+    if (in && (lane & 3) == 0) p.delta[srow + t] = d;
+    if (p.bias != nullptr) {
+      const int tt = min(t, T - 1);
+      brow[ii] = p.bias + b * p.bias_sb + h * p.bias_sh + tt * p.bias_sq;
+      if (p.gate != nullptr) gate[ii] = p.gate[b * p.gate_sb + h * p.gate_sh + tt * p.gate_st];
+    }
+    if (p.dbias != nullptr && in) dsrow[ii] = p.dbias + (srow + t) * p.ds_stride;
+  }
+  const float scale2 = p.scale * LOG2E;  // scores in the log2 domain, as the forward's
+  float dq[32], dgate[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 32; ++j) dq[j] = 0.f;
+
+  sm90::mbar_wait(&q_bar, 0);
+  sm90::split_tile(qhi, qhi, qlo, C::TILE_BYTES / 16, tid, 128);
+  sm90::split_tile(dohi, dohi, dolo, C::TILE_BYTES / 16, tid, 128);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % C::STAGES;
+    const uint8_t* st = ring + s * C::STAGE_BYTES;
+    sm90::mbar_wait(&full_bar[s], (i / C::STAGES) & 1);
+    sm90::split_tile(st, khi, klo, C::TILE_BYTES / 16, tid, 128);
+    sm90::split_transposed<C::BN>(st, kthi, ktlo, tid, 128);
+    sm90::split_tile(st + C::TILE_BYTES, vhi, vlo, C::TILE_BYTES / 16, tid, 128);
+    sm90::mbar_arrive(&empty_bar[s]);
+    sm90::fence_proxy_async();  // the split tiles, written by threads, read by wgmma
+    sm90::named_barrier(1, 128);
+
+    // S = Q K^T in the forward's passes (Q_lo K_hi, Q_hi K_lo, Q_hi K_hi)
+    // and k8 steps on the same 64-key tiles, so each score is the one the
+    // forward's lse was formed from; dP = dO V^T, three passes as well
+    float sacc[32], dp[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) sacc[j] = dp[j] = 0.f;
+    sm90::fence_regs(sacc);
+    sm90::fence_regs(dp);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int term = 0; term < 3; ++term) {
+      const uint8_t* a = term == 0 ? qlo : qhi;
+      const uint8_t* kb = term == 1 ? klo : khi;
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks)
+        wgmma_tf32_ss<64>(sacc, desc_k(a + (ks >> 2) * BM * 128) + (ks & 3) * K_STEP,
+                          desc_k(kb + (ks >> 2) * C::BN * 128) + (ks & 3) * K_STEP);
+    }
+#pragma unroll
+    for (int term = 0; term < 3; ++term) {
+      const uint8_t* a = term == 0 ? dolo : dohi;
+      const uint8_t* vb = term == 1 ? vlo : vhi;
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks)
+        wgmma_tf32_ss<64>(dp, desc_k(a + (ks >> 2) * BM * 128) + (ks & 3) * K_STEP,
+                          desc_k(vb + (ks >> 2) * C::BN * 128) + (ks & 3) * K_STEP);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait0();
+    sm90::fence_regs(sacc);
+    sm90::fence_regs(dp);
+
+    // P = exp(S + bias - lse) as the forward forms it, dS = P (dP - D) into
+    // dp; the gate's gradient sums dS * bias
+    const int k0 = i * C::BN;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ii = e >> 1;
+        const int key = k0 + 8 * j + c2 + (e & 1);
+        float ds = 0.f;
+        if (key < kv_len && lse2[ii] != -CUDART_INF_F) {
+          float x = sacc[4 * j + e] * scale2;
+          if (brow[ii] != nullptr) {
+            const float tab = brow[ii][key * p.bias_sk];
+            x = fmaf(gate[ii] * tab, LOG2E, x);
+            ds = exp2f(x - lse2[ii]) * (dp[4 * j + e] - dlt[ii]);
+            dgate[ii] = fmaf(ds, tab, dgate[ii]);
+          } else {
+            ds = exp2f(x - lse2[ii]) * (dp[4 * j + e] - dlt[ii]);
+          }
+        }
+        dp[4 * j + e] = ds;
+      }
+    }
+#pragma unroll
+    for (int ii = 0; ii < 2; ++ii) {
+      if (dsrow[ii] == nullptr) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int key = k0 + 8 * j + c2;  // even, and T8 is a multiple of 8
+        if (key < T)
+          *reinterpret_cast<float2*>(dsrow[ii] + key) =
+              make_float2(dp[4 * j + 2 * ii], dp[4 * j + 2 * ii + 1]);
+      }
+    }
+
+    // dQ += dS K: dS split in registers, K^T (hi, lo) as the K-major B
+    uint32_t sh[8][4], sl[8][4];
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) sm90::acc_to_a_tf32(sh[ks], sl[ks], dp, ks);
+    sm90::fence_regs(dq);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks)
+      wgmma_tf32_rs64(dq, sl[ks], desc_k(kthi + (ks >> 2) * C::BN * 128) + (ks & 3) * K_STEP);
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks)
+      wgmma_tf32_rs64(dq, sh[ks], desc_k(ktlo + (ks >> 2) * C::BN * 128) + (ks & 3) * K_STEP);
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks)
+      wgmma_tf32_rs64(dq, sh[ks], desc_k(kthi + (ks >> 2) * C::BN * 128) + (ks & 3) * K_STEP);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait0();
+    sm90::fence_regs(dq);
+    sm90::fence_regs(sh);
+    sm90::fence_regs(sl);
+    sm90::named_barrier(1, 128);  // the split tiles are read
+  }
+
+#pragma unroll
+  for (int ii = 0; ii < 2; ++ii) {  // a row's sum over the 4 lanes of its quad
+    dgate[ii] += __shfl_xor_sync(0xffffffffu, dgate[ii], 1);
+    dgate[ii] += __shfl_xor_sync(0xffffffffu, dgate[ii], 2);
+  }
+#pragma unroll
+  for (int ii = 0; ii < 2; ++ii) {
+    const int t = q0 + r0 + 8 * ii;
+    if (t >= T) continue;
+    if (dsrow[ii] != nullptr)  // keys past the last tile read (past key_len): dS = 0
+      for (int key = n_tiles * C::BN + (lane & 3); key < T; key += 4) dsrow[ii][key] = 0.f;
+    if (p.dgate != nullptr && (lane & 3) == 0) p.dgate[srow + t] = dgate[ii];
+    float* dqr = p.dq + ((static_cast<long long>(b) * T + t) * p.H + h) * HD;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<float2*>(dqr + 8 * j + c2) =
+          make_float2(dq[4 * j + 2 * ii] * p.scale, dq[4 * j + 2 * ii + 1] * p.scale);
   }
 }
 
@@ -1216,51 +1321,27 @@ int launch_dkv_f32(DkvF32Params& p, const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-Params make_params(const void* q, const void* k, const void* v, const void* bias,
-                   const void* gate, const int* key_len, const void* dout, const void* out,
-                   const float* lse, float* delta, void* dq, void* dbias, void* dgate, int T,
-                   int H, const long long* strides, long long ds_stride, float scale) {
-  Params p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.bias = bias;
-  p.gate = bias != nullptr ? gate : nullptr;
-  p.key_len = key_len;
-  p.dout = dout;
-  p.out = out;
-  p.lse = lse;
-  p.delta = delta;
-  p.dq = dq;
-  p.dbias = dbias;
-  p.dgate = p.gate != nullptr ? dgate : nullptr;
-  p.q_sb = strides[0];
-  p.q_st = strides[1];
-  p.q_sh = strides[2];
-  p.k_sb = strides[3];
-  p.k_st = strides[4];
-  p.k_sh = strides[5];
-  p.v_sb = strides[6];
-  p.v_st = strides[7];
-  p.v_sh = strides[8];
-  p.o_sb = strides[9];
-  p.o_st = strides[10];
-  p.o_sh = strides[11];
-  p.bias_sb = strides[12];
-  p.bias_sh = strides[13];
-  p.bias_sq = strides[14];
-  p.bias_sk = strides[15];
-  p.gate_sb = strides[16];
-  p.gate_sh = strides[17];
-  p.gate_st = strides[18];
-  p.out_sb = out != nullptr ? strides[19] : 0;
-  p.out_st = out != nullptr ? strides[20] : 0;
-  p.out_sh = out != nullptr ? strides[21] : 0;
-  p.ds_stride = ds_stride;
-  p.T = T;
-  p.H = H;
-  p.scale = scale;
-  return p;
+int launch_dq_f32(DqF32Params& p, const void* q, const void* k, const void* v,
+                  const void* dout, int B, int T, int H, const long long* s,
+                  cudaStream_t stream) {
+  using C = DqF32Tile;
+  int rc = sm90_host::encode_rows_f32(&p.tq, q, B, T, H, s + 0, BM);
+  if (rc == 0) rc = sm90_host::encode_rows_f32(&p.tk, k, B, T, H, s + 3, C::BN);
+  if (rc == 0) rc = sm90_host::encode_rows_f32(&p.tv, v, B, T, H, s + 6, C::BN);
+  if (rc == 0) rc = sm90_host::encode_rows_f32(&p.tdo, dout, B, T, H, s + 9, BM);
+  if (rc != 0) return rc;
+  static bool smem_set[sm90_host::MAX_DEVICES] = {};  // per device
+  const int dev = sm90_host::current_device();
+  if (dev < 0) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!smem_set[dev]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_dq_f32_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set[dev] = true;
+  }
+  const dim3 grid((T + BM - 1) / BM, H, B);
+  flash_bwd_dq_f32_sm90<<<grid, 160, C::SMEM, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1377,11 +1458,35 @@ int flash_attention_bwd_dq(int dtype, const void* q, const void* k, const void* 
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Params p = make_params(q, k, v, bias, gate, key_len, dout, out, lse, delta, dq, dbias,
-                               dgate, T, H, strides, ds_stride, scale);
-  const dim3 grid((T + BM - 1) / BM, H, B);
-  flash_bwd_dq_f32<<<grid, BM, 0, s>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  DqF32Params p;
+  p.bias = static_cast<const float*>(bias);
+  p.gate = static_cast<const float*>(bias != nullptr ? gate : nullptr);
+  p.key_len = key_len;
+  p.out = static_cast<const float*>(out);
+  p.dout = static_cast<const float*>(dout);
+  p.lse = lse;
+  p.delta = delta;
+  p.dq = static_cast<float*>(dq);
+  p.dbias = static_cast<float*>(dbias);
+  p.dgate = p.gate != nullptr ? static_cast<float*>(dgate) : nullptr;
+  p.o_sb = strides[9];
+  p.o_st = strides[10];
+  p.o_sh = strides[11];
+  p.out_sb = strides[19];
+  p.out_st = strides[20];
+  p.out_sh = strides[21];
+  p.bias_sb = strides[12];
+  p.bias_sh = strides[13];
+  p.bias_sq = strides[14];
+  p.bias_sk = strides[15];
+  p.gate_sb = strides[16];
+  p.gate_sh = strides[17];
+  p.gate_st = strides[18];
+  p.ds_stride = ds_stride;
+  p.T = T;
+  p.H = H;
+  p.scale = scale;
+  return launch_dq_f32(p, q, k, v, dout, B, T, H, strides, s);
 }
 
 const char* flash_attention_bwd_error_string(int code) {

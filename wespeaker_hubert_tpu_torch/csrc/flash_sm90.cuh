@@ -452,6 +452,11 @@ inline int encode4(CUtensorMap* map, const void* base, const long long dims_in[4
   const cuuint64_t elem_bytes = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return ERR_NO_ENCODER;
+  // the driver call needs the device's context current on this thread, which
+  // a thread that has made no runtime call yet (autograd's backward thread)
+  // lacks: it then returns CUDA_ERROR_INVALID_CONTEXT
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess) return ERR_ENCODE;
   cuuint64_t dims[4], strides[3];
   cuuint32_t box[4], elem[4] = {1, 1, 1, 1};
   for (int i = 0; i < 4; ++i) {
