@@ -81,7 +81,7 @@ Phases:
      TSTP, ArcMargin over 3 x 5,994 classes, batch 128 x 2 s, float32; the
      large-margin fine-tune at batch 64 x 6 s, margin 0.5, from the base
      run's averaged model), overriding only the paths and the run's length
-     (2 epochs of 12 steps; lm 1 epoch of 8 steps), on phase 12's data:
+     (2 epochs of 8 steps; lm 1 epoch of 4 steps), on phase 12's data:
      training, averaging, extraction (K1 on every stage-4 input against its
      plain version), scoring, export of the model directory and its
      torch.export program (stage 8), each twice; 16 stage-4 embeddings
@@ -114,6 +114,25 @@ Phases:
      forward against the plain version, the backward as a whole (kernel
      pipeline and plain pipeline each against float64, 3 seeds).  K2's
      float32 forward, dK/dV and dQ run 3xTF32 on wgmma.
+ 18. the CAM++ recipe: recipes.voxceleb_v2 stages 1-9 on
+     examples/voxceleb/v2/conf/campplus.yaml and campplus_lm.yaml (CAMPPlus,
+     80 mels, 512-d, TSTP, batch 128 x 2 s, loop_steps 8, float32; the lm
+     fine-tune at 64 x 6 s, margin 0.5) with phase 14's cut and checks, on
+     phase 12's data;
+ 19. the WavLM staged recipe: recipes.voxceleb_v2_wavlm stages 1-3 on
+     ecapa_tdnn_wavlm_frozen.yaml (WavLM-Large + ECAPA_TDNN_GLOB_c512,
+     batch 64 x 3 s, 6 s in stage 3, bf16 through enable_amp, flash
+     attention) for 6 frozen, 4 joint and 2 large-margin steps on phase 12's
+     shards: K2's bf16 launches per stage, the frozen encoder bitwise
+     through stage 1, each stage from the previous average (stage 3's head
+     fresh), 16 stage-3 embeddings through bin/extract (float32 on the card
+     against the CPU, bf16 against the CPU's float32 at cosine 0.9998, bf16
+     with K2 against bf16 with plain attention), a bf16 stage-2 step against
+     the float32 step with a fault control for each bar, and 3 profiled
+     stage-3 steps;
+ 20. ERes2Net34_Base and Res2Net34_Base at full width: one float32 step on
+     the card against the CPU, eval embeddings through K1 against the CPU,
+     and 3 timed steps at 128 x 2 s.
 
 A kernel's bound is the least time the card could take for the work the
 function needs (for log-mel: an FFT and a sparse mel product; for
@@ -2830,6 +2849,9 @@ def phase_ecapa_step_check(report):
 RESNET_CONFIG = Path(__file__).resolve().parent / "examples/voxceleb/v2/conf/resnet34.yaml"
 RESNET_LM_CONFIG = Path(__file__).resolve().parent / "examples/voxceleb/v2/conf/resnet_lm.yaml"
 RESNET_CHECK_SEED = 20251021
+# the recipes' cut (ResNet34, CAM++): 2 epochs of 8 steps, and 4 lm steps
+# (PERF.md section 4 lists the earlier, longer cut)
+RECIPE_EPOCH_STEPS, RECIPE_LM_STEPS = 8, 4
 RESNET_CHECK_BATCH = 16
 # the exported program against the eager model: (B, T) feature shapes
 PROGRAM_SHAPES = ((16, 200), (3, 517))
@@ -2844,17 +2866,27 @@ def phase_resnet_recipe(report, root):
     """recipes.voxceleb_v2 stages 1-9 on the card with resnet34.yaml and
     resnet_lm.yaml as the port's reader parses them (ResNet34, 32 channels,
     80 mels, 256-d, TSTP, ArcMargin over 3 x 5,994 classes, float32; the lm
-    fine-tune at batch 64 x 600 frames, margin 0.5), overriding only paths
-    and the run's length (base: 2 epochs of 12 steps of 128 x 200 frames, 2
-    checkpoints averaged; lm: 1 epoch of 8 steps, num_avg 1), on
-    write_recipe_data's 1,536 utterances in 2 shards.  Three calls, each
-    with K1's count set to 0 just before and read just after: stages 1-3,
-    stages 4-8, stage 9 (stages 3-8 of the lm config).  Then the checks:
-    K1 on every stage-4 input (the base's, and the lm run's equal to them),
-    16 stage-4 embeddings and the score files against the CPU, the stage-8
-    program (torch.export.load) against the eager model on the card, the
-    exported directory through cli.speaker.Speaker against stage 4, and 3
-    profiled base steps.  Returns the K1 launches of the two stage 4s."""
+    fine-tune at batch 64 x 600 frames, margin 0.5), by recipe_1_to_9.
+    Returns the K1 launches of the two stage 4s."""
+    return recipe_1_to_9(report, root, "resnet", RESNET_CONFIG, RESNET_LM_CONFIG,
+                         ([1] * 2 * RECIPE_EPOCH_STEPS, [1] * RECIPE_LM_STEPS))
+
+
+def recipe_1_to_9(report, root, fam, config_path, lm_config_path, want_calls):
+    """recipes.voxceleb_v2 stages 1-9 on the card with a recipe config and
+    its lm config as the port's reader parses them, overriding only paths
+    and the run's length (base: 2 epochs of RECIPE_EPOCH_STEPS steps of 128
+    x 200 frames, 2 checkpoints averaged; lm: 1 epoch of RECIPE_LM_STEPS
+    steps of 64 x 600 frames, num_avg 1), on write_recipe_data's 1,536
+    utterances in 2 shards.  Three calls, each with K1's count set to 0 just
+    before and read just after: stages 1-3, stages 4-8, stage 9 (stages 3-8
+    of the lm config).  Then the checks: the train step calls `want_calls`
+    (base, lm), K1 on every stage-4 input (the base's, and the lm run's
+    equal to them), 16 stage-4 embeddings and the score files against the
+    CPU, the stage-8 program (torch.export.load) against the eager model on
+    the card, the exported directory through cli.speaker.Speaker against
+    stage 4, and 3 profiled base steps.  `fam` names the report's key and
+    the log's tag.  Returns the K1 launches of the two stage 4s."""
     import logging
 
     from wespeaker_hubert_tpu_torch.bin import train as bin_train
@@ -2866,13 +2898,13 @@ def phase_resnet_recipe(report, root):
     from wespeaker_hubert_tpu_torch.utils.embeddings import embeddings_dict
 
     data = os.path.join(root, "data")
-    exp, exp_lm = os.path.join(root, "exp_resnet"), os.path.join(root, "exp_resnet_lm")
+    exp, exp_lm = os.path.join(root, f"exp_{fam}"), os.path.join(root, f"exp_{fam}_lm")
     t0 = time.perf_counter()
     if os.path.exists(os.path.join(data, "vox1", "vox1_O_cleaned.kaldi")):
         seconds = report["recipe"]["audio_s"]  # phase_recipe's data, in the same root
     else:
         seconds = write_recipe_data(data)
-    out = report["resnet_recipe"] = {"data_write_s": time.perf_counter() - t0,
+    out = report[f"{fam}_recipe"] = {"data_write_s": time.perf_counter() - t0,
                                      "audio_s": seconds}
     trials = os.path.join(data, "vox1", "vox1_O_cleaned.kaldi")
     paths = [f"train_data={data}/vox2_dev/shard.list", f"train_label={data}/vox2_dev/utt2spk",
@@ -2880,12 +2912,13 @@ def phase_resnet_recipe(report, root):
              f"dataset_args.noise_data={data}/musan_aug_store"]
     # the overrides: paths and the length of the run, nothing else
     overrides = ([f"exp_dir={exp}"] + paths
-                 + ["num_epochs=2", "epoch_iter=12", "save_epoch_interval=1", "num_avg=2"]
+                 + ["num_epochs=2", f"epoch_iter={RECIPE_EPOCH_STEPS}", "save_epoch_interval=1",
+                    "num_avg=2"]
                  + [f"lm.exp_dir={exp_lm}"] + ["lm." + o for o in paths]
-                 + ["lm.num_epochs=1", "lm.epoch_iter=8", "lm.save_epoch_interval=1",
-                    "lm.num_avg=1"])
+                 + ["lm.num_epochs=1", f"lm.epoch_iter={RECIPE_LM_STEPS}",
+                    "lm.save_epoch_interval=1", "lm.num_avg=1"])
     out["overrides"] = overrides
-    common = ["--config", str(RESNET_CONFIG), "--lm_config", str(RESNET_LM_CONFIG),
+    common = ["--config", str(config_path), "--lm_config", str(lm_config_path),
               "--data_root", data, "--trials", trials, "--device", DEVICE] + overrides
     records = []
     handler = logging.Handler()
@@ -2945,123 +2978,142 @@ def phase_resnet_recipe(report, root):
         "lm_model_init": init_lines})
     for tag in ("base", "lm"):
         r = out["train"][tag]
-        log(f"[resnet {tag}] stage 3: {len(r['calls'])} steps of {r['batch']} x {r['chunk_s']:g} s,"
+        log(f"[{fam} {tag}] stage 3: {sum(r['calls'])} steps of {r['batch']} x {r['chunk_s']:g} "
+            f"s in calls of {sorted(set(r['calls']), reverse=True)},"
             f" per-step ms " + ", ".join(f"{x:.1f}" for x in r["step_ms_per_call"])
             + f"; after the first {r['step_ms_after_first']:.2f} ms per step = "
             f"{r['audio_s_per_s']:.0f} audio-s/s; peak memory "
             + (f"{r['peak_mem_gb']:.2f} GB" if DEVICE == "cuda" else "not measured")
             + f"; margins {sorted(set(r['margins']))}")
-    log(f"[resnet] stage seconds: " + ", ".join(f"{s} {d['s']:.1f}" for s, d in done.items())
+    log(f"[{fam}] stage seconds: " + ", ".join(f"{s} {d['s']:.1f}" for s, d in done.items())
         + "; stage 9's: " + ", ".join(f"{s} {d['s']:.1f}" for s, d in lm_done.items()))
-    log(f"[resnet] stage 4: base " + " | ".join(extract_base) + f"; lm " + " | ".join(extract_lm)
+    log(f"[{fam}] stage 4: base " + " | ".join(extract_base) + f"; lm " + " | ".join(extract_lm)
         + f"; loop rates {rate_base:.0f} / {rate_lm:.0f} audio-s/s, stage wall rates "
         f"{out['extract_stage4_audio_s_per_s']['base']:.0f} / "
         f"{out['extract_stage4_audio_s_per_s']['lm']:.0f}; K1 launches {out['k1_launches']}")
     for s in (5, 6, 7):
-        log(f"[resnet] stage {s}: base " + "; ".join(done[s]["lines"]) + " | lm "
+        log(f"[{fam}] stage {s}: base " + "; ".join(done[s]["lines"]) + " | lm "
             + "; ".join(lm_done[s]["lines"]))
-    log(f"[resnet] stage 8: " + "; ".join(done[8]["lines"] + lm_done[8]["lines"])
+    log(f"[{fam}] stage 8: " + "; ".join(done[8]["lines"] + lm_done[8]["lines"])
         + f"; the lm run's {init_lines}")
 
-    # K1 on every stage-4 input: the base's against its plain version, and
-    # the lm run's stage 4 gave it the same batches
-    base_in, lm_in = runs["export"]["k1_inputs"], runs["lm"]["k1_inputs"]
-    k1_rows, k1_matched = k1_on_eval_batches(
-        [os.path.join(data, d, "raw.list") for d in ("vox1", "vox2_dev")],
-        base_in) if DEVICE == "cuda" else ([], False)
-    lm_same = len(lm_in) == len(base_in) and all(torch.equal(a, b) for a, b in zip(lm_in, base_in))
-    out["k1_stage4_checks"] = k1_rows
-    log(f"[resnet] K1 on all {len(base_in)} stage-4 inputs against its plain version (bar as "
-        f"[recipe]; inputs {'match' if k1_matched else 'DO NOT match'} EvalPipeline's batches; "
-        f"the lm run's {len(lm_in)} inputs {'equal' if lm_same else 'DIFFER from'} them): "
-        + "; ".join(f"{tuple(r['shape'])} x{r['batches']}: {r['off_bar']} past the bar, valid "
-                    f"max|d| {r['valid']['max_abs_err']:.3e}" for r in k1_rows))
-    n_caught = {"base": len(base_in), "lm": len(lm_in), "stage 3": len(runs["base"]["k1_inputs"])}
-    del base_in, lm_in, runs
-    empty_cache()
-    cpu_bad = recipe_against_cpu(data, exp, out, RESNET_CONFIG, "resnet")
+    # the CPU's checks in a thread, beside the card's untimed ones below
+    pool = ThreadPoolExecutor(1)
+    cpu_run = pool.submit(recipe_against_cpu, data, exp, out, config_path, fam)
+    try:
+        # K1 on every stage-4 input: the base's against its plain version, and
+        # the lm run's stage 4 gave it the same batches
+        base_in, lm_in = runs["export"]["k1_inputs"], runs["lm"]["k1_inputs"]
+        k1_rows, k1_matched = k1_on_eval_batches(
+            [os.path.join(data, d, "raw.list") for d in ("vox1", "vox2_dev")],
+            base_in) if DEVICE == "cuda" else ([], False)
+        lm_same = len(lm_in) == len(base_in) and all(torch.equal(a, b)
+                                                     for a, b in zip(lm_in, base_in))
+        out["k1_stage4_checks"] = k1_rows
+        log(f"[{fam}] K1 on all {len(base_in)} stage-4 inputs against its plain version (bar as "
+            f"[recipe]; inputs {'match' if k1_matched else 'DO NOT match'} EvalPipeline's batches; "
+            f"the lm run's {len(lm_in)} inputs {'equal' if lm_same else 'DIFFER from'} them): "
+            + "; ".join(f"{tuple(r['shape'])} x{r['batches']}: {r['off_bar']} past the bar, valid "
+                        f"max|d| {r['valid']['max_abs_err']:.3e}" for r in k1_rows))
+        n_caught = {"base": len(base_in), "lm": len(lm_in),
+                    "stage 3": len(runs["base"]["k1_inputs"])}
+        del base_in, lm_in, runs
+        empty_cache()
 
-    # the stage-8 program against the eager model, on the card
-    program_cos = {}
-    for d, cfg in ((exp, base_cfg), (exp_lm, lm_cfg)):
-        exported = os.path.join(d, "exported")
-        program = load_program(os.path.join(exported, "model.pt2"), device=DEVICE)
-        net = build_speaker_net(json.loads(Path(exported, "config.json").read_text()))
-        load_speaker_state(net, torch.load(os.path.join(exported, "avg_model.pt"),
-                                           weights_only=True))
-        net.to(DEVICE).eval()
-        for b, t in PROGRAM_SHAPES:
-            feats = torch.from_numpy(np.random.default_rng(b * t).standard_normal(
-                (b, t, cfg["model_args"]["feat_dim"])).astype(np.float32)).to(DEVICE)
-            with torch.inference_mode():
-                got, want = program(feats), net.embed(feats)
-            program_cos[f"{os.path.basename(d)} ({b}, {t})"] = float(
-                torch.nn.functional.cosine_similarity(got.float(), want, dim=1).min())
-        del program, net
-    out["program_min_cosine"] = program_cos
-    log(f"[resnet] stage-8 torch.export program on the card against the eager model: min cosine "
-        + ", ".join(f"{k} {v:.7f}" for k, v in program_cos.items()) + f" (bar {COS_MIN['f32']})")
+        # the stage-8 program against the eager model, on the card
+        program_cos = {}
+        for d, cfg in ((exp, base_cfg), (exp_lm, lm_cfg)):
+            exported = os.path.join(d, "exported")
+            program = load_program(os.path.join(exported, "model.pt2"), device=DEVICE)
+            net = build_speaker_net(json.loads(Path(exported, "config.json").read_text()))
+            load_speaker_state(net, torch.load(os.path.join(exported, "avg_model.pt"),
+                                               weights_only=True))
+            net.to(DEVICE).eval()
+            for b, t in PROGRAM_SHAPES:
+                feats = torch.from_numpy(np.random.default_rng(b * t).standard_normal(
+                    (b, t, cfg["model_args"]["feat_dim"])).astype(np.float32)).to(DEVICE)
+                with torch.inference_mode():
+                    got, want = program(feats), net.embed(feats)
+                program_cos[f"{os.path.basename(d)} ({b}, {t})"] = float(
+                    torch.nn.functional.cosine_similarity(got.float(), want, dim=1).min())
+            del program, net
+        out["program_min_cosine"] = program_cos
+        log(f"[{fam}] stage-8 torch.export program on the card against the eager model: min cosine "
+            + ", ".join(f"{k} {v:.7f}" for k, v in program_cos.items())
+            + f" (bar {COS_MIN['f32']})")
 
-    # the exported directory through cli.speaker.Speaker against stage 4
-    speaker = Speaker(os.path.join(exp, "exported"), device=DEVICE)
-    card = embeddings_dict(os.path.join(exp, "embeddings", "vox1.npz"))
-    wavs = [ln.split() for ln in Path(data, "vox1", "wav.scp").read_text().splitlines()[:16]]
-    speaker_cos = [cosine(speaker.extract_embedding(w), card[k]) for k, w in wavs]
-    del speaker
-    empty_cache()
-    out["speaker_vs_stage4"] = {"n": len(speaker_cos), "min_cosine": min(speaker_cos),
-                                "bar": SPEAKER_COS_MIN}
-    log(f"[resnet] exported directory through cli.speaker.Speaker against stage 4: "
-        f"{len(speaker_cos)} utterances, min cosine {min(speaker_cos):.7f} (bar {SPEAKER_COS_MIN})")
-    out["profile"] = profile_recipe_steps(base_cfg, data, exp, "resnet profile")
+        # the exported directory through cli.speaker.Speaker against stage 4
+        speaker = Speaker(os.path.join(exp, "exported"), device=DEVICE)
+        card = embeddings_dict(os.path.join(exp, "embeddings", "vox1.npz"))
+        wavs = [ln.split() for ln in Path(data, "vox1", "wav.scp").read_text().splitlines()[:16]]
+        speaker_cos = [cosine(speaker.extract_embedding(w), card[k]) for k, w in wavs]
+        del speaker
+        empty_cache()
+        out["speaker_vs_stage4"] = {"n": len(speaker_cos), "min_cosine": min(speaker_cos),
+                                    "bar": SPEAKER_COS_MIN}
+        log(f"[{fam}] exported directory through cli.speaker.Speaker against stage 4: "
+            f"{len(speaker_cos)} utterances, min cosine {min(speaker_cos):.7f} "
+            f"(bar {SPEAKER_COS_MIN})")
+        cpu_bad = cpu_run.result()
+    finally:
+        pool.shutdown()
+    out["profile"] = profile_recipe_steps(base_cfg, data, exp, f"{fam} profile")
 
     check(sorted(done) == list(range(1, 10)) and sorted(lm_done) == list(range(3, 9)),
-          f"resnet: stages {sorted(done)}, stage 9's {sorted(lm_done)}")
-    check(out["train"]["base"]["calls"] == [1] * 24 and out["train"]["lm"]["calls"] == [1] * 8,
-          f"resnet: step calls {out['train']['base']['calls']} / {out['train']['lm']['calls']}")
+          f"{fam}: stages {sorted(done)}, stage 9's {sorted(lm_done)}")
+    check(out["train"]["base"]["calls"] == want_calls[0]
+          and out["train"]["lm"]["calls"] == want_calls[1],
+          f"{fam}: step calls {out['train']['base']['calls']} / {out['train']['lm']['calls']}")
     check(set(out["train"]["lm"]["margins"]) == {0.5},
-          f"resnet: the lm run's margins {out['train']['lm']['margins']}")
+          f"{fam}: the lm run's margins {out['train']['lm']['margins']}")
     check(init_lines == [f"model_init from {exp}/avg_model.pt (epoch 0, 0 missing, 0 unexpected)"],
-          f"resnet: the lm run's initialization {init_lines}")
+          f"{fam}: the lm run's initialization {init_lines}")
     k1 = out["k1_launches"]
     check(k1["base"] == 0 and n_caught["stage 3"] == 0,
-          f"resnet: the dithered train step launched K1 {k1['base']} times")
+          f"{fam}: the dithered train step launched K1 {k1['base']} times")
     check(k1["export"] > 0 and k1_matched and n_caught["base"] == k1["export"],
-          f"resnet: stage 4's K1 inputs do not match EvalPipeline's batches ({n_caught}, {k1})")
+          f"{fam}: stage 4's K1 inputs do not match EvalPipeline's batches ({n_caught}, {k1})")
     check(lm_same and k1["lm"] == k1["export"],
-          f"resnet: the lm run's K1 launches {k1['lm']} are not its stage 4's")
+          f"{fam}: the lm run's K1 launches {k1['lm']} are not its stage 4's")
     check(all(r["off_bar"] == 0 and r["finite"] for r in k1_rows),
-          "resnet: K1 disagrees with its plain version on a stage-4 input")
-    check(not cpu_bad, "resnet: " + "; ".join(cpu_bad))
-    check(min(program_cos.values()) >= COS_MIN["f32"], f"resnet: program vs eager {program_cos}")
-    check(min(speaker_cos) >= SPEAKER_COS_MIN, f"resnet: Speaker vs stage 4 {speaker_cos}")
+          f"{fam}: K1 disagrees with its plain version on a stage-4 input")
+    check(not cpu_bad, f"{fam}: " + "; ".join(cpu_bad))
+    check(min(program_cos.values()) >= COS_MIN["f32"], f"{fam}: program vs eager {program_cos}")
+    check(min(speaker_cos) >= SPEAKER_COS_MIN, f"{fam}: Speaker vs stage 4 {speaker_cos}")
     for s in (5, 6, 7):
         for lines in (done[s]["lines"], lm_done[s]["lines"]):
-            check(len(lines) == 1 and " EER " in lines[0], f"resnet: stage {s} printed {lines}")
+            check(len(lines) == 1 and " EER " in lines[0], f"{fam}: stage {s} printed {lines}")
     return k1["export"], k1["lm"]
 
 
 def phase_resnet_step_check(report):
     """One float32 train step of ResNet34 at full width (resnet34.yaml: 32
     channels, 80 mels, 256-d, TSTP, ArcMargin over 17,982 classes; batch 16
-    x 2 s, speed perturbation, 2 reverb and 2 noise rows, dither 0, SpecAug
-    off) on the card against the same step on the CPU: loss within 1e-5
-    relative, every tensor's update by _update_agreement (cosine >= 0.9999,
-    or within CONTROL_SLACK x the control's difference, the control the
-    card on the wav times 1 + 2^-20, or at the noise floor).  The first
-    BatchNorm reduces 16 x 200 x 80 positions per channel with flax's
-    E[x^2] - E[x]^2 in float32, whose rounding the card and the CPU sum in
-    another order: the control measures how far the step moves under an
-    input change of that size, and the bar is relative to it."""
-    batch = _ecapa_check_batch(RESNET_CHECK_SEED, RESNET_CHECK_BATCH)
+    x 2 s) on the card against the CPU, by step_vs_cpu."""
+    report["resnet_step_check"] = step_vs_cpu(RESNET_CONFIG, RESNET_CHECK_SEED, "resnet step")
+
+
+def step_vs_cpu(config_path, seed, tag):
+    """One float32 train step of a recipe config's model at full width
+    (ArcMargin over 17,982 classes; batch RESNET_CHECK_BATCH x 2 s, speed
+    perturbation, reverb and noise rows, dither 0, SpecAug off) on the card
+    against the same step on the CPU: loss within 1e-5 relative, every
+    tensor's update by _update_agreement (cosine >= 0.9999, or within
+    CONTROL_SLACK x the control's difference, the control the card on the
+    wav times 1 + 2^-20, or at the noise floor).  The first BatchNorm
+    reduces 16 x 200 x 80 positions per channel with flax's E[x^2] - E[x]^2
+    in float32, whose rounding the card and the CPU sum in another order:
+    the control measures how far the step moves under an input change of
+    that size, and the bar is relative to it.  Returns the report entry."""
+    batch = _ecapa_check_batch(seed, RESNET_CHECK_BATCH)
     res = {}
-    for tag, dev, scale in (("card", DEVICE, False), ("cpu", "cpu", False),
-                            ("control", DEVICE, True)):
-        net, state, step = _ecapa_net(dev, config_path=RESNET_CONFIG, seed=RESNET_CHECK_SEED)
+    for kind, dev, scale in (("card", DEVICE, False), ("cpu", "cpu", False),
+                             ("control", DEVICE, True)):
+        net, state, step = _ecapa_net(dev, config_path=config_path, seed=seed)
         b = {k: v.to(dev) for k, v in batch.items()}
         t0 = time.perf_counter()
-        res[tag] = _one_step(net, state, step, _perturbed(b) if scale else b, prefix="")
-        res[tag + "_s"] = time.perf_counter() - t0
+        res[kind] = _one_step(net, state, step, _perturbed(b) if scale else b, prefix="")
+        res[kind + "_s"] = time.perf_counter() - t0
         del net, state, step
     empty_cache()
     loss_rel = abs(res["card"][0] - res["cpu"][0]) / abs(res["cpu"][0])
@@ -3069,20 +3121,512 @@ def phase_resnet_step_check(report):
     control = _diff_table(res["control"][1], res["card"][1])
     failing, how = _update_agreement(pair, control, 0.9999, res["cpu"][2])
     worst = sorted(pair.items(), key=lambda kv: kv[1][0])[:4]
-    out = report["resnet_step_check"] = {
+    out = {
         "loss": [res["card"][0], res["cpu"][0]], "loss_rel": loss_rel,
         "updates_rel_l2": _rel_l2(res["card"][1], res["cpu"][1]),
         "control_updates_rel_l2": _rel_l2(res["control"][1], res["card"][1]),
         "n_tensors": len(pair), "passed_by": how, "worst": worst, "failing": failing,
         "cpu_step_s": res["cpu_s"], "card_step_s_first": res["card_s"]}
-    log(f"[resnet step] f32 ResNet34 step at full width ({3 * RECIPE_SPEAKERS} classes, batch "
+    name = Path(config_path).stem
+    log(f"[{tag}] f32 {name} step at full width ({3 * RECIPE_SPEAKERS} classes, batch "
         f"{RESNET_CHECK_BATCH} x 2 s), card vs CPU: loss {res['card'][0]:.6f} vs "
         f"{res['cpu'][0]:.6f} (rel {loss_rel:.2e}, bar 1e-5); updates relative L2 "
         f"{out['updates_rel_l2']:.2e} (control {out['control_updates_rel_l2']:.2e}); of "
         f"{len(pair)} tensors {how['cosine']} at cosine >= 0.9999, {how['within_control']} "
         f"within the control, {how['noise_floor']} at the noise floor, {len(failing)} failing; "
         f"least cosines {worst}; CPU step {res['cpu_s']:.1f} s")
-    check(loss_rel <= 1e-5 and not failing, "resnet step: card step vs CPU step")
+    check(loss_rel <= 1e-5 and not failing, f"{tag}: {name}'s card step vs CPU step")
+    return out
+
+
+# ----------------------------------------------- CAM++, Res2Net, ERes2Net
+CAMPPLUS_CONFIG = Path(__file__).resolve().parent / "examples/voxceleb/v2/conf/campplus.yaml"
+CAMPPLUS_LM_CONFIG = Path(__file__).resolve().parent / "examples/voxceleb/v2/conf/campplus_lm.yaml"
+ZOO_CONFIGS = {name: Path(__file__).resolve().parent / f"examples/voxceleb/v2/conf/{name}.yaml"
+               for name in ("eres2net", "res2net")}
+ZOO_CHECK_SEED = 20251023
+ZOO_TIMED_BATCH, ZOO_TIMED_STEPS = 128, 3  # the recipe's batch, 2 s chunks
+
+
+def phase_campplus_recipe(report, root):
+    """recipes.voxceleb_v2 stages 1-9 on the card with campplus.yaml and
+    campplus_lm.yaml as the port's reader parses them (CAMPPlus, 80 mels,
+    512-d, TSTP, ArcMargin over 3 x 5,994 classes, batch 128 x 2 s,
+    `loop_steps: 8`, float32; the lm fine-tune at batch 64 x 600 frames,
+    margin 0.5), by recipe_1_to_9 on phase_recipe's data.  Returns the K1
+    launches of the two stage 4s."""
+    # loop_steps 8: an epoch of 8 steps is one 8-step call
+    return recipe_1_to_9(report, root, "campplus", CAMPPLUS_CONFIG, CAMPPLUS_LM_CONFIG,
+                         ([8] * 2, [1] * RECIPE_LM_STEPS))
+
+
+def phase_zoo_step_check(report):
+    """ERes2Net34_Base (eres2net.yaml: 32 channels, 512-d) and
+    Res2Net34_Base (res2net.yaml: 32 channels, 256-d) at full width with
+    seeded weights: (a) one float32 train step on the card against the CPU
+    (step_vs_cpu); (b) eval embeddings of a padded batch through
+    make_eval_embed with K1 (3 x 3 s, lengths 3, 1.9 and 0.8 s), the card
+    against the CPU's plain path, cosine >= 0.99999; (c) ZOO_TIMED_STEPS
+    float32 steps at batch 128 x 2 s on the card, each timed with a device
+    synchronize after a warm one, and the peak memory."""
+    from wespeaker_hubert_tpu_torch.models.speaker_net import build_speaker_net, load_speaker_state
+    from wespeaker_hubert_tpu_torch.ops import fbank_kernel
+    from wespeaker_hubert_tpu_torch.ops.fbank import FbankConfig
+    from wespeaker_hubert_tpu_torch.ops.pipeline import FeaturePipelineConfig
+    from wespeaker_hubert_tpu_torch.train.executor import make_eval_embed
+    from wespeaker_hubert_tpu_torch.utils.config import load_config
+
+    out = report["zoo_step_check"] = {}
+    rng = np.random.default_rng(ZOO_CHECK_SEED)
+    wav = torch.from_numpy(np.stack([speechlike(rng, 3.0, f0) for f0 in (110, 180, 240)]))
+    lengths = torch.tensor([48000, 30400, 12800], dtype=torch.int32)
+    fcfg = FeaturePipelineConfig(fbank=FbankConfig(dither=0.0, spectrum_impl="kernel"),
+                                 spec_aug=False)
+    bad = []
+    for name, path in ZOO_CONFIGS.items():
+        r = out[name] = {"step": step_vs_cpu(path, ZOO_CHECK_SEED, f"zoo step {name}")}
+        config = load_config(str(path))
+        embs = {}
+        for dev in ("cpu", DEVICE):
+            net = build_speaker_net(config)
+            missing, _ = load_speaker_state(net, seeded_state_dict(net.backbone, ZOO_CHECK_SEED))
+            check(not missing, f"zoo {name}: seeded weights miss {missing[:4]}")
+            net.to(dev).eval()
+            launches = fbank_kernel.LAUNCHES
+            embs[dev] = make_eval_embed(net, fcfg)({"wav": wav.to(dev),
+                                                    "length": lengths.to(dev)}).cpu().numpy()
+            r.setdefault("k1_launches", {})[dev] = fbank_kernel.LAUNCHES - launches
+            del net
+        cos = [cosine(a, b) for a, b in zip(embs[DEVICE], embs["cpu"])]
+        r["embeddings"] = {"min_cosine": min(cos), "bar": COS_MIN["f32"],
+                           "shape": list(embs[DEVICE].shape)}
+        # timed steps at the recipe's batch
+        net, state, step = _ecapa_net(DEVICE, config_path=path, seed=ZOO_CHECK_SEED)
+        batch = {k: v.to(DEVICE) for k, v in _ecapa_check_batch(ZOO_CHECK_SEED + 1,
+                                                                ZOO_TIMED_BATCH).items()}
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for i in range(1 + ZOO_TIMED_STEPS):
+            sync()
+            t0 = time.perf_counter()
+            step(state, batch)
+            sync()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        r["timed"] = {"batch": ZOO_TIMED_BATCH, "chunk_s": 2.0, "step_ms": ms,
+                      "step_ms_after_first": statistics.mean(ms[1:]),
+                      "audio_s_per_s": ZOO_TIMED_BATCH * 2.0 / (statistics.mean(ms[1:]) / 1e3),
+                      "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                      if DEVICE == "cuda" else "not measured")}
+        del net, state, step, batch
+        empty_cache()
+        t = r["timed"]
+        log(f"[zoo {name}] {config['model']} eval embeddings through K1 ({r['k1_launches']} "
+            f"launches), card vs CPU: min cosine {min(cos):.7f} (bar {COS_MIN['f32']}); "
+            f"{ZOO_TIMED_STEPS} f32 steps at {ZOO_TIMED_BATCH} x 2 s: "
+            + ", ".join(f"{x:.1f}" for x in ms) + f" ms, {t['step_ms_after_first']:.2f} ms "
+            f"after the first = {t['audio_s_per_s']:.0f} audio-s/s; peak memory "
+            + (f"{t['peak_mem_gb']:.2f} GB" if DEVICE == "cuda" else "not measured"))
+        shape = (3, config["model_args"]["embed_dim"])
+        if min(cos) < COS_MIN["f32"] or embs[DEVICE].shape != shape:
+            bad.append(f"{name} embeddings {embs[DEVICE].shape}, cosines {cos}")
+        if DEVICE == "cuda" and r["k1_launches"] != {"cpu": 0, DEVICE: 1}:
+            bad.append(f"{name} K1 launches {r['k1_launches']}")
+    check(not bad, "zoo: " + "; ".join(bad))
+
+
+# ------------------------------------------------- the WavLM staged recipe
+WAVLM_CONFIG = (Path(__file__).resolve().parent
+                / "examples/voxceleb/v2/conf/ecapa_tdnn_wavlm_frozen.yaml")
+WAVLM_SEED = 20251024
+# the run's length: stage 1 3 epochs, stage 2 2, stage 3 1, of WAVLM_EPOCH_STEPS steps
+WAVLM_EPOCH_STEPS = 2
+WAVLM_STAGE_STEPS = {1: 3 * WAVLM_EPOCH_STEPS, 2: 2 * WAVLM_EPOCH_STEPS, 3: WAVLM_EPOCH_STEPS}
+WAVLM_CPU_UTTS = 16  # stage-3 embeddings re-extracted in float32 on the CPU
+WAVLM_EXTRA = []  # more overrides, for a CPU rehearsal (the upstream, batch sizes)
+# 16 bf16 stage-3 embeddings against float32 bin/extract on the CPU: min
+# cosine 0.9998351 at these weights (1 - cosine 1.649e-4).  The JAX
+# package's bf16 path cannot run here; at data-matched BatchNorm statistics
+# on the CPU it loses as much as the port's (the port within 1.25 x JAX's
+# loss, tests/test_torch_port_wavlm_bf16.py), so the bar allows the
+# reading that margin: 1 - 1.25 x 1.649e-4 = 0.99979, rounded up.
+WAVLM_BF16_COS_MIN = 0.9998
+# one bf16 stage-2 step against the float32 step at the same weights and
+# batch, each bar between the sound reading and a control, a fault of the
+# bf16 path (PERF.md section 2): the loss (sound 5.83e-4 relative) against
+# the bf16 step with the norm layers' statistics taken in bf16 (2.41e-2),
+# the whole update (relative L2, sound 2.965e-3) against the bf16 update
+# held in bf16 weights, no float32 master weights (1.965e-2); H100 80GB
+# HBM3, 700 W.  The phase fails if a control does not exceed its bar.
+WAVLM_BF16_LOSS_BAR, WAVLM_BF16_UPDATE_BAR = 2e-3, 1e-2
+
+
+def _wavlm_step_net(config, ckpt, compute_dtype):
+    """Stage 2's model (`config`, the frontend unfrozen, 3 x 5,994 classes)
+    with `ckpt`'s weights on the card, its TrainState and train step in
+    `compute_dtype` (None: float32)."""
+    from wespeaker_hubert_tpu_torch.bin.train import _feature_cfg
+    from wespeaker_hubert_tpu_torch.models.speaker_net import build_speaker_net, load_speaker_state
+    from wespeaker_hubert_tpu_torch.train.executor import make_train_step
+    from wespeaker_hubert_tpu_torch.train.schedulers import ExponentialDecrease, MarginSchedule
+    from wespeaker_hubert_tpu_torch.train.state import TrainState, make_optimizer
+
+    torch.manual_seed(0)
+    net = build_speaker_net(config, 3 * RECIPE_SPEAKERS)
+    missing, unexpected = load_speaker_state(
+        net, torch.load(ckpt, map_location="cpu", weights_only=True))
+    check(not missing and not unexpected, f"wavlm step: {missing[:4]} {unexpected[:4]}")
+    net.to(DEVICE)
+    lr = ExponentialDecrease(num_epochs=2, epoch_iter=WAVLM_EPOCH_STEPS, initial_lr=1e-4,
+                             final_lr=5e-5, warm_up_epoch=2)
+    state = TrainState(net, make_optimizer(net), lr)
+    step = make_train_step(net, lr, MarginSchedule(WAVLM_EPOCH_STEPS, 0, 1, 0.0, 0.2),
+                           feature_cfg=_feature_cfg(config["dataset_args"]),
+                           chunk_samples=_chunk(config), compute_dtype=compute_dtype, seed=43)
+    return net, state, step
+
+
+def phase_wavlm_recipe(report, root):
+    """recipes.voxceleb_v2_wavlm stages 1-3 on the card with
+    ecapa_tdnn_wavlm_frozen.yaml as the port's reader parses it
+    (WavLM-Large, 24 x 1024, 16 heads; ECAPA_TDNN_GLOB_c512 at 1024 -> 192,
+    ASTP; ArcMargin over 3 x 5,994 classes, 5,994 in stage 3; batch 64 x 3
+    s, 6 s in stage 3; bf16 through enable_amp; speed perturbation, reverb /
+    noise, SpecAug), overriding only paths, the flash-attention knob, a
+    seeded model_init for stage 1 and the run's length (stage 1 3 epochs,
+    stage 2 `joint_epochs` 2, stage 3 `lmft_epochs` 1, of WAVLM_EPOCH_STEPS
+    steps, a checkpoint per epoch), on phase_recipe's shards.  Each stage is
+    one call of the driver, K2's counts set to 0 just before and read just
+    after.  Then: stage 1's checkpoints hold every `frontend.upstream`
+    tensor bitwise as model_init gave it; stages 2 and 3 start from the
+    previous stage's avg_model.pt (every tensor; stage 3's head fresh at
+    5,994 classes); 16 stage-3 embeddings through bin/extract, float32 on
+    the card against float32 on the CPU, bf16 on the card against float32 on
+    the CPU (WAVLM_BF16_COS_MIN) and bf16 with K2 against bf16 with plain
+    attention; a bf16 stage-2 step against the float32 step at the same
+    weights and batch, with a control for each bar; 3 profiled stage-3
+    steps.  Returns K2's launches per stage."""
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from wespeaker_hubert_tpu_torch.bin import train as bin_train
+    from wespeaker_hubert_tpu_torch.bin.extract import extract
+    from wespeaker_hubert_tpu_torch.bin.train import _to_device, read_spk2id
+    from wespeaker_hubert_tpu_torch.data.aug_store import AugStore
+    from wespeaker_hubert_tpu_torch.data.dataset import TrainPipeline, TrainPipelineConfig
+    from wespeaker_hubert_tpu_torch.models.speaker_net import build_speaker_net, speaker_state_dict
+    from wespeaker_hubert_tpu_torch.recipes import voxceleb_v2, voxceleb_v2_wavlm as recipe
+    from wespeaker_hubert_tpu_torch.utils.config import apply_overrides, load_config
+
+    data, exp = os.path.join(root, "data"), os.path.join(root, "exp_wavlm")
+    t0 = time.perf_counter()
+    if not os.path.exists(os.path.join(data, "vox2_dev", "shard.list")):
+        report.setdefault("recipe", {})["audio_s"] = write_recipe_data(data)
+        voxceleb_v2.main(["--stage", "1", "--stop_stage", "2", "--config", str(RECIPE_CONFIG),
+                          "--data_root", data, "--device", DEVICE])
+    init = os.path.join(root, "wavlm_init.pt")
+    overrides = [f"exp_dir={exp}", f"train_data={data}/vox2_dev/shard.list",
+                 f"train_label={data}/vox2_dev/utt2spk",
+                 f"dataset_args.reverb_data={data}/rirs_aug_store",
+                 f"dataset_args.noise_data={data}/musan_aug_store",
+                 "dataset_args.s3prl_args.attn_impl=flash", f"model_init={init}",
+                 "num_epochs=3", f"epoch_iter={WAVLM_EPOCH_STEPS}", "save_epoch_interval=1",
+                 "log_batch_interval=1", "joint_epochs=2", "lmft_epochs=1"] + WAVLM_EXTRA
+    base = apply_overrides(load_config(str(WAVLM_CONFIG)), overrides)
+    configs = recipe.stage_configs(base)
+    net = build_speaker_net(base)
+    torch.save(ssl_state_dict(net, WAVLM_SEED), init)
+    del net
+    out = report["wavlm_recipe"] = {"setup_s": time.perf_counter() - t0, "overrides": overrides}
+    common = ["--config", str(WAVLM_CONFIG), "--device", DEVICE] + overrides
+
+    started, timer = {}, _StepTimer()
+    make = bin_train.make_train_step
+
+    def spying(model, *args, **kwargs):
+        # each stage's model as its train step is made (after model_init)
+        started[len(started) + 1] = {k: v.detach().cpu().clone()
+                                     for k, v in speaker_state_dict(model).items()}
+        return timer(make)(model, *args, **kwargs)
+
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: records.append(rec.getMessage())
+    logging.getLogger("train").addHandler(handler)
+    bin_train.make_train_step = spying
+    done, launches, peak_gb, calls = {}, {}, {}, {}
+    try:
+        for s in (1, 2, 3):
+            if DEVICE == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            n_calls = len(timer.calls)
+            _zero_counts()
+            done.update(recipe.main(["--stage", str(s), "--stop_stage", str(s)] + common))
+            sync()
+            launches[s] = dict(zip(("fwd", "dkv", "dq", "bias_copies"), _counts()))
+            peak_gb[s] = (torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda"
+                          else "not measured")
+            calls[s] = timer.calls[n_calls:]
+    finally:
+        bin_train.make_train_step = make
+        logging.getLogger("train").removeHandler(handler)
+    init_lines = [r for r in records if r.startswith("model_init")]
+    stages = {}
+    for s in (1, 2, 3):
+        cfg = configs[s]
+        batch, chunk_s = cfg["dataloader_args"]["batch_size"], cfg["dataset_args"]["num_frms"] / 100
+        # all the work over all the time of every call after the first
+        after = calls[s][1:]
+        ms = 1e3 * sum(t for _, t in after) / sum(n for n, _ in after) if after else None
+        losses = [json.loads(ln)["loss"]
+                  for ln in open(os.path.join(done[s]["exp_dir"], "metrics.jsonl"))]
+        stages[s] = {"s": done[s]["s"], "calls": [n for n, _ in calls[s]],
+                     "step_ms_per_call": [1e3 * t / n for n, t in calls[s]],
+                     "step_ms_after_first": ms if after else "not measured", "batch": batch,
+                     "chunk_s": chunk_s, "losses": losses, "peak_mem_gb": peak_gb[s],
+                     "audio_s_per_s": batch * chunk_s / (ms / 1e3) if after else "not measured",
+                     "k2_launches": launches[s]}
+        rate = (f"after the first {ms:.2f} ms per step = {stages[s]['audio_s_per_s']:.1f} "
+                "audio-s/s" if after else "one step: no time after the first")
+        log(f"[wavlm stage {s}] {recipe.STAGES[s][1]}: {len(calls[s])} steps of {batch} x "
+            f"{chunk_s:g} s, per-step ms " + ", ".join(f"{x:.1f}" for x in
+                                                        stages[s]["step_ms_per_call"])
+            + f"; {rate}; losses " + ", ".join(f"{x:.3f}" for x in losses) + "; peak memory "
+            + (f"{peak_gb[s]:.2f} GB" if DEVICE == "cuda" else "not measured")
+            + f"; K2 launches {launches[s]}; stage {done[s]['s']:.1f} s")
+    out["stages"] = stages
+    out["model_init_lines"] = init_lines
+
+    # stage 1 left the frozen encoder bitwise; stages 2-3 start from the averages
+    init_sd = torch.load(init, map_location="cpu", weights_only=True)
+    upstream = [k for k in init_sd if k.startswith("frontend.upstream.")]
+    frozen_changed = []
+    for n in range(1, 4):
+        saved = torch.load(os.path.join(done[1]["exp_dir"], "models", f"model_{n}.pt"),
+                           map_location="cpu", weights_only=True)
+        frozen_changed += [f"model_{n}:{k}" for k in upstream if not torch.equal(saved[k],
+                                                                                init_sd[k])]
+        featurizer_moved = not torch.equal(saved["frontend.featurizer_weights"],
+                                           init_sd["frontend.featurizer_weights"])
+        del saved
+    start_diff = {}
+    for s in (2, 3):
+        avg = torch.load(done[s - 1]["avg_model"], map_location="cpu", weights_only=True)
+        start_diff[s] = [k for k in avg if not (s == 3 and k == "projection.weight")
+                         and not torch.equal(started[s][k], avg[k])]
+        del avg
+    # stage 3's head: 5,994 rows where stage 2's average has 3 x 5,994, so
+    # bin/train skips it (the "1 unexpected" below) and it keeps the init
+    # bin/train seeds
+    head_fresh = tuple(started[3]["projection.weight"].shape) == (RECIPE_SPEAKERS, 192)
+    del started, init_sd
+    out.update({"frozen_upstream_tensors": len(upstream), "frozen_changed": frozen_changed,
+                "featurizer_trained_in_stage_1": featurizer_moved,
+                "start_differs": start_diff, "stage3_head_fresh": head_fresh})
+    log(f"[wavlm] stage 1's 3 checkpoints left {len(upstream) - len(frozen_changed)} of "
+        f"{len(upstream)} frontend.upstream tensors bitwise as model_init gave them (featurizer "
+        f"weights {'trained' if featurizer_moved else 'unchanged'}); stages 2 / 3 started from "
+        f"the previous average with {len(start_diff[2])} / {len(start_diff[3])} tensors "
+        f"different; stage 3's head fresh at {RECIPE_SPEAKERS} classes: {head_fresh}; "
+        f"bin/train: {init_lines}")
+
+    # 16 stage-3 embeddings: float32 bin/extract on the CPU (in a thread,
+    # beside the card's untimed extractions) against float32 and bf16 on the
+    # card; bf16 with K2 against bf16 with plain attention on the card.  The
+    # shortest 16 of the eval list (3-4 s): the CPU's float32 WavLM-Large
+    rows = Path(data, "vox1", "raw.list").read_text().splitlines()
+    rows = sorted(rows, key=lambda r: os.path.getsize(json.loads(r)["wav"]))[:WAVLM_CPU_UTTS]
+    sub = os.path.join(root, "wavlm_vox1_16.list")
+    Path(sub).write_text("\n".join(rows) + "\n")
+    t1 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        cpu_run = pool.submit(extract, configs[3], sub, done[3]["avg_model"], "", device="cpu")
+        card, launches_extract = {}, {}
+        for tag, dtype, impl in (("bf16", "bf16", "flash"), ("bf16_plain_attention", "bf16",
+                                                              "einsum"), ("f32", None, "flash")):
+            cfg = copy.deepcopy(configs[3])
+            cfg["dataset_args"]["s3prl_args"]["attn_impl"] = impl
+            if dtype:
+                cfg["compute_dtype"] = dtype
+            _zero_counts()
+            keys, card[tag] = extract(cfg, sub, done[3]["avg_model"], "", device=DEVICE)
+            launches_extract[tag] = _counts()[0]
+        cpu_keys, cpu = cpu_run.result()
+    cos = {tag: [cosine(a, b) for a, b in zip(card[tag], cpu)] for tag in ("bf16", "f32")}
+    cos["bf16_k2_vs_plain"] = [cosine(a, b) for a, b in zip(card["bf16"],
+                                                            card["bf16_plain_attention"])]
+    extract_launches = launches_extract["bf16"]
+    out["stage3_embeddings"] = {
+        "n": len(rows), "k2_launches": launches_extract, "cpu_s": time.perf_counter() - t1,
+        **{k: {"min_cosine": min(v), "median_cosine": statistics.median(v)}
+           for k, v in cos.items()},
+        "bars": {"f32": COS_MIN["f32"], "bf16_k2_vs_plain": COS_MIN["bf16"],
+                 "bf16": WAVLM_BF16_COS_MIN}}
+    log(f"[wavlm] {len(rows)} stage-3 embeddings through bin/extract, against float32 on the "
+        f"CPU: float32 on the card min cosine {min(cos['f32']):.7f} (bar {COS_MIN['f32']}); bf16 "
+        f"on the card min {min(cos['bf16']):.7f} (bar {WAVLM_BF16_COS_MIN}), median "
+        f"{statistics.median(cos['bf16']):.7f}; "
+        f"bf16 with K2 against bf16 with plain attention min "
+        f"{min(cos['bf16_k2_vs_plain']):.7f} (bar {COS_MIN['bf16']}); K2 launches "
+        f"{launches_extract}; {out['stage3_embeddings']['cpu_s']:.1f} s with the CPU's")
+
+    # a bf16 stage-2 step against the float32 step: same weights (stage 1's
+    # average, stage 2's start), same batch
+    cfg2 = configs[2]
+    da = cfg2["dataset_args"]
+    pipe = TrainPipeline(
+        Path(data, "vox2_dev", "shard.list").read_text().split(),
+        read_spk2id(os.path.join(data, "vox2_dev", "utt2spk")),
+        TrainPipelineConfig(data_type="shard", num_frms=da["num_frms"],
+                            batch_size=cfg2["dataloader_args"]["batch_size"],
+                            shuffle_size=da["shuffle_args"]["shuffle_size"], seed=7),
+        AugStore(root=os.path.join(data, "rirs_aug_store")),
+        AugStore(root=os.path.join(data, "musan_aug_store")))
+    batch = _to_device(next(iter(pipe)), torch.device(DEVICE))
+    res = {}
+    for tag, dtype in (("bf16", torch.bfloat16), ("f32", None)):
+        net, state, step = _wavlm_step_net(cfg2, done[1]["avg_model"], dtype)
+        if dtype is not None:
+            start = {k: v.detach().float().cpu().clone() for k, v in net.state_dict().items()
+                     if v.is_floating_point()}
+        res[tag] = _one_step(net, state, step, batch, prefix="")
+        del net, state, step
+        empty_cache()
+    # the controls, two faults of the bf16 path: the norm layers'
+    # statistics taken in bf16 (models/norm.py takes them in float32, as the
+    # JAX package does), and no float32 master weights (the bf16 step's
+    # update as bf16 weights would hold it)
+    from wespeaker_hubert_tpu_torch.models import norm
+
+    net, state, step = _wavlm_step_net(cfg2, done[1]["avg_model"], torch.bfloat16)
+    upcast, norm.upcast = norm.upcast, lambda x: x
+    try:
+        ctrl_loss = abs(_one_step(net, state, step, batch, prefix="projection.")[0]
+                        - res["f32"][0]) / abs(res["f32"][0])
+    finally:
+        norm.upcast = upcast
+    del net, state, step
+    empty_cache()
+    ctrl_upd = _rel_l2({k: (start[k].bfloat16().float() + v).bfloat16().float()
+                        - start[k].bfloat16().float() for k, v in res["bf16"][1].items()},
+                       res["f32"][1])
+    del start
+    loss_rel = abs(res["bf16"][0] - res["f32"][0]) / abs(res["f32"][0])
+    upd_rel = _rel_l2(res["bf16"][1], res["f32"][1])
+    pair = _diff_table(res["bf16"][1], res["f32"][1])
+    worst = sorted(pair.items(), key=lambda kv: kv[1][0])[:4]
+    out["bf16_vs_f32_step"] = {
+        "loss": [res["bf16"][0], res["f32"][0]], "loss_rel": loss_rel,
+        "loss_bar": WAVLM_BF16_LOSS_BAR, "updates_rel_l2": upd_rel,
+        "updates_bar": WAVLM_BF16_UPDATE_BAR, "worst": worst,
+        "control_loss_rel": ctrl_loss, "control_loss_fault": "the bf16 step with the norm "
+        "layers' statistics taken in bf16", "control_updates_rel_l2": ctrl_upd,
+        "control_updates_fault": "the bf16 step's update held in bf16 weights (no float32 "
+                                 "master weights)"}
+    log(f"[wavlm] a bf16 stage-2 step against the float32 step (batch {batch['label'].shape[0]} "
+        f"x {da['num_frms'] / 100:g} s, stage 1's average): loss {res['bf16'][0]:.5f} vs "
+        f"{res['f32'][0]:.5f} (rel {loss_rel:.3e}, bar {WAVLM_BF16_LOSS_BAR}; control, the "
+        f"norm statistics in bf16, {ctrl_loss:.3e}); updates relative L2 {upd_rel:.3e} (bar "
+        f"{WAVLM_BF16_UPDATE_BAR}; control, no float32 master weights, {ctrl_upd:.3e}); least "
+        f"cosines {worst}")
+    del res, pair
+
+    # 3 profiled stage-3 steps from stage 3's average, bf16
+    prof_out = "not measured"
+    if DEVICE == "cuda":
+        cfg3 = configs[3]
+        pipe = TrainPipeline(
+            Path(data, "vox2_dev", "shard.list").read_text().split(),
+            read_spk2id(os.path.join(data, "vox2_dev", "utt2spk")),
+            TrainPipelineConfig(data_type="shard", num_frms=cfg3["dataset_args"]["num_frms"],
+                                batch_size=cfg3["dataloader_args"]["batch_size"],
+                                speed_perturb=False, seed=8),
+            AugStore(root=os.path.join(data, "rirs_aug_store")),
+            AugStore(root=os.path.join(data, "musan_aug_store")))
+        batch3 = _to_device(next(iter(pipe)), torch.device(DEVICE))
+        from wespeaker_hubert_tpu_torch.bin.train import _feature_cfg
+        from wespeaker_hubert_tpu_torch.models.speaker_net import load_speaker_state
+        from wespeaker_hubert_tpu_torch.train.executor import make_train_step
+        from wespeaker_hubert_tpu_torch.train.schedulers import ExponentialDecrease, MarginSchedule
+        from wespeaker_hubert_tpu_torch.train.state import TrainState, make_optimizer
+
+        net = build_speaker_net(cfg3, RECIPE_SPEAKERS)
+        load_speaker_state(net, torch.load(done[3]["avg_model"], map_location="cpu",
+                                           weights_only=True))
+        net.to(DEVICE)
+        lr = ExponentialDecrease(num_epochs=1, epoch_iter=WAVLM_EPOCH_STEPS, initial_lr=2e-5,
+                                 final_lr=5e-5, warm_up_epoch=1)
+        state = TrainState(net, make_optimizer(net), lr)
+        step = make_train_step(net, lr, MarginSchedule(WAVLM_EPOCH_STEPS, 1, 1, 0.5, 0.5),
+                               feature_cfg=_feature_cfg(cfg3["dataset_args"]),
+                               chunk_samples=_chunk(cfg3), compute_dtype=torch.bfloat16, seed=43)
+        for _ in range(2):
+            step(state, batch3)
+        sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            for _ in range(3):
+                step(state, batch3)
+            sync()
+            wall_us = (time.perf_counter() - t1) * 1e6
+        prof_out = grouped_profile(prof, wall_us, {"K2 flash_fwd": ("flash_fwd",),
+                                                   "K2 flash_bwd": ("flash_bwd",),
+                                                   **PROFILE_GROUPS})
+        prof_out["window"] = ("3 bf16 stage-3 steps, batch 64 x 6 s, WavLM-Large unfrozen + "
+                              f"ECAPA_TDNN_GLOB_c512, {RECIPE_SPEAKERS} classes")
+        shares = prof_out["shares"] if prof_out["device_ms"] else {}
+        prof_out["k2_share"] = (shares.get("K2 flash_fwd", 0.0) + shares.get("K2 flash_bwd", 0.0)
+                                if shares else "not measured")
+        del net, state, step, batch3, prof
+        empty_cache()
+        if prof_out["device_ms"]:
+            log(f"[wavlm profile] 3 bf16 stage-3 steps: device {prof_out['device_ms']:.2f} ms "
+                f"over {prof_out['wall_ms']:.2f} ms wall (idle share "
+                f"{prof_out['device_idle_share']:.4f}); K2 share {prof_out['k2_share']:.4f}; "
+                "shares " + ", ".join(f"{g} {v:.3f}" for g, v in shares.items()))
+            for g in ("K2 flash_fwd", "K2 flash_bwd", "GEMM", "conv", "elementwise"):
+                log(f"[wavlm profile]   {g}: " + "; ".join(prof_out["group_top"][g][:3]))
+        else:
+            log("[wavlm profile] torch.profiler reported no device time: not measured")
+    out["profile"] = prof_out
+
+    n = 24  # K2 launches once per layer and step
+    want = {1: (n * WAVLM_STAGE_STEPS[1], 0, 0), 2: (n * WAVLM_STAGE_STEPS[2],) * 3,
+            3: (n * WAVLM_STAGE_STEPS[3],) * 3}
+    got = {s: (v["fwd"], v["dkv"], v["dq"]) for s, v in launches.items()}
+    check(sorted(done) == [1, 2, 3], f"wavlm: stages {sorted(done)}")
+    check({s: stages[s]["calls"] for s in stages} == {s: [1] * k for s, k in
+                                                      WAVLM_STAGE_STEPS.items()},
+          f"wavlm: step calls {[stages[s]['calls'] for s in stages]}")
+    check(got == want and all(v["bias_copies"] == 0 for v in launches.values()),
+          f"wavlm: K2 launches {launches}, want (fwd, dkv, dq) {want}")
+    check(all(math.isfinite(x) for s in stages for x in stages[s]["losses"]),
+          "wavlm: a loss is not finite")
+    check(not frozen_changed, f"wavlm: stage 1 changed frozen tensors {frozen_changed[:4]}")
+    check(not start_diff[2] and not start_diff[3],
+          f"wavlm: stages 2 / 3 did not start from the averages: {start_diff}")
+    check(head_fresh, "wavlm: stage 3's head is not the fresh 5,994-class head")
+    check(init_lines[1:] == [f"model_init from {done[1]['avg_model']} (epoch 0, 0 missing, "
+                             "0 unexpected)",
+                             f"model_init from {done[2]['avg_model']} (epoch 0, 0 missing, "
+                             "1 unexpected)"], f"wavlm: bin/train's initialization {init_lines}")
+    check(len(cos["f32"]) == WAVLM_CPU_UTTS and keys == cpu_keys
+          and min(cos["f32"]) >= COS_MIN["f32"],
+          f"wavlm: stage-3 embeddings, float32 on the card against the CPU: {cos['f32']}")
+    check(min(cos["bf16_k2_vs_plain"]) >= COS_MIN["bf16"],
+          f"wavlm: stage-3 embeddings, bf16 K2 against plain attention: {cos['bf16_k2_vs_plain']}")
+    check(extract_launches > 0 and extract_launches % n == 0
+          and launches_extract["f32"] == extract_launches
+          and launches_extract["bf16_plain_attention"] == 0,
+          f"wavlm: the extractions launched K2 {launches_extract} times")
+    check(min(cos["bf16"]) >= WAVLM_BF16_COS_MIN,
+          f"wavlm: stage-3 embeddings, bf16 on the card against float32 on the CPU: {cos['bf16']}")
+    check(loss_rel <= WAVLM_BF16_LOSS_BAR < ctrl_loss
+          and upd_rel <= WAVLM_BF16_UPDATE_BAR < ctrl_upd,
+          f"wavlm: the bf16 stage-2 step against the float32 step: loss {loss_rel} (control "
+          f"{ctrl_loss}), updates {upd_rel} (control {ctrl_upd})")
+    return launches
 
 
 # ------------------------------------------------- the Whisper-PMFA recipe
@@ -3713,8 +4257,11 @@ def main():
         recipe_launches = timed("recipe", phase_recipe, report, recipe_dir)
         # the same data directory: stages 1-2 run again on it
         resnet_launches = timed("resnet recipe", phase_resnet_recipe, report, recipe_dir)
+        campplus_launches = timed("campplus recipe", phase_campplus_recipe, report, recipe_dir)
+        wavlm_launches = timed("wavlm recipe", phase_wavlm_recipe, report, recipe_dir)
     timed("ecapa step check", phase_ecapa_step_check, report)
     timed("resnet step check", phase_resnet_step_check, report)
+    timed("zoo step check", phase_zoo_step_check, report)
     with tempfile.TemporaryDirectory() as whisper_dir:
         whisper_launches = timed("whisper recipe", phase_whisper_recipe, report, whisper_dir)
     with tempfile.TemporaryDirectory() as score_dir:
@@ -3736,7 +4283,8 @@ def main():
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     if (failures or k1 is None or launches is None or k2_row is None or k2_launches is None
             or k2_bwd_row is None or train_launches is None or recipe_launches is None
-            or resnet_launches is None or whisper_launches is None):
+            or resnet_launches is None or whisper_launches is None or campplus_launches is None
+            or wavlm_launches is None):
         for f in failures:
             print(f"chip_smoke FAILED {f}", file=sys.stderr)
         return 1
@@ -3752,6 +4300,8 @@ def main():
         "launches_recipe_scope": "recipes.voxceleb_v2 stage 4: extraction of both lists",
         "launches_resnet_recipe": {"stage 4": resnet_launches[0],
                                    "stage 9 (its stage 4)": resnet_launches[1]},
+        "launches_campplus_recipe": {"stage 4": campplus_launches[0],
+                                     "stage 9 (its stage 4)": campplus_launches[1]},
         "max_abs_err": max(r["max_abs_err"] for r in report["fbank_checks"]),
         "max_err": max(r["max_abs_err"] for r in report["fbank_checks"]),
         "ms": k1["ms"],
@@ -3790,12 +4340,14 @@ def main():
         "bias": "factored gated bias: (h, T, T) table + (B, h, T) gate",
         "dtype": k2_row["dtype"],
         "launches_train": train_launches[0],
+        "launches_wavlm_recipe": {f"stage {k}": v["fwd"] for k, v in wavlm_launches.items()},
     }]
     bwd_rows = [r for r in report["k2_bwd_checks"] if r["dtype"] == "bf16"]
     for name, key, outputs, launched in (
             ("flash_attention_bwd_dkv", "dkv", ("dk", "dv"), train_launches[1]),
             ("flash_attention_bwd_dq", "dq", ("dq", "dbias", "dgate", "delta", "dtable"),
              train_launches[2])):
+        wavlm = {f"stage {k}": v[key] for k, v in wavlm_launches.items()}
         line = {
             "name": name,
             "route": "cuda",
@@ -3805,6 +4357,7 @@ def main():
             "called_from": "wespeaker_hubert_tpu/frontend/ssl_encoder.py:281",
             "launches": launched,
             "launches_per_train_step": 24,
+            "launches_wavlm_recipe": wavlm,
             "max_abs_err": max(r["max_abs_err"][o] for r in bwd_rows for o in outputs
                                if o in r["max_abs_err"]),
             "min_cosine": min(r["cosine"][o] for r in bwd_rows for o in outputs

@@ -668,6 +668,39 @@ def test_exported_resnet34_program_on_gpu_matches_eager(cuda, tmp_path):
         assert float(cos.min()) >= 0.99999, cos
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,embed_dim", [("CAMPPlus", 512), ("Res2Net34_Base", 256),
+                                             ("ERes2Net34_Base", 512)])
+def test_zoo_forward_on_gpu_matches_cpu(cuda, model, embed_dim):
+    """CAM++, Res2Net34 and ERes2Net34 at their published widths (80 mels)
+    with seeded random weights, in eval on a padded feature batch with a
+    ragged mask (3 x 317 frames; CAM++'s 159 frames after its TDNN end in a
+    partial segment), the card against the CPU, float32 with TF32 off:
+    cosine >= 0.99999."""
+    from wespeaker_hubert_tpu_torch.models.registry import get_speaker_model
+    from wespeaker_hubert_tpu_torch.models.speaker_net import SpeakerNet
+
+    net = SpeakerNet(get_speaker_model(model)(80, embed_dim))
+    rng = np.random.default_rng(12)
+    with torch.no_grad():
+        for k, v in net.state_dict().items():
+            if v.is_floating_point():
+                scale = 0.1 if v.dim() == 1 else float(np.prod(v.shape[1:])) ** -0.5
+                x = rng.normal(0.0, scale, v.shape)
+                if k.endswith("running_var") or (k.endswith("weight") and v.dim() == 1):
+                    x = rng.uniform(0.5, 1.5, v.shape)
+                v.copy_(torch.from_numpy(x.astype(np.float32)))
+    net.eval()
+    feats = _wav(31, (3, 317, 80)) * 10
+    mask = torch.arange(317)[None, :] < torch.tensor([317, 200, 90])[:, None]
+    with torch.inference_mode():
+        want = net.embed(feats, mask).numpy()
+        got = net.to(cuda).embed(feats.to(cuda), mask.to(cuda)).cpu().numpy()
+    assert got.shape == (3, embed_dim) and np.isfinite(got).all()
+    cos = np.sum(got * want, 1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(want, axis=1))
+    assert cos.min() >= 0.99999, cos
+
+
 # ------------------------------------------------------------- Whisper
 def _whisper_qkv(seed, b, t, dtype, device):
     """Whisper's K2 inputs: 20 heads of 64, q and k scaled by 64^-0.25 as the

@@ -56,10 +56,11 @@ def _module_names():
     "bin.average_model", "recipes.voxceleb_v2", "models.resnet", "utils.flax_msgpack",
     "bin.import_torch", "bin.export_torch", "bin.export_model",
     "ops.whisper_mel", "frontend.whisper", "models.whisper_pmfa",
-    "recipes.voxceleb_v1_whisper_pmfa",
+    "recipes.voxceleb_v1_whisper_pmfa", "models.campplus", "models.res2net", "models.eres2net",
+    "recipes.voxceleb_v2_wavlm",
 ])
 def test_training_modules_are_checked(name):
-    """The training, recipe, interop and Whisper slices' modules are among
+    """The training, recipe, interop, Whisper and model-zoo slices' modules are among
     those the checks above and the no-JAX process below import."""
     assert "wespeaker_hubert_tpu_torch." + name in set(_module_names())
     assert not FORBIDDEN.intersection(_imported_roots(PORT / (name.replace(".", "/") + ".py")))

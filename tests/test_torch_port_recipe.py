@@ -27,6 +27,7 @@ import torch
 import yaml
 
 from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
+from tests.torch_port_refs import FastJit
 from tests.test_torch_port_train import _randomize, _store_arrays
 from tests.test_torch_port_train_step import STEP_TOL
 from wespeaker_hubert_tpu.bin import tools as jax_tools
@@ -250,7 +251,8 @@ def test_fbank_ecapa_train_step_matches_jax(tmp_path):
     state = JaxTrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats=stats,
                           opt_state=tx.init(params))
     jfcfg = JaxFeatureConfig(fbank=JaxFbankConfig(num_mel_bins=32, dither=0.0), spec_aug=False)
-    jstep = jax_make_train_step(net, tx, jlr, jmargin, feature_cfg=jfcfg, chunk_samples=CHUNK)
+    jstep = FastJit(jax_make_train_step(net, tx, jlr, jmargin, feature_cfg=jfcfg,
+                                        chunk_samples=CHUNK))
     port, pstate, pstep = _port_ecapa(
         from_jax_variables("ECAPA_TDNN_GLOB_c512", {"params": params, "batch_stats": stats}))
 

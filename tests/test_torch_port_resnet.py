@@ -24,6 +24,7 @@ import torch
 
 from tests.test_torch_port_ecapa import random_variables
 from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
+from tests.torch_port_refs import FastJit
 from wespeaker_hubert_tpu.models import resnet as jax_resnet
 from wespeaker_hubert_tpu.models.convert_to_torch import to_torch_state_dict
 from wespeaker_hubert_tpu.models.norm import BatchNorm as JaxBatchNorm
@@ -141,8 +142,8 @@ def test_train_step_matches_jax():
     params, stats = variables["params"], variables["batch_stats"]
     state = JaxTrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats=stats,
                           opt_state=tx.init(params))
-    jstep = jax_make_train_step(net, tx, jlr, jmargin,
-                                feature_cfg=JaxFeatureConfig(spec_aug=False))
+    jstep = FastJit(jax_make_train_step(net, tx, jlr, jmargin,
+                                        feature_cfg=JaxFeatureConfig(spec_aug=False)))
     port = SpeakerNet(port_narrow("basic"), None, ArcMarginProduct(8, N_CLASS, 32.0))
     sd = from_jax_variables("ResNet18", variables, feat_dim=fd)
     assert not port.load_state_dict(

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
+from tests.torch_port_refs import FastJit
 from tests.test_torch_port_train import _randomize, _store_arrays, _write_list
 from wespeaker_hubert_tpu.data import AugStore as JaxAugStore
 from wespeaker_hubert_tpu.data import TrainPipeline as JaxTrainPipeline
@@ -102,8 +103,9 @@ def test_train_step_matches_jax(tmp_path, frozen):
     stats = _randomize(shapes["batch_stats"], rng)
     state = JaxTrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats=stats,
                        opt_state=tx.init(params))
-    jstep = jax_make_train_step(net, tx, jlr, jmargin, feature_cfg=JaxFeatureConfig(spec_aug=False),
-                                chunk_samples=CHUNK)
+    jstep = FastJit(jax_make_train_step(net, tx, jlr, jmargin,
+                                        feature_cfg=JaxFeatureConfig(spec_aug=False),
+                                        chunk_samples=CHUNK))
 
     port_cfg = SSLEncoderConfig(**{**{f.name: getattr(jcfg, f.name)
                                       for f in dataclasses.fields(SSLEncoderConfig)},

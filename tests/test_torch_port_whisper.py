@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
+from tests.torch_port_refs import FastJit
 from tests.test_torch_port_train import _store_arrays
 from tests.test_torch_port_train_step import STEP_TOL
 from wespeaker_hubert_tpu.data import AugStore as JaxAugStore
@@ -309,9 +310,9 @@ def test_frozen_and_joint_steps_match_jax(tmp_path):
         state = JaxTrainState(step=jnp.zeros((), jnp.int32), params=params,
                               batch_stats=jax.tree.map(jnp.array, variables["batch_stats"]),
                               opt_state=tx.init(params))
-        jstep = jax_make_train_step(jnet, tx, jlr, jmargin,
-                                    feature_cfg=JaxFeatureConfig(spec_aug=False),
-                                    chunk_samples=CHUNK)
+        jstep = FastJit(jax_make_train_step(jnet, tx, jlr, jmargin,
+                                            feature_cfg=JaxFeatureConfig(spec_aug=False),
+                                            chunk_samples=CHUNK))
 
         port = port_net("flash", n_class, frozen=frozen)
         before = from_jax_variables(MODEL, variables)

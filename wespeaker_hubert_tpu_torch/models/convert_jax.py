@@ -1,12 +1,12 @@
 """JAX (flax) variables -> the port's PyTorch state_dict.
 
 Carries weights trained or initialized by the JAX package into the port's
-modules, for the families the port has: ECAPA-TDNN, ResNet and the
-Whisper-PMFA head.  The input is
-the flax `{'params', 'batch_stats'}` tree as numpy arrays (a JAX `.ckpt`
-holds one, utils/checkpoint.py:load_jax_checkpoint), of a bare backbone or
-of a `SpeakerNet` (whose backbone sits under
-'backbone', and its SSL or Whisper frontend under 'frontend'); the output
+modules, for the families the port has: ECAPA-TDNN, ResNet, Res2Net,
+ERes2Net, CAM++ and the Whisper-PMFA head.  The input is the flax
+`{'params', 'batch_stats'}` tree as numpy arrays (a JAX `.ckpt` holds one,
+utils/checkpoint.py:load_jax_checkpoint), of a bare backbone or of a
+`SpeakerNet` (whose backbone sits under 'backbone', and its SSL or Whisper
+frontend under 'frontend'); the output
 uses the WeSpeaker names of the port's modules: the backbone's keys
 unprefixed, the frontend's under `frontend.`, an SSL frontend with
 HuggingFace's encoder names
@@ -36,11 +36,19 @@ port (C', F', T') channel-major, as WeSpeaker does, so `seg_1`'s input
 columns are permuted (the inverse of the JAX package's
 `models/convert_torch.py:_stats_permutation`, whose copy is here); that
 needs the frequency rows F' = feat_dim // 8, so a ResNet conversion takes
-the model's `feat_dim`.
+the model's `feat_dim`.  Res2Net and ERes2Net follow ResNet's rules, with
+`convs_{k}` / `bns_{k}` / `fuse_{k}` -> `convs.{k}` / `bns.{k}` /
+`fuse_models.{k}` and an AFF's `att_conv1` / `att_bn1` / `att_conv2` /
+`att_bn2` -> `local_att.0` / `.1` / `.3` / `.4` (the inverses of
+`res2net_from_torch` and `eres2net_from_torch`).  CAM++ (the inverse of
+`campplus_from_torch`) holds every Dense as a 1x1 Conv1d under WeSpeaker's
+`xvector.` names, and the first TDNN's input channels, the FCM map
+flattened, are permuted as `seg_1`'s columns are.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Tuple
 
 import numpy as np
@@ -77,14 +85,53 @@ def _stats_permutation(channels: int, freq: int) -> np.ndarray:
     return c * freq + f
 
 
+# flax module names inside the 2-D backbones -> torch's: the projection
+# shortcut, and an AFF's layers in its `local_att` Sequential
+_RENAME = {"shortcut_conv": "shortcut.0", "shortcut_bn": "shortcut.1",
+           "att_conv1": "local_att.0", "att_bn1": "local_att.1", "att_conv2": "local_att.3",
+           "att_bn2": "local_att.4"}
+# list-style names inside a block: convs_0 -> convs.0, fuse_0 -> fuse_models.0
+_INDEXED = re.compile(r"(convs|bns|fuse)_(\d+)")
+
+
+def _block_name(name: str) -> str:
+    m = _INDEXED.fullmatch(name)
+    if m:
+        return ("fuse_models" if m.group(1) == "fuse" else m.group(1)) + "." + m.group(2)
+    return _RENAME.get(name, name)
+
+
 def _resnet_module(path: Tuple[str, ...]) -> str:
-    """flax module path -> torch module name (ResNet)."""
+    """flax module path -> torch module name (ResNet, Res2Net, ERes2Net)."""
+    head = re.sub(r"^layer(\d+)_(\d+)$", r"layer\1.\2", path[0])  # not layer1_downsample
+    return ".".join([head] + [_block_name(r) for r in path[1:]])
+
+
+_CAMPPLUS_TOP = {"tdnn_conv": "xvector.tdnn.linear",
+                 "tdnn_bn": "xvector.tdnn.nonlinear.batchnorm",
+                 "out_bn": "xvector.out_nonlinear.batchnorm",
+                 "dense_linear": "xvector.dense.linear",
+                 "dense_bn": "xvector.dense.nonlinear.batchnorm"}
+
+
+def _campplus_module(path: Tuple[str, ...]) -> str:
+    """flax module path -> WeSpeaker's CAM++ name."""
     head, rest = path[0], list(path[1:])
-    if head.startswith("layer") and "_" in head:  # layer2_0 -> layer2.0
-        head = head.replace("_", ".")
-        rest = [{"shortcut_conv": "shortcut.0", "shortcut_bn": "shortcut.1"}.get(r, r)
-                for r in rest]
-    return ".".join([head] + rest)
+    if head == "head":  # the FCM: ResNet's block names under `head.`
+        return "head." + _resnet_module(tuple(rest))
+    if head in _CAMPPLUS_TOP:
+        return _CAMPPLUS_TOP[head]
+    m = re.fullmatch(r"block(\d)_tdnnd(\d+)", head)
+    if m:
+        sub = {"nonlinear1_bn": "nonlinear1.batchnorm",
+               "nonlinear2_bn": "nonlinear2.batchnorm"}
+        return ".".join([f"xvector.block{m.group(1)}.tdnnd{m.group(2)}"]
+                        + [sub.get(r, r) for r in rest])
+    m = re.fullmatch(r"transit(\d)_(bn|linear)", head)
+    if m:
+        return f"xvector.transit{m.group(1)}." + (
+            "nonlinear.batchnorm" if m.group(2) == "bn" else "linear")
+    return ".".join([head] + rest)  # pool
 
 
 def _ecapa_module(path: Tuple[str, ...]) -> str:
@@ -176,16 +223,18 @@ def whisper_frontend_from_jax(params: Dict) -> Dict[str, np.ndarray]:
 
 def from_jax_variables(model_name: str, variables: Dict,
                        feat_dim: int = 80) -> Dict[str, torch.Tensor]:
-    """JAX `{'params', 'batch_stats'}` of an ECAPA, ResNet or Whisper-PMFA
-    model, or of a SpeakerNet with one, -> state_dict of the port's module of
-    the same name
-    (with the SpeakerNet's frontend under `frontend.`).  `feat_dim` is the
-    model's input width, which ResNet's `seg_1` permutation needs."""
+    """JAX `{'params', 'batch_stats'}` of an ECAPA, ResNet, Res2Net,
+    ERes2Net, CAM++ or Whisper-PMFA model, or of a SpeakerNet with one, ->
+    state_dict of the port's module of the same name (with the SpeakerNet's
+    frontend under `frontend.`).  `feat_dim` is the model's input width,
+    which the ResNet family's `seg_1` permutation needs."""
     upper = model_name.upper()
     if upper.startswith("ECAPA_TDNN"):
         module_of = _ecapa_module
-    elif upper.startswith("RESNET"):
+    elif upper.startswith(("RESNET", "RES2NET", "ERES2NET")):
         module_of = _resnet_module
+    elif upper == "CAMPPLUS":
+        module_of = _campplus_module
     elif upper.startswith("WHISPER_PMFA"):
         # pooling/linear1, bn, fc: the reference names, with the BatchNorm
         # over the pooled statistics under `bn.norm`
@@ -194,7 +243,7 @@ def from_jax_variables(model_name: str, variables: Dict,
     else:
         raise NotImplementedError(
             f"{model_name!r}: the port has no module of this family (ROADMAP.md queue 1, "
-            "item 6)")
+            "item 2)")
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     frontend: Dict[str, np.ndarray] = {}
@@ -217,7 +266,8 @@ def from_jax_variables(model_name: str, variables: Dict,
                 w = leaf.transpose(3, 2, 1, 0)
             elif leaf.ndim == 3:
                 w = leaf.transpose(2, 1, 0)
-            elif module in _CONV1X1_DENSE:
+            elif module in _CONV1X1_DENSE or module_of is _campplus_module:
+                # CAM++ holds every Dense as a 1x1 Conv1d, as WeSpeaker does
                 w = leaf.T[:, :, None]
             else:
                 w = leaf.T
@@ -234,6 +284,14 @@ def from_jax_variables(model_name: str, variables: Dict,
             raise KeyError(f"unexpected flax batch stat {'/'.join(path)}")
         sd[f"{module}.running_{name}"] = leaf
         sd[f"{module}.num_batches_tracked"] = np.zeros((), np.int64)
+    if module_of is _campplus_module:
+        # the first TDNN's input channels: JAX's f * C + c -> WeSpeaker's
+        # c * F + f, C the FCM's channels
+        w = sd["xvector.tdnn.linear.weight"]
+        channels = sd["head.conv1.weight"].shape[0]
+        ref = np.empty_like(w)
+        ref[:, _stats_permutation(channels, w.shape[1] // channels)] = w
+        sd["xvector.tdnn.linear.weight"] = ref
     if module_of is _resnet_module:
         # the last map's channels: the widest conv of layer4
         channels = max(v.shape[0] for k, v in sd.items()

@@ -1,17 +1,18 @@
 """Model registry: name -> factory returning an nn.Module backbone.
 
 Counterpart of `wespeaker_hubert_tpu/models/registry.py` for the families
-ported so far: ECAPA-TDNN, ResNet and the Whisper-PMFA head (ROADMAP.md
-queue 1, item 6 lists the rest).  Factories share the signature
-(feat_dim, embed_dim, pooling_func, **kwargs), and the module is called as
-module(x, mask=None) with x = (B, T, feat_dim) features.
+ported so far: ECAPA-TDNN, ResNet, Res2Net, ERes2Net, CAM++ and the
+Whisper-PMFA head (ROADMAP.md queue 1, item 2 lists the rest).  Factories
+share the signature (feat_dim, embed_dim, pooling_func, **kwargs), and the
+module is called as module(x, mask=None) with x = (B, T, feat_dim)
+features.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict
 
-from . import ecapa_tdnn, resnet, whisper_pmfa
+from . import campplus, ecapa_tdnn, eres2net, res2net, resnet, whisper_pmfa
 
 __all__ = ["get_speaker_model", "embedding_from_outputs", "MODEL_REGISTRY"]
 
@@ -27,6 +28,12 @@ MODEL_REGISTRY: Dict[str, Callable] = {
     "ResNet152": resnet.ResNet152,
     "ResNet221": resnet.ResNet221,
     "ResNet293": resnet.ResNet293,
+    "Res2Net34_Base": res2net.Res2Net34_Base,
+    "Res2Net34_Large": res2net.Res2Net34_Large,
+    "ERes2Net34_Base": eres2net.ERes2Net34_Base,
+    "ERes2Net34_Large": eres2net.ERes2Net34_Large,
+    "ERes2Net34_aug": eres2net.ERes2Net34_aug,
+    "CAMPPlus": campplus.CAMPPlus,
     "whisper_PMFA": whisper_pmfa.whisper_PMFA,
     "whisper_PMFA_large_v2": whisper_pmfa.whisper_PMFA_large_v2,
 }

@@ -36,6 +36,7 @@ from .pooling import POOLING_LAYERS, pooling_output_dim
 __all__ = [
     "BasicBlock",
     "Bottleneck",
+    "FrameMapNet",
     "ResNet",
     "ResNet18",
     "ResNet34",
@@ -107,7 +108,36 @@ def downsample_mask(mask: torch.Tensor, t: int) -> torch.Tensor:
     return mask[:, ::2][:, ::2][:, ::2][:, :t]
 
 
-class ResNet(nn.Module):
+class FrameMapNet(nn.Module):
+    """The embedding head of the 2-D backbones (ResNet, so Res2Net, and
+    ERes2Net): the last frame map (B, C', F', T') flattened channel-major,
+    pooled under the downsampled mask, `seg_1` and, with `two_emb_layer`,
+    ReLU -> `seg_bn_1` (no affine) -> `seg_2`."""
+
+    def _init_head(self, feat_dim: int, channels: int, embed_dim: int, pooling_func: str,
+                   two_emb_layer: bool) -> None:
+        self.feat_dim = feat_dim
+        self.embed_dim = embed_dim
+        self.two_emb_layer = two_emb_layer
+        # WeSpeaker's stats_dim: feat_dim / 8 frequency rows of the last map
+        stats_dim = int(feat_dim / 8) * channels
+        self.pool = POOLING_LAYERS[pooling_func](in_dim=stats_dim)
+        self.seg_1 = nn.Linear(pooling_output_dim(pooling_func, stats_dim), embed_dim)
+        if two_emb_layer:
+            self.seg_bn_1 = BatchNorm1d(embed_dim, eps=1e-5, momentum=0.1, affine=False)
+            self.seg_2 = nn.Linear(embed_dim, embed_dim)
+
+    def _head(self, out: torch.Tensor, mask: Optional[torch.Tensor]):
+        b, c, f, t = out.shape
+        if mask is not None:
+            mask = downsample_mask(mask, t)
+        embed_a = self.seg_1(self.pool(out.reshape(b, c * f, t), mask))
+        if self.two_emb_layer:
+            return embed_a, self.seg_2(self.seg_bn_1(F.relu(embed_a)))
+        return embed_a.new_zeros(()), embed_a
+
+
+class ResNet(FrameMapNet):
     """Speaker ResNet over (B, T, F) features (reference resnet.py ResNet)."""
 
     def __init__(
@@ -121,9 +151,6 @@ class ResNet(nn.Module):
         two_emb_layer: bool = False,
     ):
         super().__init__()
-        self.feat_dim = feat_dim
-        self.embed_dim = embed_dim
-        self.two_emb_layer = two_emb_layer
         self.conv1 = nn.Conv2d(1, m_channels, 3, padding=1, bias=False)
         self.bn1 = _bn2d(m_channels)
         in_planes = m_channels
@@ -133,27 +160,13 @@ class ResNet(nn.Module):
                 blocks.append(block(in_planes, m_channels * mult, stride if bi == 0 else 1))
                 in_planes = m_channels * mult * block.expansion
             setattr(self, f"layer{li + 1}", nn.Sequential(*blocks))
-        # WeSpeaker's stats_dim: feat_dim / 8 frequency rows of the last map
-        stats_dim = int(feat_dim / 8) * in_planes
-        self.pool = POOLING_LAYERS[pooling_func](in_dim=stats_dim)
-        self.seg_1 = nn.Linear(pooling_output_dim(pooling_func, stats_dim), embed_dim)
-        if two_emb_layer:
-            self.seg_bn_1 = BatchNorm1d(embed_dim, eps=1e-5, momentum=0.1, affine=False)
-            self.seg_2 = nn.Linear(embed_dim, embed_dim)
+        self._init_head(feat_dim, in_planes, embed_dim, pooling_func, two_emb_layer)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
         out = x.transpose(1, 2).unsqueeze(1)  # (B, T, F) -> (B, 1, F, T)
         out = F.relu(self.bn1(self.conv1(out)))
         out = self.layer4(self.layer3(self.layer2(self.layer1(out))))
-        b, c, f, t = out.shape
-        if mask is not None:
-            mask = downsample_mask(mask, t)
-        stats = self.pool(out.reshape(b, c * f, t), mask)
-        embed_a = self.seg_1(stats)
-        if self.two_emb_layer:
-            embed_b = self.seg_2(self.seg_bn_1(F.relu(embed_a)))
-            return embed_a, embed_b
-        return embed_a.new_zeros(()), embed_a
+        return self._head(out, mask)
 
 
 def ResNet18(feat_dim, embed_dim, pooling_func="TSTP", two_emb_layer=False, **kw):
