@@ -81,7 +81,7 @@ Phases:
      TSTP, ArcMargin over 3 x 5,994 classes, batch 128 x 2 s, float32; the
      large-margin fine-tune at batch 64 x 6 s, margin 0.5, from the base
      run's averaged model), overriding only the paths and the run's length
-     (2 epochs of 8 steps; lm 1 epoch of 4 steps), on phase 12's data:
+     (2 epochs of 4 steps; lm 1 epoch of 2 steps), on phase 12's data:
      training, averaging, extraction (K1 on every stage-4 input against its
      plain version), scoring, export of the model directory and its
      torch.export program (stage 8), each twice; 16 stage-4 embeddings
@@ -117,7 +117,8 @@ Phases:
  18. the CAM++ recipe: recipes.voxceleb_v2 stages 1-9 on
      examples/voxceleb/v2/conf/campplus.yaml and campplus_lm.yaml (CAMPPlus,
      80 mels, 512-d, TSTP, batch 128 x 2 s, loop_steps 8, float32; the lm
-     fine-tune at 64 x 6 s, margin 0.5) with phase 14's cut and checks, on
+     fine-tune at 64 x 6 s, margin 0.5) with phase 14's checks (2 epochs of
+     8 steps, 2 lm steps), on
      phase 12's data;
  19. the WavLM staged recipe: recipes.voxceleb_v2_wavlm stages 1-3 on
      ecapa_tdnn_wavlm_frozen.yaml (WavLM-Large + ECAPA_TDNN_GLOB_c512,
@@ -132,7 +133,20 @@ Phases:
      stage-3 steps;
  20. ERes2Net34_Base and Res2Net34_Base at full width: one float32 step on
      the card against the CPU, eval embeddings through K1 against the CPU,
-     and 3 timed steps at 128 x 2 s.
+     and 3 timed steps at 128 x 2 s; also REPVGG_TINY_A0 (with its
+     deploy form from convert_repvgg_params against the training form),
+     XVEC, XI_VEC_ECAPA_TDNN_c512, Gemini_DF_ResNet114 with its AdamW, and
+     SimAM_ResNet34_ASP (resnet34.yaml with the model swapped: no config
+     names it), the timed steps at each config's batch;
+ 21. the ReDimNet recipe: recipes.voxceleb_v2 stages 1-8 on redimnet.yaml
+     (ReDimNetB2, 72 mels, ASTP, 192-d, batch 256 x 2 s, loop_steps 8,
+     float32; no lm config) with phase 14's checks (2 epochs), K1 at 72 mels
+     (phase 3 holds it at ReDimNet's stage-4 shapes too);
+ 22. the Gemini recipe: stages 1-9 on gemini_dfresnet_adam.yaml (AdamW,
+     weight decay 0.05, batch 128 x 2 s, margin 0.2) and
+     gemini_dfresnet_sgd_lm.yaml (SGD from the AdamW run's average, 32 x 6
+     s, margin 0.5) with phase 14's checks (2 epochs of 8 steps, 4 lm
+     steps).
 
 A kernel's bound is the least time the card could take for the work the
 function needs (for log-mel: an FFT and a sparse mel product; for
@@ -445,9 +459,10 @@ def phase_kernel_checks(report):
     from wespeaker_hubert_tpu_torch.ops.fbank import FbankConfig, fbank
 
     # the served shapes, then the recipe's stage-4 extraction shapes (full
-    # batches of 32 in EvalPipeline's 400- and 800-frame buckets), then 40 mels
+    # batches of 32 in EvalPipeline's 400- and 800-frame buckets), then 40
+    # mels, then ReDimNet's stage-4 shapes at its 72 mels
     cases = [(16, 480000, 80), (16, 32000, 80), (1, 32240, 80), (32, 64240, 80),
-             (32, 128240, 80), (16, 32000, 40)]
+             (32, 128240, 80), (16, 32000, 40), (32, 64240, 72), (32, 128240, 72)]
     rows = []
     for i, (b, w, m) in enumerate(cases):
         cfg = FbankConfig(num_mel_bins=m, spectrum_impl="kernel")
@@ -2393,9 +2408,9 @@ class _K1Spy:
         self.module.fbank_kernel = self.fn
 
 
-def k1_on_eval_batches(lists, caught=None):
+def k1_on_eval_batches(lists, caught=None, mels=80):
     """K1 against its plain version and a float64 log-mel on every batch
-    that EvalPipeline (bin/extract's batching, batch 32, 80 mels) makes of
+    that EvalPipeline (bin/extract's batching, batch 32, `mels` mels) makes of
     `lists`, in the order stage 4 extracts them.  The bar, FBANK_TOL, holds
     K1 to the plain version on every element where that version meets it
     against the float64 log-mel, and to the float64 log-mel where it does
@@ -2413,7 +2428,7 @@ def k1_on_eval_batches(lists, caught=None):
     from wespeaker_hubert_tpu_torch.ops import fbank_kernel
     from wespeaker_hubert_tpu_torch.ops.fbank import FbankConfig
 
-    cfg = FbankConfig(num_mel_bins=80, dither=0.0, spectrum_impl="matmul")
+    cfg = FbankConfig(num_mel_bins=mels, dither=0.0, spectrum_impl="matmul")
     rows, i, matched = {}, 0, True
     for path in lists:
         for batch in EvalPipeline(load_data_list(path), batch_size=32):
@@ -2529,7 +2544,7 @@ def profile_recipe_steps(config, data, exp, tag):
     from wespeaker_hubert_tpu_torch.models.speaker_net import build_speaker_net, load_speaker_state
     from wespeaker_hubert_tpu_torch.train.executor import make_train_step
     from wespeaker_hubert_tpu_torch.train.schedulers import MarginSchedule, get_lr_schedule
-    from wespeaker_hubert_tpu_torch.train.state import TrainState, make_optimizer
+    from wespeaker_hubert_tpu_torch.train.state import TrainState
 
     da = config["dataset_args"]
     batch_size = config["dataloader_args"]["batch_size"]
@@ -2546,7 +2561,7 @@ def profile_recipe_steps(config, data, exp, tag):
     net.to(DEVICE)
     lr = get_lr_schedule("ExponentialDecrease", num_epochs=2, epoch_iter=12, scale_ratio=2.0,
                          **config["scheduler_args"])
-    state = TrainState(net, make_optimizer(net), lr)
+    state = TrainState(net, config_optimizer(net, config), lr)
     step = make_train_step(net, lr, MarginSchedule(12, 0, 1, 0.0, 0.2),
                            feature_cfg=_feature_cfg(da), chunk_samples=pipe.chunk_samples,
                            seed=43)
@@ -2562,7 +2577,7 @@ def profile_recipe_steps(config, data, exp, tag):
     prof_out = grouped_profile(prof, wall_us, PROFILE_GROUPS)
     prof_out["window"] = (f"3 float32 train steps, batch {batch_size} x "
                           f"{da['num_frms'] / 100:g} s, {config['model']}, "
-                          f"{3 * len(spk2id)} classes")
+                          f"{3 * len(spk2id)} classes, {config.get('optimizer', 'SGD')}")
     if prof_out["device_ms"]:
         log(f"[{tag}] 3 f32 steps: device {prof_out['device_ms']:.2f} ms over "
             f"{prof_out['wall_ms']:.2f} ms wall (idle share {prof_out['device_idle_share']:.4f});"
@@ -2740,15 +2755,27 @@ def _ecapa_check_batch(seed, n=None):
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
+def config_optimizer(net, config):
+    """The config's optimizer (SGD, Adam or AdamW with its optimizer_args)
+    over `net`, as bin/train builds it."""
+    from wespeaker_hubert_tpu_torch.train.state import make_optimizer
+
+    args = config.get("optimizer_args", {})
+    return make_optimizer(net, config.get("optimizer", "SGD"),
+                          momentum=args.get("momentum", 0.9), nesterov=args.get("nesterov", True),
+                          weight_decay=args.get("weight_decay", 1e-4))
+
+
 def _ecapa_net(device, num_steps=1, config_path=None, seed=ECAPA_CHECK_SEED):
     """A recipe config's model (the flagship ECAPA_TDNN_GLOB_c512 unless
     `config_path` names another) + ArcMargin over 17,982 classes with seeded
-    weights, float32, dither 0 and SpecAug off, on `device`."""
+    weights and the config's optimizer, float32, dither 0 and SpecAug off,
+    on `device`."""
     from wespeaker_hubert_tpu_torch.bin.train import _feature_cfg
-    from wespeaker_hubert_tpu_torch.models.speaker_net import build_speaker_net, load_speaker_state
+    from wespeaker_hubert_tpu_torch.models.speaker_net import build_speaker_net
     from wespeaker_hubert_tpu_torch.train.executor import make_train_step
     from wespeaker_hubert_tpu_torch.train.schedulers import ExponentialDecrease, MarginSchedule
-    from wespeaker_hubert_tpu_torch.train.state import TrainState, make_optimizer
+    from wespeaker_hubert_tpu_torch.train.state import TrainState
     from wespeaker_hubert_tpu_torch.utils.config import load_config
 
     config = load_config(str(config_path or RECIPE_CONFIG))
@@ -2756,11 +2783,12 @@ def _ecapa_net(device, num_steps=1, config_path=None, seed=ECAPA_CHECK_SEED):
     config["dataset_args"]["spec_aug"] = False
     torch.manual_seed(0)
     net = build_speaker_net(config, 3 * RECIPE_SPEAKERS)
-    load_speaker_state(net, seeded_state_dict(net, seed))
+    # the whole SpeakerNet's names (backbone. and projection.), strictly
+    net.load_state_dict(seeded_state_dict(net, seed))
     net.to(device)
     lr = ExponentialDecrease(num_epochs=2, epoch_iter=4, initial_lr=0.1, final_lr=5e-5,
                              warm_up_epoch=1)
-    state = TrainState(net, make_optimizer(net), lr)
+    state = TrainState(net, config_optimizer(net, config), lr)
     step = make_train_step(net, lr, MarginSchedule(4, 0, 1, 0.0, 0.2),
                            feature_cfg=_feature_cfg(config["dataset_args"]),
                            chunk_samples=ECAPA_CHECK_CHUNK, seed=43, num_steps=num_steps)
@@ -2849,9 +2877,11 @@ def phase_ecapa_step_check(report):
 RESNET_CONFIG = Path(__file__).resolve().parent / "examples/voxceleb/v2/conf/resnet34.yaml"
 RESNET_LM_CONFIG = Path(__file__).resolve().parent / "examples/voxceleb/v2/conf/resnet_lm.yaml"
 RESNET_CHECK_SEED = 20251021
-# the recipes' cut (ResNet34, CAM++): 2 epochs of 8 steps, and 4 lm steps
-# (PERF.md section 4 lists the earlier, longer cut)
+# the recipes' cut: 2 epochs of 8 steps, and 4 lm steps; ResNet34 and CAM++,
+# the earlier paths, run fewer for the script's time (PERF.md section 4
+# lists the earlier, longer cuts)
 RECIPE_EPOCH_STEPS, RECIPE_LM_STEPS = 8, 4
+RESNET_STEPS, CAMPPLUS_STEPS = (4, 2), (8, 2)  # (steps an epoch, lm steps)
 RESNET_CHECK_BATCH = 16
 # the exported program against the eager model: (B, T) feature shapes
 PROGRAM_SHAPES = ((16, 200), (3, 517))
@@ -2868,25 +2898,29 @@ def phase_resnet_recipe(report, root):
     80 mels, 256-d, TSTP, ArcMargin over 3 x 5,994 classes, float32; the lm
     fine-tune at batch 64 x 600 frames, margin 0.5), by recipe_1_to_9.
     Returns the K1 launches of the two stage 4s."""
+    epoch, lm = RESNET_STEPS
     return recipe_1_to_9(report, root, "resnet", RESNET_CONFIG, RESNET_LM_CONFIG,
-                         ([1] * 2 * RECIPE_EPOCH_STEPS, [1] * RECIPE_LM_STEPS))
+                         ([1] * 2 * epoch, [1] * lm), epoch, lm)
 
 
-def recipe_1_to_9(report, root, fam, config_path, lm_config_path, want_calls):
+def recipe_1_to_9(report, root, fam, config_path, lm_config_path, want_calls,
+                  epoch_steps=RECIPE_EPOCH_STEPS, lm_steps=RECIPE_LM_STEPS):
     """recipes.voxceleb_v2 stages 1-9 on the card with a recipe config and
     its lm config as the port's reader parses them, overriding only paths
-    and the run's length (base: 2 epochs of RECIPE_EPOCH_STEPS steps of 128
-    x 200 frames, 2 checkpoints averaged; lm: 1 epoch of RECIPE_LM_STEPS
-    steps of 64 x 600 frames, num_avg 1), on write_recipe_data's 1,536
-    utterances in 2 shards.  Three calls, each with K1's count set to 0 just
-    before and read just after: stages 1-3, stages 4-8, stage 9 (stages 3-8
-    of the lm config).  Then the checks: the train step calls `want_calls`
-    (base, lm), K1 on every stage-4 input (the base's, and the lm run's
-    equal to them), 16 stage-4 embeddings and the score files against the
-    CPU, the stage-8 program (torch.export.load) against the eager model on
-    the card, the exported directory through cli.speaker.Speaker against
-    stage 4, and 3 profiled base steps.  `fam` names the report's key and
-    the log's tag.  Returns the K1 launches of the two stage 4s."""
+    and the run's length (base: 2 epochs of `epoch_steps` steps of the
+    config's batch, 2 checkpoints averaged; lm: 1 epoch of `lm_steps` steps,
+    num_avg 1), on write_recipe_data's 1,536 utterances in 2 shards;
+    without an lm config (`lm_config_path` None) stages 1-8.  Three calls,
+    each with K1's count set to 0 just before and read just after: stages
+    1-3, stages 4-8, stage 9 (stages 3-8 of the lm config).  Then the
+    checks: the train step calls `want_calls` (base, lm), K1 on every
+    stage-4 input at the config's mels (the base's, and the lm run's equal
+    to them), 16 stage-4 embeddings and the score files against the CPU,
+    the stage-8 program (torch.export.load) against the eager model on the
+    card, the exported directory through cli.speaker.Speaker against stage
+    4, and 3 profiled base steps.  `fam` names the report's key and the
+    log's tag.  Returns the K1 launches of the stage 4s (the lm run's None
+    without one)."""
     import logging
 
     from wespeaker_hubert_tpu_torch.bin import train as bin_train
@@ -2910,16 +2944,19 @@ def recipe_1_to_9(report, root, fam, config_path, lm_config_path, want_calls):
     paths = [f"train_data={data}/vox2_dev/shard.list", f"train_label={data}/vox2_dev/utt2spk",
              f"dataset_args.reverb_data={data}/rirs_aug_store",
              f"dataset_args.noise_data={data}/musan_aug_store"]
+    has_lm = lm_config_path is not None
     # the overrides: paths and the length of the run, nothing else
     overrides = ([f"exp_dir={exp}"] + paths
-                 + ["num_epochs=2", f"epoch_iter={RECIPE_EPOCH_STEPS}", "save_epoch_interval=1",
-                    "num_avg=2"]
-                 + [f"lm.exp_dir={exp_lm}"] + ["lm." + o for o in paths]
-                 + ["lm.num_epochs=1", f"lm.epoch_iter={RECIPE_LM_STEPS}",
-                    "lm.save_epoch_interval=1", "lm.num_avg=1"])
+                 + ["num_epochs=2", f"epoch_iter={epoch_steps}", "save_epoch_interval=1",
+                    "num_avg=2"])
+    if has_lm:
+        overrides += ([f"lm.exp_dir={exp_lm}"] + ["lm." + o for o in paths]
+                      + ["lm.num_epochs=1", f"lm.epoch_iter={lm_steps}",
+                         "lm.save_epoch_interval=1", "lm.num_avg=1"])
     out["overrides"] = overrides
-    common = ["--config", str(config_path), "--lm_config", str(lm_config_path),
-              "--data_root", data, "--trials", trials, "--device", DEVICE] + overrides
+    common = (["--config", str(config_path)]
+              + (["--lm_config", str(lm_config_path)] if has_lm else [])
+              + ["--data_root", data, "--trials", trials, "--device", DEVICE] + overrides)
     records = []
     handler = logging.Handler()
     handler.emit = lambda rec: records.append(rec.getMessage())
@@ -2928,7 +2965,7 @@ def recipe_1_to_9(report, root, fam, config_path, lm_config_path, want_calls):
     make = bin_train.make_train_step
     runs = {}
     try:
-        for tag, stages in (("base", (1, 3)), ("export", (4, 8)), ("lm", (9, 9))):
+        for tag, stages in (("base", (1, 3)), ("export", (4, 8)), ("lm", (9, 9)))[:2 + has_lm]:
             timer = _StepTimer()
             bin_train.make_train_step = timer(make)
             if DEVICE == "cuda":
@@ -2946,9 +2983,11 @@ def recipe_1_to_9(report, root, fam, config_path, lm_config_path, want_calls):
         bin_train.make_train_step = make
         for name in ("extract", "train"):
             logging.getLogger(name).removeHandler(handler)
-    done = {**runs["base"]["done"], **runs["export"]["done"], **runs["lm"]["done"]}
-    lm_done = done[9]["stages"]
+    done = {k: v for r in runs.values() for k, v in r["done"].items()}
+    lm_done = done[9]["stages"] if has_lm else {}
     base_cfg, lm_cfg = voxceleb_v2.load_configs(voxceleb_v2.parse_args(common))
+    mels = base_cfg["dataset_args"]["fbank_args"]["num_mel_bins"]
+    tags = ("base", "lm") if has_lm else ("base",)
 
     def steps(tag, cfg):
         calls = runs[tag]["timer"].calls
@@ -2960,10 +2999,12 @@ def recipe_1_to_9(report, root, fam, config_path, lm_config_path, want_calls):
                 "batch": batch, "chunk_s": chunk_s, "margins": runs[tag]["timer"].margins,
                 "peak_mem_gb": runs[tag]["peak_gb"]}
 
-    out["train"] = {"base": steps("base", base_cfg), "lm": steps("lm", lm_cfg)}
+    out["train"] = {tag: steps(tag, cfg) for tag, cfg in (("base", base_cfg), ("lm", lm_cfg))
+                    if tag in tags}
     extract_base, rate_base = _stage_rates(runs["export"]["records"])
-    extract_lm, rate_lm = _stage_rates(runs["lm"]["records"])
-    init_lines = [r for r in runs["lm"]["records"] if r.startswith("model_init")]
+    extract_lm, rate_lm = _stage_rates(runs["lm"]["records"]) if has_lm else ([], None)
+    init_lines = ([r for r in runs["lm"]["records"] if r.startswith("model_init")]
+                  if has_lm else [])
     audio = seconds["vox1"] + seconds["vox2_dev"]
     out.update({
         "stage_s": {s: d["s"] for s, d in done.items()},
@@ -2971,12 +3012,13 @@ def recipe_1_to_9(report, root, fam, config_path, lm_config_path, want_calls):
         "lines": {s: d["lines"] for s, d in done.items() if d.get("lines")},
         "lm_lines": {s: d["lines"] for s, d in lm_done.items() if d["lines"]},
         "k1_launches": {t: runs[t]["k1"] for t in runs},
+        "mels": mels,
         "extract_log": {"base": extract_base, "lm": extract_lm},
         "extract_audio_s_per_s": {"base": rate_base, "lm": rate_lm},
         "extract_stage4_audio_s_per_s": {"base": audio / done[4]["s"],
-                                         "lm": audio / lm_done[4]["s"]},
+                                         "lm": audio / lm_done[4]["s"] if has_lm else None},
         "lm_model_init": init_lines})
-    for tag in ("base", "lm"):
+    for tag in tags:
         r = out["train"][tag]
         log(f"[{fam} {tag}] stage 3: {sum(r['calls'])} steps of {r['batch']} x {r['chunk_s']:g} "
             f"s in calls of {sorted(set(r['calls']), reverse=True)},"
@@ -2988,13 +3030,14 @@ def recipe_1_to_9(report, root, fam, config_path, lm_config_path, want_calls):
     log(f"[{fam}] stage seconds: " + ", ".join(f"{s} {d['s']:.1f}" for s, d in done.items())
         + "; stage 9's: " + ", ".join(f"{s} {d['s']:.1f}" for s, d in lm_done.items()))
     log(f"[{fam}] stage 4: base " + " | ".join(extract_base) + f"; lm " + " | ".join(extract_lm)
-        + f"; loop rates {rate_base:.0f} / {rate_lm:.0f} audio-s/s, stage wall rates "
+        + f"; loop rates {rate_base:.0f} / {rate_lm} audio-s/s, stage wall rates "
         f"{out['extract_stage4_audio_s_per_s']['base']:.0f} / "
-        f"{out['extract_stage4_audio_s_per_s']['lm']:.0f}; K1 launches {out['k1_launches']}")
+        f"{out['extract_stage4_audio_s_per_s']['lm']}; K1 launches {out['k1_launches']} "
+        f"({mels} mels)")
     for s in (5, 6, 7):
         log(f"[{fam}] stage {s}: base " + "; ".join(done[s]["lines"]) + " | lm "
-            + "; ".join(lm_done[s]["lines"]))
-    log(f"[{fam}] stage 8: " + "; ".join(done[8]["lines"] + lm_done[8]["lines"])
+            + "; ".join(lm_done.get(s, {"lines": []})["lines"]))
+    log(f"[{fam}] stage 8: " + "; ".join(done[8]["lines"] + lm_done.get(8, {"lines": []})["lines"])
         + f"; the lm run's {init_lines}")
 
     # the CPU's checks in a thread, beside the card's untimed ones below
@@ -3003,10 +3046,11 @@ def recipe_1_to_9(report, root, fam, config_path, lm_config_path, want_calls):
     try:
         # K1 on every stage-4 input: the base's against its plain version, and
         # the lm run's stage 4 gave it the same batches
-        base_in, lm_in = runs["export"]["k1_inputs"], runs["lm"]["k1_inputs"]
+        base_in = runs["export"]["k1_inputs"]
+        lm_in = runs["lm"]["k1_inputs"] if has_lm else base_in
         k1_rows, k1_matched = k1_on_eval_batches(
             [os.path.join(data, d, "raw.list") for d in ("vox1", "vox2_dev")],
-            base_in) if DEVICE == "cuda" else ([], False)
+            base_in, mels) if DEVICE == "cuda" else ([], False)
         lm_same = len(lm_in) == len(base_in) and all(torch.equal(a, b)
                                                      for a, b in zip(lm_in, base_in))
         out["k1_stage4_checks"] = k1_rows
@@ -3022,7 +3066,7 @@ def recipe_1_to_9(report, root, fam, config_path, lm_config_path, want_calls):
 
         # the stage-8 program against the eager model, on the card
         program_cos = {}
-        for d, cfg in ((exp, base_cfg), (exp_lm, lm_cfg)):
+        for d, cfg in ((exp, base_cfg), (exp_lm, lm_cfg))[:1 + has_lm]:
             exported = os.path.join(d, "exported")
             program = load_program(os.path.join(exported, "model.pt2"), device=DEVICE)
             net = build_speaker_net(json.loads(Path(exported, "config.json").read_text()))
@@ -3059,31 +3103,32 @@ def recipe_1_to_9(report, root, fam, config_path, lm_config_path, want_calls):
         pool.shutdown()
     out["profile"] = profile_recipe_steps(base_cfg, data, exp, f"{fam} profile")
 
-    check(sorted(done) == list(range(1, 10)) and sorted(lm_done) == list(range(3, 9)),
+    check(sorted(done) == list(range(1, 9 + has_lm))
+          and sorted(lm_done) == (list(range(3, 9)) if has_lm else []),
           f"{fam}: stages {sorted(done)}, stage 9's {sorted(lm_done)}")
-    check(out["train"]["base"]["calls"] == want_calls[0]
-          and out["train"]["lm"]["calls"] == want_calls[1],
-          f"{fam}: step calls {out['train']['base']['calls']} / {out['train']['lm']['calls']}")
-    check(set(out["train"]["lm"]["margins"]) == {0.5},
-          f"{fam}: the lm run's margins {out['train']['lm']['margins']}")
-    check(init_lines == [f"model_init from {exp}/avg_model.pt (epoch 0, 0 missing, 0 unexpected)"],
-          f"{fam}: the lm run's initialization {init_lines}")
+    calls = [out["train"][t]["calls"] for t in tags]
+    check(calls == list(want_calls[:len(tags)]), f"{fam}: step calls {calls}")
+    if has_lm:
+        check(set(out["train"]["lm"]["margins"]) == {0.5},
+              f"{fam}: the lm run's margins {out['train']['lm']['margins']}")
+        check(init_lines == [f"model_init from {exp}/avg_model.pt (epoch 0, 0 missing, "
+                             "0 unexpected)"], f"{fam}: the lm run's initialization {init_lines}")
     k1 = out["k1_launches"]
     check(k1["base"] == 0 and n_caught["stage 3"] == 0,
           f"{fam}: the dithered train step launched K1 {k1['base']} times")
     check(k1["export"] > 0 and k1_matched and n_caught["base"] == k1["export"],
           f"{fam}: stage 4's K1 inputs do not match EvalPipeline's batches ({n_caught}, {k1})")
-    check(lm_same and k1["lm"] == k1["export"],
-          f"{fam}: the lm run's K1 launches {k1['lm']} are not its stage 4's")
+    check(lm_same and k1.get("lm", k1["export"]) == k1["export"],
+          f"{fam}: the lm run's K1 launches {k1.get('lm')} are not its stage 4's")
     check(all(r["off_bar"] == 0 and r["finite"] for r in k1_rows),
           f"{fam}: K1 disagrees with its plain version on a stage-4 input")
     check(not cpu_bad, f"{fam}: " + "; ".join(cpu_bad))
     check(min(program_cos.values()) >= COS_MIN["f32"], f"{fam}: program vs eager {program_cos}")
     check(min(speaker_cos) >= SPEAKER_COS_MIN, f"{fam}: Speaker vs stage 4 {speaker_cos}")
     for s in (5, 6, 7):
-        for lines in (done[s]["lines"], lm_done[s]["lines"]):
+        for lines in (done[s]["lines"], lm_done[s]["lines"]) if has_lm else (done[s]["lines"],):
             check(len(lines) == 1 and " EER " in lines[0], f"{fam}: stage {s} printed {lines}")
-    return k1["export"], k1["lm"]
+    return k1["export"], k1.get("lm")
 
 
 def phase_resnet_step_check(report):
@@ -3104,8 +3149,13 @@ def step_vs_cpu(config_path, seed, tag):
     reduces 16 x 200 x 80 positions per channel with flax's E[x^2] - E[x]^2
     in float32, whose rounding the card and the CPU sum in another order:
     the control measures how far the step moves under an input change of
-    that size, and the bar is relative to it.  Returns the report entry."""
+    that size, and the bar is relative to it.  With Adam or AdamW the
+    parameters' first moments ((1 - b1) g after one step) stand in for
+    their updates.  Returns the report entry."""
+    from wespeaker_hubert_tpu_torch.utils.config import load_config
+
     batch = _ecapa_check_batch(seed, RESNET_CHECK_BATCH)
+    adam = load_config(str(config_path)).get("optimizer", "SGD").upper() in ("ADAM", "ADAMW")
     res = {}
     for kind, dev, scale in (("card", DEVICE, False), ("cpu", "cpu", False),
                              ("control", DEVICE, True)):
@@ -3114,6 +3164,16 @@ def step_vs_cpu(config_path, seed, tag):
         t0 = time.perf_counter()
         res[kind] = _one_step(net, state, step, _perturbed(b) if scale else b, prefix="")
         res[kind + "_s"] = time.perf_counter() - t0
+        if adam:
+            # Adam's first update is lr g / (|g| + eps), about lr sign(g): at
+            # an element whose |g| lies within the rounding of the gradient
+            # it flips with that rounding.  Its first moment, (1 - b1) g,
+            # carries the gradient itself: compared in place of the update
+            # (the update's relative L2 is reported as `adam_updates_rel_l2`)
+            res[kind + "_update"] = {k: v for k, v in res[kind][1].items()}
+            moments = {name: state.optimizer.state[p]["exp_avg"].detach().float().cpu()
+                       for name, p in net.named_parameters() if p in state.optimizer.state}
+            res[kind][1].update(moments)
         del net, state, step
     empty_cache()
     loss_rel = abs(res["card"][0] - res["cpu"][0]) / abs(res["cpu"][0])
@@ -3126,15 +3186,24 @@ def step_vs_cpu(config_path, seed, tag):
         "updates_rel_l2": _rel_l2(res["card"][1], res["cpu"][1]),
         "control_updates_rel_l2": _rel_l2(res["control"][1], res["card"][1]),
         "n_tensors": len(pair), "passed_by": how, "worst": worst, "failing": failing,
-        "cpu_step_s": res["cpu_s"], "card_step_s_first": res["card_s"]}
+        "cpu_step_s": res["cpu_s"], "card_step_s_first": res["card_s"],
+        "compared": "first moments of the parameters (Adam)" if adam else "updates"}
+    if adam:
+        out["adam_updates_rel_l2"] = _rel_l2(res["card_update"], res["cpu_update"])
     name = Path(config_path).stem
     log(f"[{tag}] f32 {name} step at full width ({3 * RECIPE_SPEAKERS} classes, batch "
         f"{RESNET_CHECK_BATCH} x 2 s), card vs CPU: loss {res['card'][0]:.6f} vs "
-        f"{res['cpu'][0]:.6f} (rel {loss_rel:.2e}, bar 1e-5); updates relative L2 "
+        f"{res['cpu'][0]:.6f} (rel {loss_rel:.2e}, bar 1e-5); "
+        + (f"Adam: the parameters' first moments compared (the updates' relative L2 "
+           f"{out['adam_updates_rel_l2']:.2e}); " if adam else "")
+        + f"updates relative L2 "
         f"{out['updates_rel_l2']:.2e} (control {out['control_updates_rel_l2']:.2e}); of "
         f"{len(pair)} tensors {how['cosine']} at cosine >= 0.9999, {how['within_control']} "
         f"within the control, {how['noise_floor']} at the noise floor, {len(failing)} failing; "
         f"least cosines {worst}; CPU step {res['cpu_s']:.1f} s")
+    if failing:
+        log(f"[{tag}] failing (pair (cosine, max|d|), control): "
+            + "; ".join(f"{k} {v['pair']} {v['control']}" for k, v in list(failing.items())[:12]))
     check(loss_rel <= 1e-5 and not failing, f"{tag}: {name}'s card step vs CPU step")
     return out
 
@@ -3142,10 +3211,18 @@ def step_vs_cpu(config_path, seed, tag):
 # ----------------------------------------------- CAM++, Res2Net, ERes2Net
 CAMPPLUS_CONFIG = Path(__file__).resolve().parent / "examples/voxceleb/v2/conf/campplus.yaml"
 CAMPPLUS_LM_CONFIG = Path(__file__).resolve().parent / "examples/voxceleb/v2/conf/campplus_lm.yaml"
-ZOO_CONFIGS = {name: Path(__file__).resolve().parent / f"examples/voxceleb/v2/conf/{name}.yaml"
-               for name in ("eres2net", "res2net")}
+CONF = Path(__file__).resolve().parent / "examples/voxceleb/v2/conf"
+# the step checks' configs; SimAM_ResNet34_ASP has none: it runs resnet34.yaml
+# with only the model swapped
+ZOO_CONFIGS = {name: CONF / f"{name}.yaml"
+               for name in ("eres2net", "res2net", "repvgg", "xvec", "xi_vector",
+                            "gemini_dfresnet_adam")}
+ZOO_SWAPPED = {"simam_resnet34": (CONF / "resnet34.yaml", "SimAM_ResNet34_ASP")}
 ZOO_CHECK_SEED = 20251023
-ZOO_TIMED_BATCH, ZOO_TIMED_STEPS = 128, 3  # the recipe's batch, 2 s chunks
+ZOO_TIMED_BATCH, ZOO_TIMED_STEPS = None, 3  # batch None: the config's; 2 s chunks
+REDIMNET_CONFIG = CONF / "redimnet.yaml"
+GEMINI_CONFIG = CONF / "gemini_dfresnet_adam.yaml"
+GEMINI_LM_CONFIG = CONF / "gemini_dfresnet_sgd_lm.yaml"
 
 
 def phase_campplus_recipe(report, root):
@@ -3156,19 +3233,74 @@ def phase_campplus_recipe(report, root):
     margin 0.5), by recipe_1_to_9 on phase_recipe's data.  Returns the K1
     launches of the two stage 4s."""
     # loop_steps 8: an epoch of 8 steps is one 8-step call
+    epoch, lm = CAMPPLUS_STEPS
     return recipe_1_to_9(report, root, "campplus", CAMPPLUS_CONFIG, CAMPPLUS_LM_CONFIG,
+                         ([epoch] * 2, [1] * lm), epoch, lm)
+
+
+def phase_redimnet_recipe(report, root):
+    """recipes.voxceleb_v2 stages 1-8 on the card with redimnet.yaml as the
+    port's reader parses it (ReDimNetB2, 72 mels, ASTP, 192-d, ArcMargin
+    over 3 x 5,994 classes, batch 256 x 200 frames, `loop_steps: 8`,
+    float32; no lm config, so no stage 9), by recipe_1_to_9 on
+    phase_recipe's data (6 batches of 256 an epoch): K1 at 72 mels.
+    Returns the K1 launches of stage 4."""
+    # 1,536 utterances make 6 batches of 256 a pass, fewer than loop_steps:
+    # each epoch's steps run as the single-step flushes of bin/train's tail
+    return recipe_1_to_9(report, root, "redimnet", REDIMNET_CONFIG, None, ([1] * 12,))
+
+
+def phase_gemini_recipe(report, root):
+    """recipes.voxceleb_v2 stages 1-9 on the card with gemini_dfresnet_adam.yaml
+    and gemini_dfresnet_sgd_lm.yaml as the port's reader parses them
+    (Gemini_DF_ResNet114, 80 mels, 256-d, TSTP; AdamW, weight decay 0.05,
+    batch 128 x 2 s, margin 0.2, `loop_steps: 8`; then SGD from the AdamW
+    run's average at batch 32 x 600 frames, margin 0.5, `do_lm`), by
+    recipe_1_to_9 on phase_recipe's data.  Returns the K1 launches of the
+    two stage 4s."""
+    return recipe_1_to_9(report, root, "gemini", GEMINI_CONFIG, GEMINI_LM_CONFIG,
                          ([8] * 2, [1] * RECIPE_LM_STEPS))
 
 
+def _repvgg_deploy_check(config, wav, lengths, fcfg):
+    """REPVGG_TINY_A0's deploy form (convert_repvgg_params of the seeded
+    training form) against the training form, eval embeddings through K1
+    on the card: min cosine and max |d| relative to max |embedding|."""
+    from wespeaker_hubert_tpu_torch.models.repvgg import convert_repvgg_params
+    from wespeaker_hubert_tpu_torch.models.speaker_net import build_speaker_net, load_speaker_state
+    from wespeaker_hubert_tpu_torch.train.executor import make_eval_embed
+
+    sd = seeded_state_dict(build_speaker_net(config).backbone, ZOO_CHECK_SEED)
+    embs = {}
+    for deploy in (False, True):
+        cfg = json.loads(json.dumps(config))
+        cfg["model_args"]["deploy"] = deploy
+        net = build_speaker_net(cfg)
+        missing, unexpected = load_speaker_state(net, convert_repvgg_params(sd) if deploy else sd)
+        check(not missing and not unexpected,
+              f"repvgg deploy={deploy}: {missing[:4]} missing, {unexpected[:4]} unexpected")
+        net.to(DEVICE).eval()
+        embs[deploy] = make_eval_embed(net, fcfg)({"wav": wav.to(DEVICE),
+                                                   "length": lengths.to(DEVICE)}).cpu().numpy()
+        del net
+    cos = [cosine(a, b) for a, b in zip(embs[True], embs[False])]
+    rel = float(np.abs(embs[True] - embs[False]).max() / np.abs(embs[False]).max())
+    return {"min_cosine": min(cos), "max_rel_err": rel, "bar": COS_MIN["f32"]}
+
+
 def phase_zoo_step_check(report):
-    """ERes2Net34_Base (eres2net.yaml: 32 channels, 512-d) and
-    Res2Net34_Base (res2net.yaml: 32 channels, 256-d) at full width with
-    seeded weights: (a) one float32 train step on the card against the CPU
+    """Each of ZOO_CONFIGS' models (ERes2Net34_Base, Res2Net34_Base,
+    REPVGG_TINY_A0, XVEC, XI_VEC_ECAPA_TDNN_c512, Gemini_DF_ResNet114 with
+    its AdamW) and SimAM_ResNet34_ASP (resnet34.yaml with the model swapped;
+    no config names it) at full width with seeded weights: (a) one float32
+    train step with the config's optimizer on the card against the CPU
     (step_vs_cpu); (b) eval embeddings of a padded batch through
     make_eval_embed with K1 (3 x 3 s, lengths 3, 1.9 and 0.8 s), the card
     against the CPU's plain path, cosine >= 0.99999; (c) ZOO_TIMED_STEPS
-    float32 steps at batch 128 x 2 s on the card, each timed with a device
-    synchronize after a warm one, and the peak memory."""
+    float32 steps at the config's batch x 2 s on the card, each timed with
+    a device synchronize after a warm one, and the peak memory.  For
+    RepVGG also its deploy form (convert_repvgg_params) against the
+    training form in eval on the card, cosine >= 0.99999."""
     from wespeaker_hubert_tpu_torch.models.speaker_net import build_speaker_net, load_speaker_state
     from wespeaker_hubert_tpu_torch.ops import fbank_kernel
     from wespeaker_hubert_tpu_torch.ops.fbank import FbankConfig
@@ -3182,56 +3314,74 @@ def phase_zoo_step_check(report):
     lengths = torch.tensor([48000, 30400, 12800], dtype=torch.int32)
     fcfg = FeaturePipelineConfig(fbank=FbankConfig(dither=0.0, spectrum_impl="kernel"),
                                  spec_aug=False)
+    configs = dict(ZOO_CONFIGS)
     bad = []
-    for name, path in ZOO_CONFIGS.items():
-        r = out[name] = {"step": step_vs_cpu(path, ZOO_CHECK_SEED, f"zoo step {name}")}
-        config = load_config(str(path))
-        embs = {}
-        for dev in ("cpu", DEVICE):
-            net = build_speaker_net(config)
-            missing, _ = load_speaker_state(net, seeded_state_dict(net.backbone, ZOO_CHECK_SEED))
-            check(not missing, f"zoo {name}: seeded weights miss {missing[:4]}")
-            net.to(dev).eval()
-            launches = fbank_kernel.LAUNCHES
-            embs[dev] = make_eval_embed(net, fcfg)({"wav": wav.to(dev),
-                                                    "length": lengths.to(dev)}).cpu().numpy()
-            r.setdefault("k1_launches", {})[dev] = fbank_kernel.LAUNCHES - launches
-            del net
-        cos = [cosine(a, b) for a, b in zip(embs[DEVICE], embs["cpu"])]
-        r["embeddings"] = {"min_cosine": min(cos), "bar": COS_MIN["f32"],
-                           "shape": list(embs[DEVICE].shape)}
-        # timed steps at the recipe's batch
-        net, state, step = _ecapa_net(DEVICE, config_path=path, seed=ZOO_CHECK_SEED)
-        batch = {k: v.to(DEVICE) for k, v in _ecapa_check_batch(ZOO_CHECK_SEED + 1,
-                                                                ZOO_TIMED_BATCH).items()}
-        if DEVICE == "cuda":
-            torch.cuda.reset_peak_memory_stats()
-        ms = []
-        for i in range(1 + ZOO_TIMED_STEPS):
-            sync()
-            t0 = time.perf_counter()
-            step(state, batch)
-            sync()
-            ms.append(1e3 * (time.perf_counter() - t0))
-        r["timed"] = {"batch": ZOO_TIMED_BATCH, "chunk_s": 2.0, "step_ms": ms,
-                      "step_ms_after_first": statistics.mean(ms[1:]),
-                      "audio_s_per_s": ZOO_TIMED_BATCH * 2.0 / (statistics.mean(ms[1:]) / 1e3),
-                      "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
-                                      if DEVICE == "cuda" else "not measured")}
-        del net, state, step, batch
-        empty_cache()
-        t = r["timed"]
-        log(f"[zoo {name}] {config['model']} eval embeddings through K1 ({r['k1_launches']} "
-            f"launches), card vs CPU: min cosine {min(cos):.7f} (bar {COS_MIN['f32']}); "
-            f"{ZOO_TIMED_STEPS} f32 steps at {ZOO_TIMED_BATCH} x 2 s: "
-            + ", ".join(f"{x:.1f}" for x in ms) + f" ms, {t['step_ms_after_first']:.2f} ms "
-            f"after the first = {t['audio_s_per_s']:.0f} audio-s/s; peak memory "
-            + (f"{t['peak_mem_gb']:.2f} GB" if DEVICE == "cuda" else "not measured"))
-        shape = (3, config["model_args"]["embed_dim"])
-        if min(cos) < COS_MIN["f32"] or embs[DEVICE].shape != shape:
-            bad.append(f"{name} embeddings {embs[DEVICE].shape}, cosines {cos}")
-        if DEVICE == "cuda" and r["k1_launches"] != {"cpu": 0, DEVICE: 1}:
-            bad.append(f"{name} K1 launches {r['k1_launches']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (path, model) in ZOO_SWAPPED.items():
+            config = load_config(str(path))
+            config["model"] = model
+            configs[name] = Path(tmp, f"{name}.json")
+            configs[name].write_text(json.dumps(config))
+        for name, path in configs.items():
+            r = out[name] = {"step": step_vs_cpu(path, ZOO_CHECK_SEED, f"zoo step {name}")}
+            config = load_config(str(path))
+            r["model"], r["optimizer"] = config["model"], config.get("optimizer", "SGD")
+            embs = {}
+            for dev in ("cpu", DEVICE):
+                net = build_speaker_net(config)
+                missing, _ = load_speaker_state(net, seeded_state_dict(net.backbone,
+                                                                       ZOO_CHECK_SEED))
+                check(not missing, f"zoo {name}: seeded weights miss {missing[:4]}")
+                net.to(dev).eval()
+                launches = fbank_kernel.LAUNCHES
+                embs[dev] = make_eval_embed(net, fcfg)({"wav": wav.to(dev),
+                                                        "length": lengths.to(dev)}).cpu().numpy()
+                r.setdefault("k1_launches", {})[dev] = fbank_kernel.LAUNCHES - launches
+                del net
+            cos = [cosine(a, b) for a, b in zip(embs[DEVICE], embs["cpu"])]
+            r["embeddings"] = {"min_cosine": min(cos), "bar": COS_MIN["f32"],
+                               "shape": list(embs[DEVICE].shape)}
+            if name == "repvgg":
+                r["deploy"] = _repvgg_deploy_check(config, wav, lengths, fcfg)
+                log(f"[zoo repvgg] deploy form (convert_repvgg_params) against the training "
+                    f"form, eval on the card: min cosine {r['deploy']['min_cosine']:.7f}, "
+                    f"max|d| {r['deploy']['max_rel_err']:.2e} of max|embedding| (bar cosine "
+                    f"{COS_MIN['f32']})")
+                if r["deploy"]["min_cosine"] < COS_MIN["f32"]:
+                    bad.append(f"repvgg deploy form {r['deploy']}")
+            # timed steps at the config's batch
+            n = ZOO_TIMED_BATCH or config["dataloader_args"]["batch_size"]
+            net, state, step = _ecapa_net(DEVICE, config_path=path, seed=ZOO_CHECK_SEED)
+            batch = {k: v.to(DEVICE) for k, v in _ecapa_check_batch(ZOO_CHECK_SEED + 1,
+                                                                    n).items()}
+            if DEVICE == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            ms = []
+            for i in range(1 + ZOO_TIMED_STEPS):
+                sync()
+                t0 = time.perf_counter()
+                step(state, batch)
+                sync()
+                ms.append(1e3 * (time.perf_counter() - t0))
+            r["timed"] = {"batch": n, "chunk_s": 2.0, "step_ms": ms,
+                          "step_ms_after_first": statistics.mean(ms[1:]),
+                          "audio_s_per_s": n * 2.0 / (statistics.mean(ms[1:]) / 1e3),
+                          "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                          if DEVICE == "cuda" else "not measured")}
+            del net, state, step, batch
+            empty_cache()
+            t = r["timed"]
+            log(f"[zoo {name}] {config['model']} ({r['optimizer']}) eval embeddings through K1 "
+                f"({r['k1_launches']} launches), card vs CPU: min cosine {min(cos):.7f} (bar "
+                f"{COS_MIN['f32']}); {ZOO_TIMED_STEPS} f32 steps at {n} x 2 s: "
+                + ", ".join(f"{x:.1f}" for x in ms) + f" ms, {t['step_ms_after_first']:.2f} ms "
+                f"after the first = {t['audio_s_per_s']:.0f} audio-s/s; peak memory "
+                + (f"{t['peak_mem_gb']:.2f} GB" if DEVICE == "cuda" else "not measured"))
+            shape = (3, config["model_args"]["embed_dim"])
+            if min(cos) < COS_MIN["f32"] or embs[DEVICE].shape != shape:
+                bad.append(f"{name} embeddings {embs[DEVICE].shape}, cosines {cos}")
+            if DEVICE == "cuda" and r["k1_launches"] != {"cpu": 0, DEVICE: 1}:
+                bad.append(f"{name} K1 launches {r['k1_launches']}")
     check(not bad, "zoo: " + "; ".join(bad))
 
 
@@ -4258,6 +4408,8 @@ def main():
         # the same data directory: stages 1-2 run again on it
         resnet_launches = timed("resnet recipe", phase_resnet_recipe, report, recipe_dir)
         campplus_launches = timed("campplus recipe", phase_campplus_recipe, report, recipe_dir)
+        redimnet_launches = timed("redimnet recipe", phase_redimnet_recipe, report, recipe_dir)
+        gemini_launches = timed("gemini recipe", phase_gemini_recipe, report, recipe_dir)
         wavlm_launches = timed("wavlm recipe", phase_wavlm_recipe, report, recipe_dir)
     timed("ecapa step check", phase_ecapa_step_check, report)
     timed("resnet step check", phase_resnet_step_check, report)
@@ -4284,7 +4436,7 @@ def main():
     if (failures or k1 is None or launches is None or k2_row is None or k2_launches is None
             or k2_bwd_row is None or train_launches is None or recipe_launches is None
             or resnet_launches is None or whisper_launches is None or campplus_launches is None
-            or wavlm_launches is None):
+            or wavlm_launches is None or redimnet_launches is None or gemini_launches is None):
         for f in failures:
             print(f"chip_smoke FAILED {f}", file=sys.stderr)
         return 1
@@ -4302,6 +4454,9 @@ def main():
                                    "stage 9 (its stage 4)": resnet_launches[1]},
         "launches_campplus_recipe": {"stage 4": campplus_launches[0],
                                      "stage 9 (its stage 4)": campplus_launches[1]},
+        "launches_redimnet_recipe": {"stage 4 (72 mels)": redimnet_launches[0]},
+        "launches_gemini_recipe": {"stage 4": gemini_launches[0],
+                                   "stage 9 (its stage 4)": gemini_launches[1]},
         "max_abs_err": max(r["max_abs_err"] for r in report["fbank_checks"]),
         "max_err": max(r["max_abs_err"] for r in report["fbank_checks"]),
         "ms": k1["ms"],

@@ -198,7 +198,7 @@ def test_registry_and_build():
         "ECAPA_TDNN_GLOB_c512"
     )
     with pytest.raises(ValueError, match="unknown model"):
-        get_speaker_model("ReDimNetB2")  # not ported yet (ROADMAP.md queue 1, item 2)
+        get_speaker_model("NoSuchNetB9")  # neither registry holds it
     net = build_speaker_net({
         "model": "ECAPA_TDNN_c1024",
         "model_args": {"feat_dim": 24, "embed_dim": 8},

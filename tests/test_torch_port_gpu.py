@@ -54,6 +54,7 @@ def _wav(seed, shape):
     "shape,kw",
     [((4, 32000), {}), ((1, 32240), {"num_mel_bins": 40}), ((3, 401), {}),
      ((2, 16000), {"sample_rate": 8000}), ((3, 24000), {"num_mel_bins": 72}),
+     ((32, 64240), {"num_mel_bins": 72}),
      ((2, 48000), {"sample_rate": 48000, "window_type": "povey", "preemph_coeff": 0.0}),
      ((2, 22050), {"sample_rate": 22050, "remove_dc_offset": False, "scale_to_int16": False})],
 )
@@ -669,18 +670,20 @@ def test_exported_resnet34_program_on_gpu_matches_eager(cuda, tmp_path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("model,embed_dim", [("CAMPPlus", 512), ("Res2Net34_Base", 256),
-                                             ("ERes2Net34_Base", 512)])
-def test_zoo_forward_on_gpu_matches_cpu(cuda, model, embed_dim):
-    """CAM++, Res2Net34 and ERes2Net34 at their published widths (80 mels)
-    with seeded random weights, in eval on a padded feature batch with a
-    ragged mask (3 x 317 frames; CAM++'s 159 frames after its TDNN end in a
-    partial segment), the card against the CPU, float32 with TF32 off:
-    cosine >= 0.99999."""
+@pytest.mark.parametrize("model,embed_dim,feat_dim", [
+    ("CAMPPlus", 512, 80), ("Res2Net34_Base", 256, 80), ("ERes2Net34_Base", 512, 80),
+    ("REPVGG_TINY_A0", 256, 80), ("XVEC", 512, 80), ("XI_VEC_ECAPA_TDNN_c512", 192, 80),
+    ("Gemini_DF_ResNet114", 256, 80), ("SimAM_ResNet34_ASP", 256, 80), ("ReDimNetB2", 192, 72)])
+def test_zoo_forward_on_gpu_matches_cpu(cuda, model, embed_dim, feat_dim):
+    """The zoo at its published widths (80 mels; ReDimNet 72) with seeded
+    random weights, in eval on a padded feature batch with a ragged mask (3
+    x 317 frames; CAM++'s 159 frames after its TDNN end in a partial
+    segment), the card against the CPU, float32 with TF32 off: cosine >=
+    0.99999."""
     from wespeaker_hubert_tpu_torch.models.registry import get_speaker_model
     from wespeaker_hubert_tpu_torch.models.speaker_net import SpeakerNet
 
-    net = SpeakerNet(get_speaker_model(model)(80, embed_dim))
+    net = SpeakerNet(get_speaker_model(model)(feat_dim, embed_dim))
     rng = np.random.default_rng(12)
     with torch.no_grad():
         for k, v in net.state_dict().items():
@@ -691,7 +694,7 @@ def test_zoo_forward_on_gpu_matches_cpu(cuda, model, embed_dim):
                     x = rng.uniform(0.5, 1.5, v.shape)
                 v.copy_(torch.from_numpy(x.astype(np.float32)))
     net.eval()
-    feats = _wav(31, (3, 317, 80)) * 10
+    feats = _wav(31, (3, 317, feat_dim)) * 10
     mask = torch.arange(317)[None, :] < torch.tensor([317, 200, 90])[:, None]
     with torch.inference_mode():
         want = net.embed(feats, mask).numpy()

@@ -57,7 +57,8 @@ def _module_names():
     "bin.import_torch", "bin.export_torch", "bin.export_model",
     "ops.whisper_mel", "frontend.whisper", "models.whisper_pmfa",
     "recipes.voxceleb_v1_whisper_pmfa", "models.campplus", "models.res2net", "models.eres2net",
-    "recipes.voxceleb_v2_wavlm",
+    "recipes.voxceleb_v2_wavlm", "models.tdnn", "models.xi_vector", "models.gemini_dfresnet",
+    "models.samresnet", "models.repvgg", "models.redimnet",
 ])
 def test_training_modules_are_checked(name):
     """The training, recipe, interop, Whisper and model-zoo slices' modules are among

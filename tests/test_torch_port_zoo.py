@@ -49,7 +49,8 @@ REL = 1e-5  # float32: max |port - JAX| <= REL x max |JAX|
 JAX_CAP = 2e-4  # JAX's own train-mode float32 distance from the exact forward
 FD = 40
 
-# name -> (registry name, JAX module, port module, JAX converter, (B, T))
+# name -> (registry name, JAX module, port module, JAX converter, (B, T)[,
+# feat_dim]: FD unless given)
 CASES = {
     "res2net_base": (
         "Res2Net34_Base", lambda: jax_res2net.Res2Net(8, (1, 2, 1, 1), FD, 16),
@@ -77,12 +78,16 @@ CASES = {
 def wespeaker_state(module, seed):
     """Seeded numpy draws for a port module's state_dict (WeSpeaker's
     layout): fan-in-scaled weights, BN scale / var in [0.5, 1.5) and biases
-    / means near 0, so a swap of any two would show."""
+    / means near 0, so a swap of any two would show; constants as they
+    are."""
     rng = np.random.default_rng(seed)
     sd = {}
     for k, v in module.state_dict().items():
         if not v.is_floating_point():
             sd[k] = torch.zeros_like(v)
+            continue
+        if k.endswith("inputs_weights.0"):  # ReDimNet's frozen all-ones stage-0 weight
+            sd[k] = torch.ones_like(v)
             continue
         if k.endswith(("running_var",)) or (k.endswith("weight") and v.dim() == 1):
             x = rng.uniform(0.5, 1.5, v.shape)
@@ -129,14 +134,15 @@ def jax_reference(case_spec, kind, modes=TRAIN_MODES):
     """The JAX module's outputs on one padded batch: eval with the ragged
     mask, and train-mode BatchNorm in `modes` (with the mask, without), in
     one jit; the case's weights and inputs beside them."""
-    name, jax_module, port_module, to_jax, (b, t) = case_spec
+    name, jax_module, port_module, to_jax, (b, t), *fd = case_spec
+    fd = fd[0] if fd else FD
     sd = wespeaker_state(port_module(), seed=len(kind))
     params, stats = to_jax(sd)
     rng = np.random.default_rng(4)
     # per-utterance feature scales and offsets: the rows' pooled statistics
     # differ, as utterances' do, for the BatchNorms over pooled rows
-    x = (rng.standard_normal((b, t, FD)) * rng.uniform(0.5, 2.0, (b, 1, FD))
-         + rng.normal(0.0, 3.0, (b, 1, FD))).astype(np.float32)
+    x = (rng.standard_normal((b, t, fd)) * rng.uniform(0.5, 2.0, (b, 1, fd))
+         + rng.normal(0.0, 3.0, (b, 1, fd))).astype(np.float32)
     mask = np.arange(t)[None, :] < np.array([t, t - 37, 41])[:b, None]
     jm = jax_module()
 
@@ -150,7 +156,7 @@ def jax_reference(case_spec, kind, modes=TRAIN_MODES):
 
     want = run_jax(reference, _jax_variables(params, stats), jnp.asarray(x), jnp.asarray(mask))
     return dict(kind=kind, name=name, port_module=port_module, sd=sd, params=params,
-                stats=stats, x=x, mask=mask, modes=modes, want=jax.device_get(want))
+                stats=stats, x=x, mask=mask, modes=modes, fd=fd, want=jax.device_get(want))
 
 
 @pytest.fixture(scope="module", params=sorted(CASES))
@@ -162,13 +168,13 @@ def _port(case, train):
     pm = case["port_module"]()
     pm.load_state_dict(from_jax_variables(case["name"], {"params": case["params"],
                                                          "batch_stats": case["stats"]},
-                                          feat_dim=FD), strict=True)
+                                          feat_dim=case["fd"]), strict=True)
     return pm.train(train)
 
 
 def check_inverse(case):
     back = from_jax_variables(case["name"], {"params": case["params"],
-                                             "batch_stats": case["stats"]}, feat_dim=FD)
+                                             "batch_stats": case["stats"]}, feat_dim=case["fd"])
     assert set(back) == set(case["sd"])
     for k, v in case["sd"].items():
         assert back[k].dtype == v.dtype and torch.equal(back[k], v), k
@@ -204,9 +210,11 @@ def check_train_mode(case):
             out[dtype] = (y.numpy(), {k: v.numpy() for k, v in pm.state_dict().items()
                                       if "running_" in k})
         want, stats = case["want"][mode]
+        want = _last(want)
         assert_exact_rule(out[torch.float32][0], want, out[torch.float64][0], mode)
         new_stats = from_jax_variables(case["name"], {"params": case["params"],
-                                                      "batch_stats": stats}, feat_dim=FD)
+                                                      "batch_stats": stats},
+                                       feat_dim=case["fd"])
         for k, v in out[torch.float32][1].items():
             assert_exact_rule(v, new_stats[k].numpy(), out[torch.float64][1][k], f"{mode} {k}")
 

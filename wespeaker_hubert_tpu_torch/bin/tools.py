@@ -22,11 +22,11 @@ from __future__ import annotations
 
 import io
 import json
-import multiprocessing as mp
 import os
 import random
 import tarfile
 import wave
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -152,8 +152,11 @@ def make_shard_list(
     tasks = [(os.path.join(shards_dir, f"shard_{i:06d}{suffix}"), chunk, compress)
              for i, chunk in enumerate(chunks)]
     if num_workers > 1 and len(tasks) > 1:
-        with mp.get_context("spawn").Pool(min(num_workers, len(tasks))) as pool:
-            paths = pool.map(_write_shard, tasks)
+        # threads: a shard is file I/O and zlib, which release the GIL, and a
+        # spawned process would first re-import the caller's main module
+        # (torch with it: seconds per worker, more than a shard takes)
+        with ThreadPoolExecutor(min(num_workers, len(tasks))) as pool:
+            paths = list(pool.map(_write_shard, tasks))
     else:
         paths = [_write_shard(t) for t in tasks]
     with open(out_list, "w") as f:

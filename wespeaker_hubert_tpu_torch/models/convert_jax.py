@@ -1,8 +1,9 @@
 """JAX (flax) variables -> the port's PyTorch state_dict.
 
 Carries weights trained or initialized by the JAX package into the port's
-modules, for the families the port has: ECAPA-TDNN, ResNet, Res2Net,
-ERes2Net, CAM++ and the Whisper-PMFA head.  The input is the flax
+modules, for every family of the JAX registry: x-vector and xi-vector,
+ECAPA-TDNN, ResNet, Res2Net, ERes2Net, CAM++, Gemini DF-ResNet,
+SimAM-ResNet, RepVGG, ReDimNet and the Whisper-PMFA head.  The input is the flax
 `{'params', 'batch_stats'}` tree as numpy arrays (a JAX `.ckpt` holds one,
 utils/checkpoint.py:load_jax_checkpoint), of a bare backbone or of a
 `SpeakerNet` (whose backbone sits under 'backbone', and its SSL or Whisper
@@ -44,6 +45,22 @@ the model's `feat_dim`.  Res2Net and ERes2Net follow ResNet's rules, with
 `campplus_from_torch`) holds every Dense as a 1x1 Conv1d under WeSpeaker's
 `xvector.` names, and the first TDNN's input channels, the FCM map
 flattened, are permuted as `seg_1`'s columns are.
+
+The rest are the inverses of the JAX package's `xvec_from_torch` (XI's
+`lin1` / `bn1` / `lin2` -> `pool.lin1_relu_bn.0` / `.2` / `pool.lin2`, 1x1
+Conv1d's, and `prior_mean` / `prior_logprec`, for ECAPA's XI pooling too),
+`gemini_from_torch` (`stem_*` / `down{i}_*` -> `downsample_layers.{i}.0`
+/ `.1`, `stage{i}_{j}` -> `stages.{i-1}.{j}`; `seg_1` permuted over
+F / 16 frequency rows), `samresnet_from_torch` (under `front.`; ASP's
+`att1` / `att_bn` / `att2` -> `pooling.attention.0` / `.2` / `.3`, whose
+CF rows, columns and bias are permuted, as are `bottleneck`'s),
+`repvgg_from_torch` (`dense_*` / `one_*` / `dil_*` / `id_bn` / `reparam`
+-> `rbr_dense.*` / `rbr_1x1.*` / `rbr_dense_dilation.*` / `rbr_identity` /
+`rbr_reparam`, `se/fc1` -> `se.fc_1`; `seg` permuted over F / 8 rows) and
+`redimnet_from_torch` (under `backbone.stage{i}.{k}` Sequential indices;
+`inputs_weights_{i}` (n, CF) -> (1, n, CF, 1), the final mix the last, and
+the frozen all-ones stage-0 weight added; no permutation: both packages
+order the 1-D axis f * C + c).
 """
 
 from __future__ import annotations
@@ -54,12 +71,18 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from .resnet import strided_size
+
 __all__ = ["from_jax_variables", "frontend_from_jax", "whisper_frontend_from_jax"]
 
 # flax module names inside an ECAPA SE-Res2 block -> torch module paths
 _SE_RES2 = {"conv1": "0", "res2": "1", "conv2": "2", "se": "3"}
 # torch modules that are 1x1 Conv1d where flax has a Dense
-_CONV1X1_DENSE = ("pool.linear1", "pool.linear2", "pooling.linear1", "pooling.linear2")
+_CONV1X1_DENSE = ("pool.linear1", "pool.linear2", "pooling.linear1", "pooling.linear2",
+                  "pool.lin1_relu_bn.0", "pool.lin2", "pooling.attention.0",
+                  "pooling.attention.3")
+# XI pooling's flax modules -> torch's
+_XI_POOL = {"lin1": "lin1_relu_bn.0", "bn1": "lin1_relu_bn.2", "lin2": "lin2"}
 
 
 def _np(leaf) -> np.ndarray:
@@ -144,7 +167,117 @@ def _ecapa_module(path: Tuple[str, ...]) -> str:
             kind, idx = rest[0].rsplit("_", 1)  # conv_3 -> convs.3
             rest = [f"{kind}s", idx] + rest[1:]
         parts = head + rest
+    return _xi_pool_module(parts)
+
+
+def _xi_pool_module(parts) -> str:
+    """A module path, with XI pooling's flax names mapped to torch's."""
+    parts = list(parts)
+    if parts[0] == "pool" and len(parts) > 1:
+        parts[1] = _XI_POOL.get(parts[1], parts[1])
     return ".".join(parts)
+
+
+def _gemini_module(path: Tuple[str, ...]) -> str:
+    head, rest = path[0], list(path[1:])
+    m = re.fullmatch(r"(stem|down(\d))_(conv|bn)", head)
+    if m:
+        return f"downsample_layers.{m.group(2) or 0}.{0 if m.group(3) == 'conv' else 1}"
+    m = re.fullmatch(r"stage(\d)_(\d+)", head)
+    if m:
+        head = f"stages.{int(m.group(1)) - 1}.{m.group(2)}"
+    return ".".join([head] + rest)
+
+
+_SAM_RENAME = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1",
+               "att1": "attention.0", "att_bn": "attention.2", "att2": "attention.3"}
+
+
+def _samresnet_module(path: Tuple[str, ...]) -> str:
+    head, rest = path[0], [_SAM_RENAME.get(r, r) for r in path[1:]]
+    if head in ("conv1", "bn1"):
+        return f"front.{head}"
+    m = re.fullmatch(r"layer(\d)_(\d+)", head)
+    if m:
+        head = f"front.layer{m.group(1)}.{m.group(2)}"
+    return ".".join([head] + rest)
+
+
+_REPVGG_RENAME = {"dense_conv": "rbr_dense.conv", "dense_bn": "rbr_dense.bn",
+                  "one_conv": "rbr_1x1.conv", "one_bn": "rbr_1x1.bn",
+                  "dil_conv": "rbr_dense_dilation.conv", "dil_bn": "rbr_dense_dilation.bn",
+                  "id_bn": "rbr_identity", "reparam": "rbr_reparam", "fc1": "fc_1",
+                  "fc2": "fc_2"}
+
+
+def _repvgg_module(path: Tuple[str, ...]) -> str:
+    head = re.sub(r"^stage(\d)_(\d+)$", r"stage\1.\2", path[0])
+    return ".".join([head] + [_REPVGG_RENAME.get(r, r) for r in path[1:]])
+
+
+_REDIM_BLOCK = {"ds_conv": "downsample.0", "ds_bn": "downsample.1"}
+_REDIM_ATT = {"intermediate_dense": "feed_forward.intermediate_dense",
+              "output_dense": "feed_forward.output_dense"}
+_REDIM_TCB = {"red_conv": "red_dim_conv.0", "red_norm": "red_dim_conv.1",
+              "exp_conv": "exp_dim_conv"}
+
+
+def _redimnet_module_of(params: Dict):
+    """The flax module path -> torch name map of a ReDimNet whose variables
+    are `params` (a stage's Sequential indices depend on its blocks)."""
+    def tcb_index(si):
+        nb = sum(1 for k in params if re.fullmatch(rf"stage{si}_block\d+", k))
+        return nb + 1 + (f"stage{si}_squeeze_conv" in params) + 1  # + to1d
+
+    def module_of(path):
+        head, rest = path[0], list(path[1:])
+        if head in ("stem_conv", "stem_norm"):
+            return f"backbone.stem.{0 if head == 'stem_conv' else 1}"
+        m = re.fullmatch(r"stage(\d+)_(down|block(\d+)|squeeze_(conv|bn|pw)|tcb)", head)
+        if not m:
+            return ".".join(path)  # pool, seg_1, seg_bn_1, seg_2
+        si, kind = int(m.group(1)), m.group(2)
+        base = f"backbone.stage{si}"
+        if kind == "down":
+            return f"{base}.0"
+        if m.group(3) is not None:  # a 2-D block
+            rest = [re.sub(r"^dwconv_(\d+)$", r"dwconvs.\1", r) for r in rest]
+            return ".".join([f"{base}.{int(m.group(3)) + 1}.conv_block"]
+                            + [_REDIM_BLOCK.get(r, r) for r in rest])
+        if m.group(4) is not None:  # the squeeze
+            nb = tcb_index(si) - 3
+            return f"{base}.{nb + 1}.{ {'conv': 0, 'bn': 1, 'pw': 3}[m.group(4)] }"
+        att = 4 if "convnext_0" in params[head] else 1
+        sub = rest[0]
+        out = [f"{base}.{tcb_index(si)}"]
+        if sub in _REDIM_TCB:
+            out.append(_REDIM_TCB[sub])
+        elif sub.startswith("convnext_"):
+            out.append(f"tcm.{sub[len('convnext_'):]}")
+            out += [re.sub(r"^dwconv_(\d+)$", r"dwconvs.\1", r) for r in rest[1:]]
+        elif sub == "pos_enc":
+            out += ["tcm.0"] + rest[1:]
+        else:  # the transformer layer
+            out += [f"tcm.{att}"] + [_REDIM_ATT.get(r, r) for r in rest[1:]]
+        return ".".join(out)
+
+    return module_of
+
+
+def _permute_rows(w: np.ndarray, channels: int, freq: int, axis: int) -> np.ndarray:
+    """Undo the JAX flatten order along `axis` of `w` (a multiple of C F
+    long): JAX's entry i goes to WeSpeaker's `_stats_permutation` index."""
+    perm = _stats_permutation(channels, freq)
+    n = w.shape[axis]
+    if n % perm.size:
+        raise ValueError(f"{n} inputs are not a multiple of {channels} channels x {freq} "
+                         "frequency rows")
+    full = np.concatenate([perm + j * perm.size for j in range(n // perm.size)])
+    ref = np.empty_like(w)
+    index = [slice(None)] * w.ndim
+    index[axis] = full
+    ref[tuple(index)] = w
+    return ref
 
 
 # flax module names of SSLEncoder -> HF module paths
@@ -223,14 +356,24 @@ def whisper_frontend_from_jax(params: Dict) -> Dict[str, np.ndarray]:
 
 def from_jax_variables(model_name: str, variables: Dict,
                        feat_dim: int = 80) -> Dict[str, torch.Tensor]:
-    """JAX `{'params', 'batch_stats'}` of an ECAPA, ResNet, Res2Net,
-    ERes2Net, CAM++ or Whisper-PMFA model, or of a SpeakerNet with one, ->
-    state_dict of the port's module of the same name (with the SpeakerNet's
-    frontend under `frontend.`).  `feat_dim` is the model's input width,
-    which the ResNet family's `seg_1` permutation needs."""
+    """JAX `{'params', 'batch_stats'}` of a model of the JAX registry, or of
+    a SpeakerNet with one, -> state_dict of the port's module of the same
+    name (with the SpeakerNet's frontend under `frontend.`).  `feat_dim` is
+    the model's input width, which the 2-D families' permutations need."""
     upper = model_name.upper()
-    if upper.startswith("ECAPA_TDNN"):
+    params = variables["params"]
+    if upper.startswith(("ECAPA_TDNN", "XI_VEC_ECAPA")):
         module_of = _ecapa_module
+    elif upper in ("XVEC", "XI_VEC_XVEC"):
+        module_of = _xi_pool_module
+    elif upper.startswith("GEMINI_DF_RESNET"):
+        module_of = _gemini_module
+    elif upper.startswith("SIMAM_RESNET"):
+        module_of = _samresnet_module
+    elif upper.startswith("REPVGG"):
+        module_of = _repvgg_module
+    elif upper.startswith("REDIMNET"):
+        module_of = _redimnet_module_of(params.get("backbone", params))
     elif upper.startswith(("RESNET", "RES2NET", "ERES2NET")):
         module_of = _resnet_module
     elif upper == "CAMPPLUS":
@@ -241,10 +384,7 @@ def from_jax_variables(model_name: str, variables: Dict,
         module_of = lambda path: ".".join(  # noqa: E731
             ("bn", "norm") + path[1:] if path[0] == "bn" else path)
     else:
-        raise NotImplementedError(
-            f"{model_name!r}: the port has no module of this family (ROADMAP.md queue 1, "
-            "item 2)")
-    params = variables["params"]
+        raise ValueError(f"{model_name!r}: no model of the JAX registry")
     stats = variables.get("batch_stats", {})
     frontend: Dict[str, np.ndarray] = {}
     head: Dict[str, np.ndarray] = {}
@@ -259,9 +399,16 @@ def from_jax_variables(model_name: str, variables: Dict,
         stats = stats.get("backbone", {})
 
     sd: Dict[str, np.ndarray] = {}
+    n_mix = sum(1 for k in params if re.fullmatch(r"stage\d+_down", k))
     for path, leaf in _flatten(params).items():
+        if len(path) == 1 and path[0].startswith("inputs_weights_"):  # ReDimNet's mix
+            i = n_mix if path[0].endswith("final") else int(path[0].rsplit("_", 1)[1])
+            sd[f"backbone.inputs_weights.{i}"] = leaf[None, :, :, None]
+            continue
         module, name = module_of(path[:-1]), path[-1]
-        if name == "kernel":
+        if name in ("prior_mean", "prior_logprec"):  # XI pooling's prior
+            sd[f"{module}.{name}"] = leaf
+        elif name == "kernel":
             if leaf.ndim == 4:
                 w = leaf.transpose(3, 2, 1, 0)
             elif leaf.ndim == 3:
@@ -292,19 +439,31 @@ def from_jax_variables(model_name: str, variables: Dict,
         ref = np.empty_like(w)
         ref[:, _stats_permutation(channels, w.shape[1] // channels)] = w
         sd["xvector.tdnn.linear.weight"] = ref
+    def last_channels(prefix):
+        return max(v.shape[0] for k, v in sd.items()
+                   if k.startswith(prefix) and k.endswith(".weight") and v.ndim == 4)
+
     if module_of is _resnet_module:
         # the last map's channels: the widest conv of layer4
-        channels = max(v.shape[0] for k, v in sd.items()
-                       if k.startswith("layer4.") and k.endswith(".weight") and v.ndim == 4)
-        perm = _stats_permutation(channels, feat_dim // 8)
-        w = sd["seg_1.weight"]
-        if w.shape[1] % perm.size:
-            raise ValueError(f"seg_1 takes {w.shape[1]} inputs, not a multiple of "
-                             f"{channels} channels x {feat_dim // 8} frequency rows")
-        full = np.concatenate([perm + j * perm.size for j in range(w.shape[1] // perm.size)])
-        ref = np.empty_like(w)
-        ref[:, full] = w  # JAX column i is WeSpeaker's column full[i]
-        sd["seg_1.weight"] = ref
+        sd["seg_1.weight"] = _permute_rows(sd["seg_1.weight"], last_channels("layer4."),
+                                           feat_dim // 8, 1)
+    elif module_of is _gemini_module:
+        sd["seg_1.weight"] = _permute_rows(sd["seg_1.weight"],
+                                           last_channels("downsample_layers.4."),
+                                           strided_size(feat_dim, 4), 1)
+    elif module_of is _repvgg_module:
+        sd["seg.weight"] = _permute_rows(sd["seg.weight"], last_channels("stage4."),
+                                         strided_size(feat_dim, 3), 1)
+    elif module_of is _samresnet_module:
+        rows = (last_channels("front.layer4."), strided_size(feat_dim, 3))
+        sd["bottleneck.weight"] = _permute_rows(sd["bottleneck.weight"], *rows, 1)
+        sd["pooling.attention.0.weight"] = _permute_rows(sd["pooling.attention.0.weight"],
+                                                         *rows, 1)
+        sd["pooling.attention.3.weight"] = _permute_rows(sd["pooling.attention.3.weight"],
+                                                         *rows, 0)
+        sd["pooling.attention.3.bias"] = _permute_rows(sd["pooling.attention.3.bias"], *rows, 0)
+    elif upper.startswith("REDIMNET"):  # the frozen stage-0 mix weight
+        sd["backbone.inputs_weights.0"] = np.ones((1, 1, 1, 1), np.float32)
     sd.update({f"frontend.{k}": v for k, v in frontend.items()})
     sd.update(head)
     return {

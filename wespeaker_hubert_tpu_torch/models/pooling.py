@@ -1,13 +1,17 @@
 """Temporal pooling: frame-level features -> utterance vectors.
 
 Counterpart of `wespeaker_hubert_tpu/models/pooling.py` (TAP, TSDP, TSTP,
-ASTP; ASP, MHASTP, MQMHASTP and XI are still to be ported).  Modules take
+ASTP, ASP and XI; MHASTP and MQMHASTP are still to be ported, and no
+config uses them).  Modules take
 channels-first (B, D, T) features, as the rest of the PyTorch backbone
 keeps them, and an optional (B, T) bool validity mask, so padded batches
 pool exactly.  Parameter names and shapes are WeSpeaker's
 (reference pooling_layers.py): the attention layers of ASTP are 1x1
 `Conv1d`s, with `linear1` taking [x, mean, std] (3D inputs) in the
-global-context variant.
+global-context variant; ASP's attention is the `attention` Sequential
+(1x1 conv, ReLU, BatchNorm, 1x1 conv) of WeSpeaker's SimAM-ResNet, and XI's
+precision estimator `lin1_relu_bn` (1x1 conv, ReLU, BatchNorm) and `lin2`,
+beside `prior_mean` and `prior_logprec`.
 """
 
 from __future__ import annotations
@@ -16,8 +20,11 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
-__all__ = ["TAP", "TSDP", "TSTP", "ASTP", "POOLING_LAYERS", "pooling_output_dim"]
+from .norm import BatchNorm1d
+
+__all__ = ["TAP", "TSDP", "TSTP", "ASTP", "ASP", "XI", "POOLING_LAYERS", "pooling_output_dim"]
 
 
 def _masked_moments(
@@ -80,6 +87,13 @@ def _global_context_dense(
     return torch.matmul(w[:, :d], x) + glob[:, :, None]
 
 
+def _masked_scores(scores: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """(B, D, T) scores with the padded frames at the dtype's minimum."""
+    if mask is None:
+        return scores
+    return scores.masked_fill(~mask[:, None, :], torch.finfo(scores.dtype).min)
+
+
 class ASTP(nn.Module):
     """Attentive statistics pooling, ECAPA-style: tanh bottleneck ->
     softmax over time -> weighted mean/std; optional global mean/std
@@ -105,22 +119,66 @@ class ASTP(nn.Module):
         else:
             a = self.linear1(x)
         scores = self.linear2(torch.tanh(a))  # (B, D, T)
-        if mask is not None:
-            neg = torch.finfo(scores.dtype).min
-            scores = scores.masked_fill(~mask[:, None, :], neg)
-        alpha = torch.softmax(scores, dim=2)
+        alpha = torch.softmax(_masked_scores(scores, mask), dim=2)
         mean = (alpha * x).sum(dim=2)
         var = (alpha * x**2).sum(dim=2) - mean**2
         std = torch.sqrt(torch.clamp_min(var, 1e-7))
         return torch.cat([mean, std], dim=-1)
 
 
-POOLING_LAYERS = {"TAP": TAP, "TSDP": TSDP, "TSTP": TSTP, "ASTP": ASTP}
+class ASP(nn.Module):
+    """Attentive statistics pooling with a conv-BN attention (the SimAM
+    ResNets'): 1x1 conv -> ReLU -> BatchNorm -> 1x1 conv, softmax over time,
+    weighted mean / std with the variance clipped at 1e-5."""
+
+    def __init__(self, in_dim: int, bottleneck_dim: int = 128):
+        super().__init__()
+        self.in_dim = in_dim
+        self.attention = nn.Sequential(
+            nn.Conv1d(in_dim, bottleneck_dim, kernel_size=1), nn.ReLU(),
+            BatchNorm1d(bottleneck_dim, eps=1e-5, momentum=0.1),
+            nn.Conv1d(bottleneck_dim, in_dim, kernel_size=1))
+
+    def forward(self, x, mask=None):
+        w = torch.softmax(_masked_scores(self.attention(x), mask), dim=2)
+        mu = (x * w).sum(dim=2)
+        sg = torch.sqrt(torch.clamp_min((x**2 * w).sum(dim=2) - mu**2, 1e-5))
+        return torch.cat([mu, sg], dim=-1)
+
+
+class XI(nn.Module):
+    """Xi-vector Gaussian-posterior pooling: a frame log-precision 2 log
+    softplus(lin2(BN(ReLU(lin1 x)))), the padded frames at the dtype's
+    minimum, and the learned prior appended as one pseudo-frame; the
+    posterior mean is the softmax-weighted mean over the T + 1 frames (the
+    JAX module's `stddev` option, which no config sets, is not ported)."""
+
+    def __init__(self, in_dim: int, hidden_size: int = 256):
+        super().__init__()
+        self.in_dim = in_dim
+        self.lin1_relu_bn = nn.Sequential(
+            nn.Conv1d(in_dim, hidden_size, kernel_size=1), nn.ReLU(),
+            BatchNorm1d(hidden_size, eps=1e-5, momentum=0.1))
+        self.lin2 = nn.Conv1d(hidden_size, in_dim, kernel_size=1)
+        self.prior_mean = nn.Parameter(torch.zeros(1, in_dim))
+        self.prior_logprec = nn.Parameter(torch.zeros(1, in_dim))
+
+    def forward(self, x, mask=None):
+        b, d, _ = x.shape
+        logprec = 2.0 * torch.log(F.softplus(self.lin2(self.lin1_relu_bn(x))))
+        logprec = _masked_scores(logprec, mask)
+        logprec_all = torch.cat(
+            [logprec, self.prior_logprec[:, :, None].to(x.dtype).expand(b, d, 1)], dim=2)
+        feat_all = torch.cat([x, self.prior_mean[:, :, None].to(x.dtype).expand(b, d, 1)], dim=2)
+        return (feat_all * torch.softmax(logprec_all, dim=2)).sum(dim=2)
+
+
+POOLING_LAYERS = {"TAP": TAP, "TSDP": TSDP, "TSTP": TSTP, "ASTP": ASTP, "ASP": ASP, "XI": XI}
 
 
 def pooling_output_dim(pool_type: str, in_dim: int) -> int:
-    if pool_type in ("TAP", "TSDP"):
+    if pool_type in ("TAP", "TSDP", "XI"):
         return in_dim
-    if pool_type in ("TSTP", "ASTP"):
+    if pool_type in ("TSTP", "ASTP", "ASP"):
         return 2 * in_dim
     raise ValueError(f"pooling {pool_type!r} is not ported")

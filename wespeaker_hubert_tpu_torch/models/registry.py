@@ -1,8 +1,9 @@
 """Model registry: name -> factory returning an nn.Module backbone.
 
-Counterpart of `wespeaker_hubert_tpu/models/registry.py` for the families
-ported so far: ECAPA-TDNN, ResNet, Res2Net, ERes2Net, CAM++ and the
-Whisper-PMFA head (ROADMAP.md queue 1, item 2 lists the rest).  Factories
+Counterpart of `wespeaker_hubert_tpu/models/registry.py`, with the same
+names: x-vector, ECAPA-TDNN, ResNet, Res2Net, ERes2Net, CAM++, Gemini
+DF-ResNet, SimAM-ResNet, the xi-vectors, the Whisper-PMFA head, ReDimNet
+B0-B6 and the 19 RepVGG variants.  Factories
 share the signature (feat_dim, embed_dim, pooling_func, **kwargs), and the
 module is called as module(x, mask=None) with x = (B, T, feat_dim)
 features.
@@ -12,11 +13,25 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
-from . import campplus, ecapa_tdnn, eres2net, res2net, resnet, whisper_pmfa
+from . import (
+    campplus,
+    ecapa_tdnn,
+    eres2net,
+    gemini_dfresnet,
+    redimnet,
+    repvgg,
+    res2net,
+    resnet,
+    samresnet,
+    tdnn,
+    whisper_pmfa,
+    xi_vector,
+)
 
 __all__ = ["get_speaker_model", "embedding_from_outputs", "MODEL_REGISTRY"]
 
 MODEL_REGISTRY: Dict[str, Callable] = {
+    "XVEC": tdnn.XVEC_factory,
     "ECAPA_TDNN_c512": ecapa_tdnn.ECAPA_TDNN_c512,
     "ECAPA_TDNN_GLOB_c512": ecapa_tdnn.ECAPA_TDNN_GLOB_c512,
     "ECAPA_TDNN_c1024": ecapa_tdnn.ECAPA_TDNN_c1024,
@@ -34,8 +49,19 @@ MODEL_REGISTRY: Dict[str, Callable] = {
     "ERes2Net34_Large": eres2net.ERes2Net34_Large,
     "ERes2Net34_aug": eres2net.ERes2Net34_aug,
     "CAMPPlus": campplus.CAMPPlus,
+    "Gemini_DF_ResNet60": gemini_dfresnet.Gemini_DF_ResNet60,
+    "Gemini_DF_ResNet114": gemini_dfresnet.Gemini_DF_ResNet114,
+    "Gemini_DF_ResNet183": gemini_dfresnet.Gemini_DF_ResNet183,
+    "Gemini_DF_ResNet237": gemini_dfresnet.Gemini_DF_ResNet237,
+    "SimAM_ResNet34_ASP": samresnet.SimAM_ResNet34_ASP,
+    "SimAM_ResNet100_ASP": samresnet.SimAM_ResNet100_ASP,
+    "XI_VEC_ECAPA_TDNN_c512": xi_vector.XI_VEC_ECAPA_TDNN_c512,
+    "XI_VEC_ECAPA_TDNN_c1024": xi_vector.XI_VEC_ECAPA_TDNN_c1024,
+    "XI_VEC_XVEC": xi_vector.XI_VEC_XVEC,
     "whisper_PMFA": whisper_pmfa.whisper_PMFA,
     "whisper_PMFA_large_v2": whisper_pmfa.whisper_PMFA_large_v2,
+    **{f"ReDimNetB{i}": getattr(redimnet, f"ReDimNetB{i}") for i in range(7)},
+    **repvgg.REPVGG_FACTORIES,
 }
 
 

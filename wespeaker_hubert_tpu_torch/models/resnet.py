@@ -37,6 +37,8 @@ __all__ = [
     "BasicBlock",
     "Bottleneck",
     "FrameMapNet",
+    "downsample_mask",
+    "strided_size",
     "ResNet",
     "ResNet18",
     "ResNet34",
@@ -102,25 +104,38 @@ class Bottleneck(nn.Module):
         return F.relu(out + self.shortcut(x))
 
 
-def downsample_mask(mask: torch.Tensor, t: int) -> torch.Tensor:
-    """The (B, T) validity mask after three stride-2 (pad 1, kernel 3)
+def downsample_mask(mask: torch.Tensor, t: int, strides: int = 3) -> torch.Tensor:
+    """The (B, T) validity mask after `strides` stride-2 (pad 1, kernel 3)
     stages of a T' = `t` frame map, as the JAX module cuts it."""
-    return mask[:, ::2][:, ::2][:, ::2][:, :t]
+    for _ in range(strides):
+        mask = mask[:, ::2]
+    return mask[:, :t]
+
+
+def strided_size(n: int, strides: int) -> int:
+    """A length after `strides` stride-2 (pad 1, kernel 3) convolutions."""
+    for _ in range(strides):
+        n = (n + 1) // 2
+    return n
 
 
 class FrameMapNet(nn.Module):
     """The embedding head of the 2-D backbones (ResNet, so Res2Net, and
-    ERes2Net): the last frame map (B, C', F', T') flattened channel-major,
-    pooled under the downsampled mask, `seg_1` and, with `two_emb_layer`,
-    ReLU -> `seg_bn_1` (no affine) -> `seg_2`."""
+    ERes2Net; Gemini DF-ResNet): the last frame map (B, C', F', T')
+    flattened channel-major, pooled under the mask downsampled by the
+    backbone's `time_strides` stride-2 stages, `seg_1` and, with
+    `two_emb_layer`, ReLU -> `seg_bn_1` (no affine) -> `seg_2`."""
 
     def _init_head(self, feat_dim: int, channels: int, embed_dim: int, pooling_func: str,
-                   two_emb_layer: bool) -> None:
+                   two_emb_layer: bool, freq: Optional[int] = None,
+                   time_strides: int = 3) -> None:
         self.feat_dim = feat_dim
         self.embed_dim = embed_dim
         self.two_emb_layer = two_emb_layer
+        self.time_strides = time_strides
         # WeSpeaker's stats_dim: feat_dim / 8 frequency rows of the last map
-        stats_dim = int(feat_dim / 8) * channels
+        # (`freq` where the backbone strides frequency otherwise)
+        stats_dim = (int(feat_dim / 8) if freq is None else freq) * channels
         self.pool = POOLING_LAYERS[pooling_func](in_dim=stats_dim)
         self.seg_1 = nn.Linear(pooling_output_dim(pooling_func, stats_dim), embed_dim)
         if two_emb_layer:
@@ -130,7 +145,7 @@ class FrameMapNet(nn.Module):
     def _head(self, out: torch.Tensor, mask: Optional[torch.Tensor]):
         b, c, f, t = out.shape
         if mask is not None:
-            mask = downsample_mask(mask, t)
+            mask = downsample_mask(mask, t, self.time_strides)
         embed_a = self.seg_1(self.pool(out.reshape(b, c * f, t), mask))
         if self.two_emb_layer:
             return embed_a, self.seg_2(self.seg_bn_1(F.relu(embed_a)))

@@ -11,9 +11,19 @@ scale_by_schedule(-lr))` and its fused `_make_sgd_update_apply`:
     p_new = p - lr(step) * m_new                      [otherwise]
 
 with the learning rate of the schedule at the step set before each update.
+Adam and AdamW follow the JAX package's chains with optax's defaults (b1
+0.9, b2 0.999, eps 1e-8 outside the square root, bias correction from step
+1).  Adam puts the coupled decay before `scale_by_adam`, which is
+`torch.optim.Adam(weight_decay=...)`; AdamW decays decoupled after it, both
+scaled by -lr, which is `torch.optim.AdamW`:
+
+    p_new = p - lr(step) * (adam(g) + wd * p)
+
+The decay reaches every trainable tensor (BatchNorm and the head too), as in
+JAX: there are no parameter groups.
+
 `freeze_paths` turns `requires_grad` off, so a frozen parameter gets neither
 an update nor weight decay (the JAX package's `set_to_zero` partition).
-Adam / AdamW are not ported yet.
 """
 
 from __future__ import annotations
@@ -45,15 +55,20 @@ def make_optimizer(
     nesterov: bool = True,
     weight_decay: float = 1e-4,
 ) -> torch.optim.Optimizer:
-    """torch-semantics SGD over the model's trainable parameters; the
-    learning rate is set per step by `TrainState.apply_gradients`."""
-    if optimizer.upper() != "SGD":
-        raise NotImplementedError(f"optimizer {optimizer!r} is not ported yet (SGD is)")
+    """SGD, Adam or AdamW over the model's trainable parameters, as the JAX
+    package's chains (module doc); the learning rate is set per step by
+    `TrainState.apply_gradients`."""
     params = [p for p in model.parameters() if p.requires_grad]
-    return torch.optim.SGD(
-        params, lr=0.0, momentum=momentum, nesterov=bool(nesterov and momentum),
-        weight_decay=weight_decay,
-    )
+    kind = optimizer.upper()
+    if kind == "SGD":
+        return torch.optim.SGD(
+            params, lr=0.0, momentum=momentum, nesterov=bool(nesterov and momentum),
+            weight_decay=weight_decay,
+        )
+    if kind in ("ADAM", "ADAMW"):
+        cls = torch.optim.Adam if kind == "ADAM" else torch.optim.AdamW
+        return cls(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
+    raise ValueError(f"unknown optimizer {optimizer!r}")
 
 
 class TrainState:
