@@ -146,7 +146,30 @@ Phases:
      weight decay 0.05, batch 128 x 2 s, margin 0.2) and
      gemini_dfresnet_sgd_lm.yaml (SGD from the AdamW run's average, 32 x 6
      s, margin 0.5) with phase 14's checks (2 epochs of 8 steps, 4 lm
-     steps).
+     steps);
+ 23. DINO: recipes.voxceleb_v3_dino (examples/voxceleb/v3/dino/run.py) with
+     --model ECAPA_TDNN_GLOB_c1024, batch 64 of 2 x 200 + 4 x 100-frame
+     crops, the 65,536-way head, SGD, float32, both aug stores, 2 epochs of
+     4 steps (the first inside the last layer's freeze) on phase 12's data:
+     finite losses, the four schedules, the freeze's closed form, the
+     teacher's and the centre's EMA, the epoch checkpoints into bin/extract's
+     net and the fine-tune's, a step card against CPU (batch 2), 3 profiled
+     steps, the peak memory, and bench.py's DINO row (ECAPA_TDNN_c512,
+     batch 64) in bf16 and float32;
+ 24. the CN-Celeb fine-tune: recipes.cnceleb_v3_finetune stages 2-6 on
+     examples/cnceleb/v3_finetune/conf/ecapa_tdnn_ft.yaml
+     (ECAPA_TDNN_GLOB_c1024, ArcMargin over 3 x 2,800 classes, batch 128 x
+     2 s) from phase 23's averaged teacher, on phase 12's wavs laid out as
+     cnceleb_train / eval with the two trial files: only `projection.*`
+     missing at load, K1 on every stage-4 input, embeddings and score files
+     against the CPU;
+ 25. MoCo and SimCLR: recipes.voxceleb_v3_contrastive stages 2-6 on
+     examples/voxceleb/v3/{moco,simclr}/conf/ecapa_tdnn.yaml
+     (ECAPA_TDNN_GLOB_c512, batch 128 x 2 views x 2 s, K 65,536), 2 epochs
+     of 4 steps each: MoCo's pointer and queue rows per step, K1 on every
+     stage-4 input, embeddings and score files against the CPU, a step of
+     each card against CPU (batch 4, the full queue), 3 profiled steps of
+     each.
 
 A kernel's bound is the least time the card could take for the work the
 function needs (for log-mel: an FFT and a sparse mel product; for
@@ -160,6 +183,7 @@ there is no CUDA device, when the port is not importable, or when any phase
 fails.  TF32 is off for every phase (cuDNN convolutions default to it).
 """
 
+import copy
 import json
 import logging
 import math
@@ -297,13 +321,25 @@ def fbank_float64(wav, cfg):
     return torch.log(torch.clamp_min(power @ mel, float(np.finfo(np.float32).eps)))
 
 
+def device_events(prof):
+    """(name, start us, end us) of a torch.profiler run's device events
+    (kernels, copies, memsets; not the ranges that record_function marks on
+    the device's timeline), read from its Kineto results: prof.events() and
+    key_averages() first build the whole host-side event tree, many seconds
+    of host time for a model of many small kernels."""
+    cached = getattr(prof, "_device_events", None)
+    if cached is None:
+        cached = [(ev.name(), ev.start_ns() / 1e3, (ev.start_ns() + ev.duration_ns()) / 1e3)
+                  for ev in prof.profiler.kineto_results.events()
+                  if ev.device_type() == torch.autograd.DeviceType.CUDA
+                  and not ev.is_user_annotation()]
+        prof._device_events = cached
+    return cached
+
+
 def device_busy_us(prof):
     """Union of the device-event intervals of a torch.profiler run (us)."""
-    spans = sorted(
-        (ev.time_range.start, ev.time_range.end) for ev in prof.events()
-        if ev.device_type == torch.autograd.DeviceType.CUDA
-        and ev.time_range.end > ev.time_range.start
-    )
+    spans = sorted((s, e) for _, s, e in device_events(prof) if e > s)
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
         if cur_e is None or s > cur_e:
@@ -668,14 +704,14 @@ def burst(url, n=64, seconds=10.0):
 
 
 def device_rows(prof):
-    """(name, device us, calls) of the device events, largest first."""
-    rows = [
-        (ev.key, ev.self_device_time_total, ev.count)
-        for ev in prof.key_averages()
-        if ev.device_type == torch.autograd.DeviceType.CUDA
-        and ev.self_device_time_total > 0
-    ]
-    return sorted(rows, key=lambda r: -r[1])
+    """(name, device us, calls) of the device events by name, largest
+    first."""
+    totals = {}
+    for name, s, e in device_events(prof):
+        us, n = totals.get(name, (0.0, 0))
+        totals[name] = (us + e - s, n + 1)
+    return sorted(((k, us, n) for k, (us, n) in totals.items() if us > 0),
+                  key=lambda r: -r[1])
 
 
 def profiled_burst(url, tag, bucket):
@@ -2034,6 +2070,19 @@ def empty_cache():
         torch.cuda.empty_cache()
 
 
+NET_TEMPLATES = {}
+
+
+def built_once(key, build):
+    """A copy of the model `build()` makes on the host for `key`: built once
+    (a full-size model's initialization takes the host seconds), then deep-
+    copied for each run.  main() drops the templates after the phases that
+    use them."""
+    if key not in NET_TEMPLATES:
+        NET_TEMPLATES[key] = build()
+    return copy.deepcopy(NET_TEMPLATES[key])
+
+
 def _train_net(root, attn_impl, device, spec_aug=True):
     """The slice's SpeakerNet (seeded init.pt, projection from a seeded
     generator), its TrainState and float32 train step on `device`."""
@@ -2045,10 +2094,14 @@ def _train_net(root, attn_impl, device, spec_aug=True):
 
     cfg = train_config(root, attn_impl)
     cfg["dataset_args"]["spec_aug"] = spec_aug
-    torch.manual_seed(0)
-    net = build_speaker_net(cfg, 3 * TRAIN_SPEAKERS)
-    load_speaker_state(net, torch.load(os.path.join(root, "init.pt"), weights_only=True))
-    net.to(device)
+
+    def build():
+        torch.manual_seed(0)
+        net = build_speaker_net(cfg, 3 * TRAIN_SPEAKERS)
+        load_speaker_state(net, torch.load(os.path.join(root, "init.pt"), weights_only=True))
+        return net
+
+    net = built_once(("train", root, attn_impl), build).to(device)
     lr = ExponentialDecrease(num_epochs=1, epoch_iter=TRAIN_STEPS, initial_lr=1e-3,
                              final_lr=2.5e-4, warm_up_epoch=1)
     margin = MarginSchedule(TRAIN_STEPS, 1, 1, 0.2, 0.2)
@@ -2481,12 +2534,14 @@ def _score_column(path, col):
         return np.asarray([float(ln.split()[col]) for ln in f])
 
 
-def recipe_against_cpu(data, exp, out, config=None, tag="recipe"):
+def recipe_against_cpu(data, exp, out, config=None, tag="recipe", eval_set="vox1",
+                       cohort_set="vox2_dev", trials=None):
     """What stages 4-6 wrote on the card against the CPU: the embeddings of
-    the first 16 eval utterances by bin/extract on the CPU (the plain fbank,
-    from the same avg_model.pt, `config`), and the cosine and AS-Norm score
-    files recomputed on the CPU from the card's embeddings.  Returns the
-    failures."""
+    the first 16 `eval_set` utterances by bin/extract on the CPU (the plain
+    fbank, from the same avg_model.pt, `config`), and the cosine and AS-Norm
+    score files of each trial file (VoxCeleb1-O unless `trials` names them)
+    recomputed on the CPU from the card's embeddings, `cohort_set` the
+    cohort.  Returns the failures."""
     from wespeaker_hubert_tpu_torch.bin.extract import extract
     from wespeaker_hubert_tpu_torch.bin.score import score_norm, score_trials
     from wespeaker_hubert_tpu_torch.recipes import voxceleb_v2
@@ -2494,34 +2549,37 @@ def recipe_against_cpu(data, exp, out, config=None, tag="recipe"):
 
     emb_dir, score_dir = os.path.join(exp, "embeddings"), os.path.join(exp, "scores")
     cpu_dir = os.path.join(exp, "cpu_check")
-    sub = os.path.join(cpu_dir, "vox1_16.list")
+    sub = os.path.join(cpu_dir, f"{eval_set}_16.list")
     os.makedirs(cpu_dir, exist_ok=True)
-    lines = Path(data, "vox1", "raw.list").read_text().splitlines()[:16]
+    lines = Path(data, eval_set, "raw.list").read_text().splitlines()[:16]
     Path(sub).write_text("\n".join(lines) + "\n")
-    card = embeddings_dict(os.path.join(emb_dir, "vox1.npz"))
+    eval_emb = os.path.join(emb_dir, f"{eval_set}.npz")
+    card = embeddings_dict(eval_emb)
     keys, emb = extract(str(config or RECIPE_CONFIG), sub, os.path.join(exp, "avg_model.pt"), "",
                         device="cpu")
     cos = [cosine(card[k], e) for k, e in zip(keys, emb)]
-    trials = os.path.join(data, "vox1", "vox1_O_cleaned.kaldi")
-    mean_vec = os.path.join(emb_dir, "vox2_dev_mean.npy")
-    cpu_score = score_trials(os.path.join(emb_dir, "vox1.npz"), [trials], cpu_dir, mean_vec,
-                             device="cpu")[0]
-    card_score = os.path.join(score_dir, os.path.basename(trials) + ".score")
-    cpu_norm = score_norm(card_score, cpu_score + ".asnorm", os.path.join(emb_dir, "vox1.npz"),
-                          os.path.join(emb_dir, "vox2_dev_spk_mean.npz"),
-                          top_n=voxceleb_v2.parse_args([]).asnorm_top_n,
-                          mean_vec_path=mean_vec, device="cpu")
-    # the bars of phase_score, plus one rounding step of the files' {:.5f}
-    score_err = float(np.abs(_score_column(card_score, 2) - _score_column(cpu_score, 2)).max())
-    norm_err = float(np.abs(_score_column(card_score + ".asnorm", 2)
-                            - _score_column(cpu_norm, 2)).max())
+    trials = trials or [os.path.join(data, "vox1", "vox1_O_cleaned.kaldi")]
+    mean_vec = os.path.join(emb_dir, f"{cohort_set}_mean.npy")
+    score_err = norm_err = 0.0
+    for trial in trials:
+        cpu_score = score_trials(eval_emb, [trial], cpu_dir, mean_vec, device="cpu")[0]
+        card_score = os.path.join(score_dir, os.path.basename(trial) + ".score")
+        cpu_norm = score_norm(card_score, cpu_score + ".asnorm", eval_emb,
+                              os.path.join(emb_dir, f"{cohort_set}_spk_mean.npz"),
+                              top_n=voxceleb_v2.parse_args([]).asnorm_top_n,
+                              mean_vec_path=mean_vec, device="cpu")
+        # the bars of phase_score, plus one rounding step of the files' {:.5f}
+        score_err = max(score_err, float(np.abs(_score_column(card_score, 2)
+                                                - _score_column(cpu_score, 2)).max()))
+        norm_err = max(norm_err, float(np.abs(_score_column(card_score + ".asnorm", 2)
+                                              - _score_column(cpu_norm, 2)).max()))
     out["against_cpu"] = {"embeddings": len(cos), "min_cosine": min(cos),
                           "cosine_bar": COS_MIN["f32"], "score_max_abs_err": score_err,
                           "asnorm_max_abs_err": norm_err, "score_bar": 1e-5 + 1.1e-5,
-                          "asnorm_bar": 2e-4 + 1.1e-5}
+                          "asnorm_bar": 2e-4 + 1.1e-5, "trial_files": len(trials)}
     log(f"[{tag}] against the CPU: {len(cos)} stage-4 embeddings, min cosine {min(cos):.7f} "
         f"(bar {COS_MIN['f32']}); stage-5 scores max|d| {score_err:.2e} (bar 2.1e-5), stage-6 "
-        f"AS-Norm max|d| {norm_err:.2e} (bar 2.11e-4)")
+        f"AS-Norm max|d| {norm_err:.2e} (bar 2.11e-4), {len(trials)} trial file(s)")
     bad = []
     if len(cos) != 16 or min(cos) < COS_MIN["f32"]:
         bad.append(f"stage-4 embeddings against the CPU: {len(cos)}, min cosine {min(cos)}")
@@ -2653,10 +2711,14 @@ def phase_recipe(report, root):
     finally:
         logging.getLogger("extract").removeHandler(handler)
     k1_extract = fbank_kernel.LAUNCHES
-    # K1 on every input stage 4 gave it, against its plain version (the card only)
-    k1_rows, k1_matched = k1_on_eval_batches(
-        [os.path.join(data, d, "raw.list") for d in ("vox1", "vox2_dev")],
-        k1_spy.inputs) if DEVICE == "cuda" else ([], False)
+    # the CPU's checks in a thread, beside K1's on the card
+    with ThreadPoolExecutor(1) as pool:
+        cpu_run = pool.submit(recipe_against_cpu, data, exp, out)
+        # K1 on every input stage 4 gave it, against its plain version (the card only)
+        k1_rows, k1_matched = k1_on_eval_batches(
+            [os.path.join(data, d, "raw.list") for d in ("vox1", "vox2_dev")],
+            k1_spy.inputs) if DEVICE == "cuda" else ([], False)
+        cpu_bad = cpu_run.result()
     n_caught = len(k1_spy.inputs)
     del k1_spy
     out["k1_stage4_checks"] = k1_rows
@@ -2668,7 +2730,6 @@ def phase_recipe(report, root):
             f"frames max|d| {r['valid']['max_abs_err']:.3e} (float64: kernel "
             f"{r['valid']['kernel_vs_float64']:.3e}, plain {r['valid']['plain_vs_float64']:.3e}), "
             f"padded {r['padded']['max_abs_err']:.3e}" for r in k1_rows))
-    cpu_bad = recipe_against_cpu(data, exp, out)
     calls = timer.calls
     per_step_ms = [1e3 * s / n for n, s in calls]
     # all the work over all the time of every call after the first
@@ -2903,6 +2964,73 @@ def phase_resnet_recipe(report, root):
                          ([1] * 2 * epoch, [1] * lm), epoch, lm)
 
 
+def program_cosines(dirs, device, shapes):
+    """{"<dir> (B, T)": min cosine} of each exported directory's stage-8
+    program (bin/export_model.load_program) against its eager model on
+    `device`, float32 with TF32 off, at the (B, T) `shapes`.  Runs in a
+    worker process (defer_check)."""
+    from wespeaker_hubert_tpu_torch.bin.export_model import load_program
+    from wespeaker_hubert_tpu_torch.models.speaker_net import build_speaker_net, load_speaker_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for exported, feat_dim in dirs:
+        program = load_program(os.path.join(exported, "model.pt2"), device=device)
+        net = build_speaker_net(json.loads(Path(exported, "config.json").read_text()))
+        load_speaker_state(net, torch.load(os.path.join(exported, "avg_model.pt"),
+                                           weights_only=True))
+        net.to(device).eval()
+        for b, t in shapes:
+            feats = torch.from_numpy(np.random.default_rng(b * t).standard_normal(
+                (b, t, feat_dim)).astype(np.float32)).to(device)
+            with torch.inference_mode():
+                got, want = program(feats), net.embed(feats)
+            out[f"{Path(exported).parent.name} ({b}, {t})"] = float(
+                torch.nn.functional.cosine_similarity(got.float(), want, dim=1).min())
+        del program, net
+    return out
+
+
+DEFERRED = []  # (phase, report entry, key, future) of the checks in worker processes
+_WORKERS = []
+
+
+def defer_check(phase, entry, key, fn, *args):
+    """Run fn(*args) in a spawned worker process beside the rest of the
+    script; main() waits for it, stores its result under entry[key] and
+    fails `phase` there if the bar is missed."""
+    if not _WORKERS:
+        import multiprocessing
+
+        from concurrent.futures import ProcessPoolExecutor
+
+        _WORKERS.append(ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")))
+    DEFERRED.append((phase, entry, key, _WORKERS[0].submit(fn, *args)))
+
+
+def collect_deferred(failures):
+    """Wait for the deferred checks; a stage-8 program under COS_MIN's
+    float32 bar, or a worker's error, is its phase's failure."""
+    try:
+        for phase, entry, key, future in DEFERRED:
+            try:
+                entry[key] = got = future.result(timeout=900)
+            except Exception as e:  # noqa: BLE001 — reported as the phase's failure
+                traceback.print_exc()
+                failures.append(f"{phase} (deferred {key}): {type(e).__name__}: {e}")
+                continue
+            log(f"[{phase}] stage-8 torch.export program on the card against the eager model "
+                "(a worker process): min cosine "
+                + ", ".join(f"{k} {v:.7f}" for k, v in got.items()) + f" (bar {COS_MIN['f32']})")
+            if min(got.values()) < COS_MIN["f32"]:
+                failures.append(f"{phase}: program vs eager {got}")
+    finally:
+        for pool in _WORKERS:
+            pool.shutdown(wait=True, cancel_futures=True)
+        _WORKERS.clear()
+
+
 def recipe_1_to_9(report, root, fam, config_path, lm_config_path, want_calls,
                   epoch_steps=RECIPE_EPOCH_STEPS, lm_steps=RECIPE_LM_STEPS):
     """recipes.voxceleb_v2 stages 1-9 on the card with a recipe config and
@@ -2917,16 +3045,14 @@ def recipe_1_to_9(report, root, fam, config_path, lm_config_path, want_calls,
     stage-4 input at the config's mels (the base's, and the lm run's equal
     to them), 16 stage-4 embeddings and the score files against the CPU,
     the stage-8 program (torch.export.load) against the eager model on the
-    card, the exported directory through cli.speaker.Speaker against stage
-    4, and 3 profiled base steps.  `fam` names the report's key and the
+    card (in a worker process, collected by main()), the exported directory
+    through cli.speaker.Speaker against stage 4, and 3 profiled base steps.  `fam` names the report's key and the
     log's tag.  Returns the K1 launches of the stage 4s (the lm run's None
     without one)."""
     import logging
 
     from wespeaker_hubert_tpu_torch.bin import train as bin_train
-    from wespeaker_hubert_tpu_torch.bin.export_model import load_program
     from wespeaker_hubert_tpu_torch.cli.speaker import Speaker
-    from wespeaker_hubert_tpu_torch.models.speaker_net import build_speaker_net, load_speaker_state
     from wespeaker_hubert_tpu_torch.ops import fbank_kernel
     from wespeaker_hubert_tpu_torch.recipes import voxceleb_v2
     from wespeaker_hubert_tpu_torch.utils.embeddings import embeddings_dict
@@ -3064,27 +3190,13 @@ def recipe_1_to_9(report, root, fam, config_path, lm_config_path, want_calls,
         del base_in, lm_in, runs
         empty_cache()
 
-        # the stage-8 program against the eager model, on the card
-        program_cos = {}
-        for d, cfg in ((exp, base_cfg), (exp_lm, lm_cfg))[:1 + has_lm]:
-            exported = os.path.join(d, "exported")
-            program = load_program(os.path.join(exported, "model.pt2"), device=DEVICE)
-            net = build_speaker_net(json.loads(Path(exported, "config.json").read_text()))
-            load_speaker_state(net, torch.load(os.path.join(exported, "avg_model.pt"),
-                                               weights_only=True))
-            net.to(DEVICE).eval()
-            for b, t in PROGRAM_SHAPES:
-                feats = torch.from_numpy(np.random.default_rng(b * t).standard_normal(
-                    (b, t, cfg["model_args"]["feat_dim"])).astype(np.float32)).to(DEVICE)
-                with torch.inference_mode():
-                    got, want = program(feats), net.embed(feats)
-                program_cos[f"{os.path.basename(d)} ({b}, {t})"] = float(
-                    torch.nn.functional.cosine_similarity(got.float(), want, dim=1).min())
-            del program, net
-        out["program_min_cosine"] = program_cos
-        log(f"[{fam}] stage-8 torch.export program on the card against the eager model: min cosine "
-            + ", ".join(f"{k} {v:.7f}" for k, v in program_cos.items())
-            + f" (bar {COS_MIN['f32']})")
+        # the stage-8 programs against the eager model, on the card, in a
+        # worker process beside the rest of the script (loading a program
+        # takes the host tens of seconds for CAM++); main() collects them
+        defer_check(f"{fam} recipe", out, "program_min_cosine", program_cosines,
+                    [(os.path.join(d, "exported"), cfg["model_args"]["feat_dim"])
+                     for d, cfg in ((exp, base_cfg), (exp_lm, lm_cfg))[:1 + has_lm]],
+                    DEVICE, PROGRAM_SHAPES)
 
         # the exported directory through cli.speaker.Speaker against stage 4
         speaker = Speaker(os.path.join(exp, "exported"), device=DEVICE)
@@ -3123,7 +3235,6 @@ def recipe_1_to_9(report, root, fam, config_path, lm_config_path, want_calls,
     check(all(r["off_bar"] == 0 and r["finite"] for r in k1_rows),
           f"{fam}: K1 disagrees with its plain version on a stage-4 input")
     check(not cpu_bad, f"{fam}: " + "; ".join(cpu_bad))
-    check(min(program_cos.values()) >= COS_MIN["f32"], f"{fam}: program vs eager {program_cos}")
     check(min(speaker_cos) >= SPEAKER_COS_MIN, f"{fam}: Speaker vs stage 4 {speaker_cos}")
     for s in (5, 6, 7):
         for lines in (done[s]["lines"], lm_done[s]["lines"]) if has_lm else (done[s]["lines"],):
@@ -3136,6 +3247,22 @@ def phase_resnet_step_check(report):
     channels, 80 mels, 256-d, TSTP, ArcMargin over 17,982 classes; batch 16
     x 2 s) on the card against the CPU, by step_vs_cpu."""
     report["resnet_step_check"] = step_vs_cpu(RESNET_CONFIG, RESNET_CHECK_SEED, "resnet step")
+
+
+CARD_CPU_CONTROL = (("card", False), ("cpu", False), ("control", True))
+
+
+def beside_cpu(run):
+    """{kind: run(device, perturbed)} for the card, the CPU and the control
+    (the card on the perturbed input), the CPU's run in a thread beside the
+    card's two: its float32 step is host-bound, the card's are not."""
+    devices = {"card": DEVICE, "cpu": "cpu", "control": DEVICE}
+    with ThreadPoolExecutor(1) as pool:
+        cpu = (pool.submit(run, "cpu", False) if DEVICE != "cpu" else None)
+        out = {k: run(devices[k], p) for k, p in CARD_CPU_CONTROL if not (k == "cpu" and cpu)}
+        if cpu is not None:
+            out["cpu"] = cpu.result()
+    return out
 
 
 def step_vs_cpu(config_path, seed, tag):
@@ -3156,25 +3283,31 @@ def step_vs_cpu(config_path, seed, tag):
 
     batch = _ecapa_check_batch(seed, RESNET_CHECK_BATCH)
     adam = load_config(str(config_path)).get("optimizer", "SGD").upper() in ("ADAM", "ADAMW")
-    res = {}
-    for kind, dev, scale in (("card", DEVICE, False), ("cpu", "cpu", False),
-                             ("control", DEVICE, True)):
+
+    def run(dev, scale):
         net, state, step = _ecapa_net(dev, config_path=config_path, seed=seed)
         b = {k: v.to(dev) for k, v in batch.items()}
         t0 = time.perf_counter()
-        res[kind] = _one_step(net, state, step, _perturbed(b) if scale else b, prefix="")
-        res[kind + "_s"] = time.perf_counter() - t0
+        got = {"step": _one_step(net, state, step, _perturbed(b) if scale else b, prefix="")}
+        got["s"] = time.perf_counter() - t0
         if adam:
             # Adam's first update is lr g / (|g| + eps), about lr sign(g): at
             # an element whose |g| lies within the rounding of the gradient
             # it flips with that rounding.  Its first moment, (1 - b1) g,
             # carries the gradient itself: compared in place of the update
             # (the update's relative L2 is reported as `adam_updates_rel_l2`)
-            res[kind + "_update"] = {k: v for k, v in res[kind][1].items()}
+            got["update"] = {k: v for k, v in got["step"][1].items()}
             moments = {name: state.optimizer.state[p]["exp_avg"].detach().float().cpu()
                        for name, p in net.named_parameters() if p in state.optimizer.state}
-            res[kind][1].update(moments)
+            got["step"][1].update(moments)
         del net, state, step
+        return got
+
+    res = {}
+    for kind, got in beside_cpu(run).items():
+        res[kind], res[kind + "_s"] = got["step"], got["s"]
+        if adam:
+            res[kind + "_update"] = got["update"]
     empty_cache()
     loss_rel = abs(res["card"][0] - res["cpu"][0]) / abs(res["cpu"][0])
     pair = _diff_table(res["card"][1], res["cpu"][1])
@@ -3421,12 +3554,16 @@ def _wavlm_step_net(config, ckpt, compute_dtype):
     from wespeaker_hubert_tpu_torch.train.schedulers import ExponentialDecrease, MarginSchedule
     from wespeaker_hubert_tpu_torch.train.state import TrainState, make_optimizer
 
-    torch.manual_seed(0)
-    net = build_speaker_net(config, 3 * RECIPE_SPEAKERS)
-    missing, unexpected = load_speaker_state(
-        net, torch.load(ckpt, map_location="cpu", weights_only=True))
-    check(not missing and not unexpected, f"wavlm step: {missing[:4]} {unexpected[:4]}")
-    net.to(DEVICE)
+    def build():
+        torch.manual_seed(0)
+        net = build_speaker_net(config, 3 * RECIPE_SPEAKERS)
+        missing, unexpected = load_speaker_state(
+            net, torch.load(ckpt, map_location="cpu", weights_only=True))
+        check(not missing and not unexpected, f"wavlm step: {missing[:4]} {unexpected[:4]}")
+        return net
+
+    net = built_once(("wavlm", ckpt, json.dumps(config, sort_keys=True, default=str)),
+                     build).to(DEVICE)
     lr = ExponentialDecrease(num_epochs=2, epoch_iter=WAVLM_EPOCH_STEPS, initial_lr=1e-4,
                              final_lr=5e-5, warm_up_epoch=2)
     state = TrainState(net, make_optimizer(net), lr)
@@ -4147,10 +4284,8 @@ def phase_whisper_recipe(report, root):
     init = os.path.join(exp0, "models", "model_1.pt")
     host = _whisper_batch(cfg1, data, WHISPER_CHECK_BATCH, 11)
     res = {}
-    for tag, dev, scale, dtype, impl in (
-            ("card", DEVICE, False, None, "flash"), ("cpu", "cpu", False, None, "flash"),
-            ("control", DEVICE, True, None, "flash"),
-            ("float64", DEVICE, False, torch.float64, "einsum")):
+
+    def run(tag, dev, scale, dtype, impl):
         net, state, step = _whisper_step_net(cfg1, init, dev, impl, dtype)
         b = {k: torch.from_numpy(v).to(dev) for k, v in host.items() if k != "keys"}
         if dtype is not None:
@@ -4163,6 +4298,15 @@ def phase_whisper_recipe(report, root):
         res[tag + "_s"] = time.perf_counter() - t1
         del net, state, step, b
         empty_cache()
+
+    # the CPU's step in a thread beside the card's three
+    with ThreadPoolExecutor(1) as pool:
+        cpu_run = pool.submit(run, "cpu", "cpu", False, None, "flash")
+        for args in (("card", DEVICE, False, None, "flash"),
+                     ("control", DEVICE, True, None, "flash"),
+                     ("float64", DEVICE, False, torch.float64, "einsum")):
+            run(*args)
+        cpu_run.result()
     exact = res["float64"][0]
     loss_rel = abs(res["card"][0] - res["cpu"][0]) / abs(res["cpu"][0])
     cpu_off = abs(res["cpu"][0] - exact) / abs(exact)
@@ -4251,6 +4395,820 @@ def phase_whisper_recipe(report, root):
         check(len(done[s]["lines"]) == 1 and " EER " in done[s]["lines"][0],
               f"whisper: stage {s} printed {done[s]['lines']}")
     return launches
+
+
+# ------------------------------------------- self-supervised training
+SSL_CONF = Path(__file__).resolve().parent / "examples"
+DINO_MODEL = "ECAPA_TDNN_GLOB_c1024"  # the fine-tune's model: it takes the teacher whole
+DINO_EPOCHS, DINO_EPOCH_ITER = 2, 4  # epoch 1 inside the last layer's freeze, epoch 2 not
+DINO_BATCH, DINO_OUT = 64, 65536
+DINO_SEED = 20251025
+DINO_EMA_STEP = 1  # the step whose teacher EMA and centre are checked (lr > 0 from step 1)
+DINO_CHECK_BATCH = 2
+DINO_BENCH_MODEL = "ECAPA_TDNN_c512"  # bench.py's DINO_ECAPA_c512_train_step row
+SSL_TIMED_STEPS = 3
+CONTRASTIVE_STEPS = 4  # steps per epoch, 2 epochs
+CONTRASTIVE_CHECK_BATCH = 4
+CONTRASTIVE_SEED = 20251026
+CNCELEB_SPEAKERS = 2800  # CN-Celeb1 dev + CN-Celeb2: the head has 3 x 2,800 classes
+CNCELEB_TRIALS = ("CNC-Eval-Concat.lst", "CNC-Eval-Avg.lst")
+CONTRASTIVE_EXTRA = []  # more overrides of the v3 configs, for a CPU rehearsal
+CNCELEB_EXTRA = []  # more overrides of the fine-tune config, for a CPU rehearsal
+
+
+class _SSLStepSpy:
+    """Wraps an SSL step maker of a bin module (`name` in `module`) for a
+    run: each step call is timed with a device synchronize after it and its
+    scalar metrics kept; `before(state, args)` and `after(state, args,
+    metrics, seen)` see the state around it.  The synchronize and the hooks'
+    copies are the only changes to the run."""
+
+    def __init__(self, module, name, before=None, after=None):
+        self.module, self.name, self.before, self.after = module, name, before, after
+        self.make, self.times, self.metrics = getattr(module, name), [], []
+
+    def __enter__(self):
+        def timed_make(*args, **kwargs):
+            fn = self.make(*args, **kwargs)
+
+            def step(state, *step_args):
+                seen = self.before(state, step_args) if self.before else None
+                t0 = time.perf_counter()
+                out = fn(state, *step_args)
+                sync()
+                self.times.append(time.perf_counter() - t0)
+                self.metrics.append({k: float(v) if not torch.is_tensor(v) or v.numel() == 1
+                                     else None for k, v in out.items()})
+                if self.after:
+                    self.after(state, step_args, out, seen)
+                return out
+            return step
+        setattr(self.module, self.name, timed_make)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.make)
+
+
+def _f32_spacing(*terms):
+    """Two float32 spacings of sum |terms| elementwise: the rounding of a
+    short chain of float32 operations on them (the float32 constants
+    included)."""
+    total = sum(t.abs() for t in terms)
+    return 2.0 * torch.finfo(torch.float32).eps * total
+
+
+def _dino_schedules():
+    """examples/voxceleb/v3/dino/run.py's schedules at the phase's length,
+    written out from its constants."""
+    from wespeaker_hubert_tpu_torch.ssl import cosine_schedule
+
+    total = DINO_EPOCHS * DINO_EPOCH_ITER
+    return {"lr": cosine_schedule(0.2 * DINO_BATCH / 256, 1e-5, total,
+                                  warmup_steps=10 * DINO_EPOCH_ITER),
+            "wd": cosine_schedule(1e-4, 1e-4, total),
+            "teacher_momentum": cosine_schedule(0.996, 1.0, total),
+            "teacher_temp": cosine_schedule(0.04, 0.07, int(total * 0.2))}
+
+
+def _dino_net(device, model=DINO_MODEL, seed=DINO_SEED):
+    """Full-width DINONet (80 mels, 192-d, the 65,536-way head of 2,048 /
+    256) with seeded weights (g of the weight-normed layer at 1), on
+    `device`."""
+    from wespeaker_hubert_tpu_torch.models.registry import get_speaker_model
+    from wespeaker_hubert_tpu_torch.ssl import DINOHead, DINONet
+
+    torch.manual_seed(0)
+    net = DINONet(get_speaker_model(model)(feat_dim=80, embed_dim=192),
+                  DINOHead(192, DINO_OUT))
+    sd = seeded_state_dict(net, seed)
+    sd["head.last_layer.weight_g"] = torch.ones_like(sd["head.last_layer.weight_g"])
+    net.load_state_dict(sd)
+    return net.to(device)
+
+
+def _dino_crops(seed, batch, n_global=2, n_local=4):
+    """Seeded (B, 2, 200, 80) global and (B, 4, 100, 80) local features
+    with per-utterance scales and offsets (host tensors)."""
+    rng = np.random.default_rng(seed)
+
+    def feats(n, t):
+        return torch.from_numpy((rng.standard_normal((batch, n, t, 80))
+                                 * rng.uniform(0.5, 2.0, (batch, 1, 1, 80))
+                                 + rng.normal(0.0, 1.0, (batch, 1, 1, 80))).astype(np.float32))
+    return {"global_feat": feats(n_global, 200), "local_feat": feats(n_local, 100)}
+
+
+def _state_tables(before, after):
+    """{name: after - before} over float tensors, and {name: max |before|}."""
+    upd = {k: after[k].double() - before[k].double() for k in before
+           if before[k].is_floating_point()}
+    mag = {k: float(before[k].abs().max()) for k in upd}
+    return upd, mag
+
+
+def _flat_state(prefix, module):
+    return {f"{prefix}.{k}": v.detach().float().cpu().clone()
+            for k, v in module.state_dict().items() if v.is_floating_point()}
+
+
+def _against_control(tag, runs, loss_bar, bar=0.9999):
+    """runs: {"card", "cpu", "control"} -> (loss, before, after); the
+    card's changes against the CPU's by _update_agreement, the control the
+    card on inputs scaled by 1 + 2^-20.  Returns (report entry, failing)."""
+    changes = {}
+    for k, (loss, before, after) in runs.items():
+        changes[k] = _state_tables(before, after)
+    pair = _diff_table(changes["card"][0], changes["cpu"][0])
+    control = _diff_table(changes["control"][0], changes["card"][0])
+    failing, how = _update_agreement(pair, control, bar, changes["cpu"][1])
+    loss_rel = abs(runs["card"][0] - runs["cpu"][0]) / abs(runs["cpu"][0])
+    worst = sorted(pair.items(), key=lambda kv: kv[1][0])[:4]
+    out = {"loss": [runs["card"][0], runs["cpu"][0]], "loss_rel": loss_rel, "loss_bar": loss_bar,
+           "updates_rel_l2": _rel_l2(changes["card"][0], changes["cpu"][0]),
+           "control_updates_rel_l2": _rel_l2(changes["control"][0], changes["card"][0]),
+           "n_tensors": len(pair), "passed_by": how, "worst": worst, "failing": failing}
+    log(f"[{tag}] card vs CPU: loss {runs['card'][0]:.6f} vs {runs['cpu'][0]:.6f} (rel "
+        f"{loss_rel:.2e}, bar {loss_bar:g}); changes relative L2 {out['updates_rel_l2']:.2e} "
+        f"(control {out['control_updates_rel_l2']:.2e}); of {len(pair)} tensors {how['cosine']} at "
+        f"cosine >= {bar}, {how['within_control']} within the control, {how['noise_floor']} at "
+        f"the noise floor, {len(failing)} failing; least cosines {worst}")
+    return out, (loss_rel > loss_bar) or bool(failing)
+
+
+def dino_step_vs_cpu():
+    """One float32 DINO step of the recipe's model and head at full width
+    (ECAPA_TDNN_GLOB_c1024, 65,536-way head), batch DINO_CHECK_BATCH x (2
+    x 200 + 4 x 100 frames), features handed in, at step DINO_EPOCH_ITER
+    (the first after the freeze) of the recipe's schedules, on the card
+    against the CPU: the loss within 1e-4 relative; the student's change
+    (parameters and statistics), the teacher's and the centre's under
+    step_vs_cpu's rules (_update_agreement against the card on the
+    features times 1 + 2^-20)."""
+    from wespeaker_hubert_tpu_torch.ssl import create_dino_state, make_dino_train_step
+
+    sched = _dino_schedules()
+    crops = _dino_crops(DINO_SEED + 1, DINO_CHECK_BATCH)
+    center = torch.from_numpy(np.random.default_rng(DINO_SEED + 2).normal(
+        0.0, 0.1, (1, DINO_OUT)).astype(np.float32))
+
+    def run(dev, perturbed):
+        scale = 1.0 + CONTROL_EPS if perturbed else 1.0
+        state = create_dino_state(_dino_net(dev), DINO_OUT)
+        state.center.copy_(center)
+        state.step = DINO_EPOCH_ITER
+        step = make_dino_train_step(sched["lr"], sched["wd"], sched["teacher_momentum"],
+                                    sched["teacher_temp"], freeze_last_layer_steps=DINO_EPOCH_ITER)
+        before = {**_flat_state("student", state.student), **_flat_state("teacher", state.teacher),
+                  "center": state.center.detach().float().cpu().clone()}
+        out = step(state, {k: (v * scale).to(dev) for k, v in crops.items()})
+        after = {**_flat_state("student", state.student), **_flat_state("teacher", state.teacher),
+                 "center": state.center.detach().float().cpu().clone()}
+        return float(out["loss"]), before, after
+
+    runs = beside_cpu(run)
+    empty_cache()
+    return _against_control("dino step", runs, 1e-4)
+
+
+def dino_bench_row(dtype):
+    """bench.py's DINO_ECAPA_c512_train_step row on the port: ECAPA_TDNN_c512
+    + the 65,536-way head, batch 64 x (2 x 2 s + 4 x 1 s) random crops with
+    reverb / noise rows, dithered fbank on the device, SGD; one warm step,
+    then SSL_TIMED_STEPS timed (each with a synchronize): ms per step and
+    crop audio-s/s (bench_all.py:bench_dino_step's count)."""
+    from wespeaker_hubert_tpu_torch.bin.train_dino import make_dino_preprocess, ssl_feature_cfg
+    from wespeaker_hubert_tpu_torch.data.dataset import chunk_samples_for_frames
+    from wespeaker_hubert_tpu_torch.ssl import create_dino_state, make_dino_train_step
+
+    rng = np.random.default_rng(0)
+    batch = {}
+    for prefix, n, length in (("global", 2, chunk_samples_for_frames(200)),
+                              ("local", 4, chunk_samples_for_frames(100))):
+        b = DINO_BATCH
+        batch[f"{prefix}_wav"] = rng.standard_normal((b, n, length)) * 0.1
+        batch[f"{prefix}_rir"] = rng.standard_normal((b, n, 8000))
+        batch[f"{prefix}_noise"] = rng.standard_normal((b, n, length)) * 0.05
+        batch[f"{prefix}_aug_type"] = rng.integers(0, 3, (b, n)).astype(np.int32)
+        batch[f"{prefix}_snr"] = np.full((b, n), 10.0)
+    batch = {k: torch.from_numpy(v.astype(np.float32) if v.dtype == np.float64 else v).to(DEVICE)
+             for k, v in batch.items()}
+    state = create_dino_state(_dino_net(DEVICE, DINO_BENCH_MODEL), DINO_OUT)
+    total = 150 * 1000
+    from wespeaker_hubert_tpu_torch.ssl import cosine_schedule
+
+    step = make_dino_train_step(
+        cosine_schedule(0.2 * DINO_BATCH / 256.0, 1e-5, total), cosine_schedule(1e-4, 1e-4, total),
+        cosine_schedule(0.996, 1.0, total), cosine_schedule(0.04, 0.07, total // 5),
+        preprocess_fn=make_dino_preprocess(ssl_feature_cfg({})), compute_dtype=dtype)
+    gen = torch.Generator(DEVICE).manual_seed(1)
+    step(state, batch, gen)
+    sync()
+    times = []
+    for _ in range(SSL_TIMED_STEPS):
+        t0 = time.perf_counter()
+        step(state, batch, gen)
+        sync()
+        times.append(time.perf_counter() - t0)
+    ms = 1e3 * statistics.median(times)
+    name = "bf16" if dtype else "f32"
+    prof = profile_steps(lambda: step(state, batch, gen),
+                         f"3 {name} DINO steps at bench.py's row ({DINO_BENCH_MODEL}, batch "
+                         f"{DINO_BATCH})", warm=0)
+    del state, step, batch
+    empty_cache()
+    return {"step_ms": ms, "step_ms_each": [1e3 * t for t in times],
+            "crop_audio_s_per_s": DINO_BATCH * (2 * 2.0 + 4 * 1.0) / (ms / 1e3),
+            "dtype": name, "model": DINO_BENCH_MODEL, "profile": prof}
+
+
+def profile_steps(call, window, warm=2, n=SSL_TIMED_STEPS):
+    """`n` calls of `call` under torch.profiler after `warm` warm calls:
+    device time, idle share and PROFILE_GROUPS' shares."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warm):
+        call()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            call()
+        sync()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    out = grouped_profile(prof, wall_us, PROFILE_GROUPS)
+    out["window"] = window
+    return out
+
+
+def _log_profile(tag, prof):
+    if prof["device_ms"]:
+        log(f"[{tag}] {prof['window']}: device {prof['device_ms']:.2f} ms over {prof['wall_ms']:.2f}"
+            f" ms wall (idle share {prof['device_idle_share']:.4f}); shares "
+            + ", ".join(f"{g} {v:.3f}" for g, v in prof["shares"].items()))
+        for g in ("conv", "GEMM", "elementwise"):
+            log(f"[{tag}]   {g}: " + "; ".join(prof["group_top"][g][:3]))
+    else:
+        log(f"[{tag}] torch.profiler reported no device time: not measured")
+
+
+def _ssl_batch(pipe, device):
+    from wespeaker_hubert_tpu_torch.bin.train import _to_device
+
+    return _to_device(next(iter(pipe)), torch.device(device))
+
+
+def phase_dino_recipe(report, root):
+    """recipes.voxceleb_v3_dino on the card at full width: --model
+    ECAPA_TDNN_GLOB_c1024 (what the CN-Celeb fine-tune takes whole), embed
+    192, batch 64 of 2 x 200 + 4 x 100-frame crops, the 65,536-way head of
+    2,048 / 256, SGD, float32, aug_prob 0.6 with both of phase_recipe's aug
+    stores, 2 epochs of 4 steps (epoch 1 inside the last layer's freeze) on
+    phase_recipe's 1,536 utterances.  Checks: finite losses; lr, wd, the
+    teacher momentum and temperature equal to run.py's cosine schedules at
+    each step; inside the freeze the last layer moves by exactly -lr (wd p
+    + 0.9 m) and its momentum becomes wd p + 0.9 m; after step
+    DINO_EMA_STEP the teacher equals m t + (1 - m) s and the centre its
+    EMA; each epoch checkpoint loads into bin/extract's net (nothing
+    missing) and into the fine-tune's (only `projection.*` missing); one
+    step card against CPU (dino_step_vs_cpu).  Timings: the run's steps,
+    its peak memory, 3 profiled steps and bench.py's DINO row in bf16 and
+    float32.  Returns the report entry."""
+    from wespeaker_hubert_tpu_torch.bin import train_dino as bin_train_dino
+    from wespeaker_hubert_tpu_torch.models.speaker_net import (
+        build_speaker_net,
+        load_speaker_state,
+    )
+    from wespeaker_hubert_tpu_torch.recipes import voxceleb_v3_dino
+    from wespeaker_hubert_tpu_torch.utils.checkpoint import load_partial
+    from wespeaker_hubert_tpu_torch.utils.config import load_config
+
+    data, exp = os.path.join(root, "data"), os.path.join(root, "exp_dino")
+    argv = ["--train_data", f"{data}/vox2_dev/raw.list", "--exp_dir", exp, "--model", DINO_MODEL,
+            "--num_epochs", str(DINO_EPOCHS), "--epoch_iter", str(DINO_EPOCH_ITER),
+            "--batch_size", str(DINO_BATCH), "--out_dim", str(DINO_OUT),
+            "--noise_store", f"{data}/musan_aug_store", "--reverb_store", f"{data}/rirs_aug_store",
+            "--device", DEVICE]
+    out = report["dino_recipe"] = {"argv": argv}
+    freeze, ema = [], {}
+
+    def before(state, args):
+        v = state.student.head.last_layer.weight_v
+        seen = {"step": state.step, "v": v.detach().clone(),
+                "m": state.optimizer.state.get(v, {}).get("momentum_buffer")}
+        seen["m"] = seen["m"].clone() if seen["m"] is not None else torch.zeros_like(v)
+        if state.step == DINO_EMA_STEP:
+            seen["teacher"] = {k: p.detach().clone() for k, p in state.teacher.named_parameters()}
+            seen["center"] = state.center.detach().clone()
+        return seen
+
+    def after(state, args, metrics, seen):
+        v = state.student.head.last_layer.weight_v.detach()
+        if seen["step"] < DINO_EPOCH_ITER:  # the freeze: -lr (wd p + 0.9 m)
+            lr, wd = metrics["lr"], metrics["wd"]
+            p, m = seen["v"].double(), seen["m"].double()
+            m_new = wd * p + 0.9 * m
+            want = p - lr * m_new
+            tol = _f32_spacing(p, lr * m_new)
+            buf = state.optimizer.state[state.student.head.last_layer.weight_v][
+                "momentum_buffer"].double()
+            freeze.append({"step": seen["step"], "lr": lr,
+                           "moved_max": float((v.double() - p).abs().max()),
+                           "err_max": float((v.double() - want).abs().max()),
+                           "within": bool(((v.double() - want).abs() <= tol).all()),
+                           "momentum_within": bool(((buf - m_new).abs()
+                                                    <= _f32_spacing(wd * p, 0.9 * m)).all())})
+        if seen["step"] == DINO_EMA_STEP:
+            m = metrics["teacher_momentum"]
+            worst, ok = 0.0, True
+            s_params = dict(state.student.named_parameters())
+            for k, p in state.teacher.named_parameters():
+                if k not in s_params or not s_params[k].requires_grad:
+                    continue
+                t0, s1 = seen["teacher"][k].double(), s_params[k].detach().double()
+                want = m * t0 + (1.0 - m) * s1
+                d = (p.detach().double() - want).abs()
+                ok &= bool((d <= _f32_spacing(m * t0, (1.0 - m) * s1)).all())
+                worst = max(worst, float(d.max()))
+            c0, bc = seen["center"].double(), metrics["batch_center"].double()
+            want_c = 0.9 * c0 + 0.1 * bc
+            dc = (state.center.double() - want_c).abs()
+            ema.update({"step": seen["step"], "m": m, "teacher_max_abs_err": worst,
+                        "teacher_within": ok, "center_max_abs_err": float(dc.max()),
+                        "center_within": bool((dc <= _f32_spacing(0.9 * c0, 0.1 * bc)).all())})
+
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _SSLStepSpy(bin_train_dino, "make_dino_train_step", before, after) as spy:
+        state = voxceleb_v3_dino.main(argv)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else "not measured"
+    sched = _dino_schedules()
+    metrics = spy.metrics
+    sched_err = max(abs(m[k] - sched[k](i)) for i, m in enumerate(metrics)
+                    for k in ("lr", "wd", "teacher_momentum", "teacher_temp"))
+    step_ms = [1e3 * t for t in spy.times]
+    after_first = statistics.median(step_ms[1:]) if len(step_ms) > 1 else step_ms[0]
+    out.update({"steps": state.step, "wall_s": wall, "loss": [m["loss"] for m in metrics],
+                "lr": [m["lr"] for m in metrics],
+                "teacher_momentum": [m["teacher_momentum"] for m in metrics],
+                "teacher_temp": [m["teacher_temp"] for m in metrics],
+                "schedule_max_abs_err": sched_err, "freeze": freeze, "ema": ema,
+                "step_ms": step_ms, "step_ms_median_after_first": after_first,
+                "crop_audio_s_per_s": DINO_BATCH * 8.0 / (after_first / 1e3),
+                "peak_mem_gb": peak})
+    log(f"[dino] recipes.voxceleb_v3_dino: {state.step} steps of {DINO_BATCH} x (2 x 2 s + 4 x 1 s) "
+        f"crops, {DINO_MODEL} + {DINO_OUT}-way head, float32, {wall:.1f} s; losses "
+        + ", ".join(f"{x:.4f}" for x in out["loss"]) + f"; schedules max|d| {sched_err:.1e}; step ms "
+        + ", ".join(f"{x:.1f}" for x in step_ms) + f" (median after the first {after_first:.2f} = "
+        f"{out['crop_audio_s_per_s']:.0f} crop audio-s/s); peak memory "
+        + (f"{peak:.2f} GB" if DEVICE == "cuda" else "not measured"))
+    log("[dino] the freeze: " + "; ".join(
+        f"step {f['step']} lr {f['lr']:.2e} moved {f['moved_max']:.2e}, off -lr (wd p + 0.9 m) by "
+        f"{f['err_max']:.1e} ({'within' if f['within'] else 'PAST'} 2 float32 spacings), momentum "
+        f"{'within' if f['momentum_within'] else 'PAST'}" for f in freeze))
+    log(f"[dino] step {ema.get('step')}: teacher vs m t + (1 - m) s max|d| "
+        f"{ema.get('teacher_max_abs_err', float('nan')):.1e} (within 2 spacings: "
+        f"{ema.get('teacher_within')}), centre vs its EMA {ema.get('center_max_abs_err', float('nan')):.1e}"
+        f" (within: {ema.get('center_within')})")
+
+    # the epoch checkpoints: bin/extract's net, and the fine-tune's (only its head missing)
+    ft_config = load_config(str(SSL_CONF / "cnceleb/v3_finetune/conf/ecapa_tdnn_ft.yaml"))
+    loads = {}
+    for epoch in range(1, DINO_EPOCHS + 1):
+        ckpt = os.path.join(exp, "models", f"model_{epoch}.pt")
+        extract_net = build_speaker_net(ft_config)
+        got = load_speaker_state(extract_net, torch.load(ckpt, weights_only=True))
+        ft_net = build_speaker_net(ft_config, 3 * CNCELEB_SPEAKERS)
+        loads[epoch] = {"extract": got, "finetune": load_partial(ckpt, ft_net, DINO_MODEL)}
+        del extract_net, ft_net
+    out["checkpoint_loads"] = loads
+    log(f"[dino] epoch checkpoints: " + "; ".join(
+        f"model_{e}.pt into bin/extract's net missing {v['extract'][0]} unexpected {v['extract'][1]},"
+        f" into the fine-tune's missing {v['finetune'][0]} unexpected {v['finetune'][1]}"
+        for e, v in loads.items()))
+
+    # 3 profiled steps of the run's state on one of its batches
+    from wespeaker_hubert_tpu_torch.bin.train_dino import (
+        _stores,
+        make_dino_preprocess,
+        ssl_feature_cfg,
+    )
+    from wespeaker_hubert_tpu_torch.data.dataset import load_data_list
+    from wespeaker_hubert_tpu_torch.ssl import SSLPipeline, make_dino_train_step
+
+    cfg = voxceleb_v3_dino.dino_config(voxceleb_v3_dino.parse_args(argv))
+    rev, noise = _stores(cfg["dataset_args"])
+    batch_size = cfg["dataloader_args"]["batch_size"]
+    batch = _ssl_batch(SSLPipeline(load_data_list(cfg["train_data"]), batch_size=batch_size,
+                                   reverb_store=rev, noise_store=noise, seed=7), DEVICE)
+    step = make_dino_train_step(sched["lr"], sched["wd"], sched["teacher_momentum"],
+                                sched["teacher_temp"], freeze_last_layer_steps=DINO_EPOCH_ITER,
+                                preprocess_fn=make_dino_preprocess(
+                                    ssl_feature_cfg(cfg["dataset_args"])))
+    gen = torch.Generator(DEVICE).manual_seed(5)
+    out["profile"] = profile_steps(
+        lambda: step(state, batch, gen),
+        f"3 float32 DINO steps, batch {batch_size} x (2 x 200 + 4 x 100 frames), {cfg['model']}, "
+        f"{cfg['dino_args']['out_dim']}-way head, aug and fbank on the device")
+    _log_profile("dino profile", out["profile"])
+    del state, step, batch
+    empty_cache()
+    out["step_vs_cpu"], step_bad = dino_step_vs_cpu()
+    out["bench_row"] = {name: dino_bench_row(dtype) for name, dtype in
+                        (("bf16", torch.bfloat16), ("f32", None))} if DEVICE == "cuda" else {}
+    for name, r in out["bench_row"].items():
+        log(f"[dino bench] bench.py's DINO_ECAPA_c512_train_step row on the port, {name}: "
+            f"{r['step_ms']:.2f} ms per step (" + ", ".join(f"{x:.1f}" for x in r["step_ms_each"])
+            + f"), {r['crop_audio_s_per_s']:.0f} crop audio-s/s")
+        _log_profile(f"dino bench {name}", r["profile"])
+
+    n_steps = DINO_EPOCHS * DINO_EPOCH_ITER
+    check(out["steps"] == n_steps, f"dino: {out['steps']} steps, want {n_steps}")
+    check(all(math.isfinite(x) for x in out["loss"]), f"dino: losses {out['loss']}")
+    check(sched_err == 0.0, f"dino: the schedules are off cosine_schedule by {sched_err}")
+    check(len(freeze) == DINO_EPOCH_ITER and all(f["within"] and f["momentum_within"]
+                                                  for f in freeze),
+          f"dino: inside the freeze the last layer moved otherwise than -lr (wd p + 0.9 m): {freeze}")
+    check(ema.get("teacher_within") and ema.get("center_within"),
+          f"dino: the teacher or the centre is off its EMA: {ema}")
+    check(all(v["extract"] == ([], []) and v["finetune"] == (["projection.weight"], [])
+              for v in loads.values()), f"dino: checkpoint loads {loads}")
+    check(not step_bad, "dino: the card's step against the CPU's")
+    return out
+
+
+def _moco_key_check(rows):
+    """Hooks for MoCo's step: the pointer before and after, and the rows the
+    step wrote against the key encoder's embeddings of the step's key batch
+    (recomputed on a copy, so no statistic moves)."""
+    from wespeaker_hubert_tpu_torch.ssl.contrastive import _embed
+
+    def before(state, args):
+        return state.queue_ptr
+
+    def after(state, args, metrics, ptr):
+        b = args[0]["key_feat"].shape[0]
+        enc = copy.deepcopy(state.encoder_k).train()
+        with torch.no_grad():
+            want = _embed(enc, args[0]["key_feat"], None)
+        got = state.queue[ptr:ptr + b]
+        rows.append({"ptr_before": ptr, "ptr_after": state.queue_ptr,
+                     "max_abs_err": float((got - want).abs().max())})
+        del enc
+    return before, after
+
+
+def contrastive_step_vs_cpu(method):
+    """One float32 step of the method at the config's model
+    (ECAPA_TDNN_GLOB_c512, 80 mels, 192-d, seeded) at batch
+    CONTRASTIVE_CHECK_BATCH x 2 views x 200 frames, features handed in,
+    MoCo with its full 65,536-row queue, on the card against the CPU: loss
+    within 1e-5 relative, every changed tensor (the query encoder; for MoCo
+    also the key encoder and the queue) under step_vs_cpu's rules."""
+    from wespeaker_hubert_tpu_torch.bin.train_contrastive import _Encoder
+    from wespeaker_hubert_tpu_torch.models.registry import get_speaker_model
+    from wespeaker_hubert_tpu_torch.ssl import (
+        create_moco_state,
+        create_simclr_state,
+        make_moco_train_step,
+        make_simclr_train_step,
+    )
+
+    rng = np.random.default_rng(CONTRASTIVE_SEED)
+    b = CONTRASTIVE_CHECK_BATCH
+    views = {k: torch.from_numpy((rng.standard_normal((b, 200, 80))
+                                  * rng.uniform(0.5, 2.0, (b, 1, 80))
+                                  + rng.normal(0.0, 1.0, (b, 1, 80))).astype(np.float32))
+             for k in ("query_feat", "key_feat")}
+
+    def run(dev, perturbed):
+        scale = 1.0 + CONTROL_EPS if perturbed else 1.0
+        enc = _Encoder(get_speaker_model("ECAPA_TDNN_GLOB_c512")(feat_dim=80, embed_dim=192))
+        enc.load_state_dict(seeded_state_dict(enc, CONTRASTIVE_SEED))
+        enc.to(dev)
+        if method == "moco":
+            state = create_moco_state(enc, 192, K=65536, lr=0.05,
+                                      generator=torch.Generator().manual_seed(1))
+            step = make_moco_train_step(m=0.999, T=0.07)
+            nets = {"q": state.encoder_q, "k": state.encoder_k}
+        else:
+            state = create_simclr_state(enc, lr=0.05)
+            step = make_simclr_train_step(T=0.07)
+            nets = {"q": state.encoder}
+
+        def snap():
+            s = {}
+            for name, net in nets.items():
+                s.update(_flat_state(name, net))
+            if method == "moco":
+                s["queue_rows"] = state.queue[:b].detach().float().cpu().clone()
+            return s
+
+        before = snap()
+        out = step(state, {k: (v * scale).to(dev) for k, v in views.items()})
+        return float(out["loss"]), before, snap()
+
+    runs = beside_cpu(run)
+    empty_cache()
+    return _against_control(f"{method} step", runs, 1e-5)
+
+
+def _contrastive_profile(method, config, exp):
+    """3 profiled float32 steps (features from the crops on the device
+    included) of the method at its config, from the run's averaged encoder,
+    on one SSLPipeline batch of the run's data."""
+    from wespeaker_hubert_tpu_torch.bin.train_contrastive import _Encoder
+    from wespeaker_hubert_tpu_torch.bin.train_dino import _stores, crops_to_features, ssl_feature_cfg
+    from wespeaker_hubert_tpu_torch.data.dataset import load_data_list
+    from wespeaker_hubert_tpu_torch.models.registry import get_speaker_model
+    from wespeaker_hubert_tpu_torch.ssl import (
+        SSLPipeline,
+        create_moco_state,
+        create_simclr_state,
+        make_moco_train_step,
+        make_simclr_train_step,
+    )
+
+    da = config["dataset_args"]
+    batch_size = config["dataloader_args"]["batch_size"]
+    lr = config["scheduler_args"]["initial_lr"]
+    enc = _Encoder(get_speaker_model(config["model"])(**config["model_args"]))
+    enc.backbone.load_state_dict(torch.load(os.path.join(exp, "avg_model.pt"), weights_only=True))
+    enc.to(DEVICE)
+    if method == "moco":
+        state = create_moco_state(enc, config["model_args"]["embed_dim"],
+                                  K=config["moco_args"]["K"], lr=lr,
+                                  generator=torch.Generator().manual_seed(1))
+        step = make_moco_train_step(m=config["moco_args"]["m"], T=config["moco_args"]["T"])
+    else:
+        state = create_simclr_state(enc, lr=lr)
+        step = make_simclr_train_step(T=config["simclr_args"]["T"])
+    rev, noise = _stores(da)
+    batch = _ssl_batch(SSLPipeline(load_data_list(config["train_data"]),
+                                   global_frames=da["chunk_len"], global_num=2, local_num=0,
+                                   batch_size=batch_size, aug_prob=da["aug_prob"],
+                                   reverb_store=rev, noise_store=noise, seed=7), DEVICE)
+    fcfg = ssl_feature_cfg(da)
+    gen = torch.Generator(DEVICE).manual_seed(5)
+
+    def call():
+        feats = crops_to_features(batch, "global", fcfg, gen)
+        step(state, {"query_feat": feats[:, 0], "key_feat": feats[:, 1]})
+
+    prof = profile_steps(call, f"3 float32 {method} steps, batch {batch_size} x 2 views x "
+                               f"{da['chunk_len']} frames, {config['model']}, aug and fbank on "
+                               "the device")
+    del state, step, batch, enc
+    empty_cache()
+    return prof
+
+
+def phase_contrastive_recipe(report, root):
+    """recipes.voxceleb_v3_contrastive stages 2-6 on the card for MoCo and
+    SimCLR with examples/voxceleb/v3/{moco,simclr}/conf/ecapa_tdnn.yaml as
+    the port's reader parses them (ECAPA_TDNN_GLOB_c512, batch 128 x 2
+    views x 200 frames, aug_prob 1.0, K 65,536, m 0.999, T 0.07, SGD 0.05),
+    overriding only the paths, num_epochs 2, epoch_iter 4,
+    save_epoch_interval 1 and num_avg 2, on phase_recipe's data.  Stages
+    2-3, then 4-6, each with K1's count set to 0 just before and read just
+    after.  Checks: MoCo's pointer after each step is steps x 128 mod 65,536
+    and the rows written equal that step's key embeddings; K1 on every
+    stage-4 input of the MoCo run against its plain version, SimCLR's the
+    same inputs; 16 embeddings and the score files against the CPU; one
+    step of each method card against CPU; 3 profiled steps of each.
+    Returns the K1 launches of each stage 4."""
+    from wespeaker_hubert_tpu_torch.bin import train_contrastive as bin_tc
+    from wespeaker_hubert_tpu_torch.ops import fbank_kernel
+    from wespeaker_hubert_tpu_torch.recipes import voxceleb_v3_contrastive
+
+    data = os.path.join(root, "data")
+    trials = os.path.join(data, "vox1", "vox1_O_cleaned.kaldi")
+    out = report["contrastive_recipe"] = {}
+    launches, inputs = {}, {}
+    for method in ("moco", "simclr"):
+        exp = os.path.join(root, f"exp_{method}")
+        config_path = SSL_CONF / "voxceleb/v3" / method / "conf/ecapa_tdnn.yaml"
+        overrides = [f"exp_dir={exp}", f"train_data={data}/vox2_dev/raw.list",
+                     f"dataset_args.reverb_data={data}/rirs_aug_store",
+                     f"dataset_args.noise_data={data}/musan_aug_store", "num_epochs=2",
+                     f"epoch_iter={CONTRASTIVE_STEPS}", "save_epoch_interval=1",
+                     "num_avg=2"] + CONTRASTIVE_EXTRA
+        common = ["--method", method, "--config", str(config_path), "--data_root", data,
+                  "--trials", trials, "--device", DEVICE] + overrides
+        r = out[method] = {"overrides": overrides}
+        rows = []
+        hooks = _moco_key_check(rows) if method == "moco" else (None, None)
+        name = "make_moco_train_step" if method == "moco" else "make_simclr_train_step"
+        fbank_kernel.LAUNCHES = 0
+        with _SSLStepSpy(bin_tc, name, *hooks) as spy:
+            done = voxceleb_v3_contrastive.main(["--stage", "2", "--stop_stage", "3"] + common)
+        k1_train = fbank_kernel.LAUNCHES
+        fbank_kernel.LAUNCHES = 0
+        with _K1Spy(fbank_kernel) as k1_spy:
+            done.update(voxceleb_v3_contrastive.main(["--stage", "4", "--stop_stage", "6"] + common))
+        launches[method] = fbank_kernel.LAUNCHES
+        inputs[method] = k1_spy.inputs
+        config = voxceleb_v3_contrastive.load_method_config(
+            voxceleb_v3_contrastive.parse_args(common))
+        batch, k_total = config["dataloader_args"]["batch_size"], config.get("moco_args", {}).get("K")
+        step_ms = [1e3 * t for t in spy.times]
+        after_first = statistics.median(step_ms[1:])
+        r.update({"stage_s": {s: d["s"] for s, d in done.items()},
+                  "lines": {s: d["lines"] for s, d in done.items() if d["lines"]},
+                  "loss": [m["loss"] for m in spy.metrics], "acc": [m["acc"] for m in spy.metrics],
+                  "step_ms": step_ms, "step_ms_median_after_first": after_first,
+                  "audio_s_per_s": batch * 2 * 2.0 / (after_first / 1e3),
+                  "k1_launches_stage_2_3": k1_train, "k1_launches_stage_4_6": launches[method],
+                  "queue": rows})
+        log(f"[{method}] stages 2-6: " + ", ".join(f"{s} {d['s']:.1f} s" for s, d in done.items())
+            + f"; {len(step_ms)} steps of {batch} x 2 views x 2 s, losses "
+            + ", ".join(f"{x:.4f}" for x in r["loss"]) + f"; step ms " + ", ".join(
+                f"{x:.1f}" for x in step_ms) + f" (median after the first {after_first:.2f} = "
+            f"{r['audio_s_per_s']:.0f} view audio-s/s); K1 launches stages 2-3 {k1_train}, "
+            f"stages 4-6 {launches[method]}")
+        for s in (5, 6):
+            log(f"[{method}] stage {s}: " + "; ".join(done[s]["lines"]))
+        if rows:
+            log(f"[moco] queue: pointers " + ", ".join(str(q["ptr_after"]) for q in rows)
+                + f"; rows written vs the step's key embeddings max|d| "
+                f"{max(q['max_abs_err'] for q in rows):.1e}")
+        r["cpu_bad"] = recipe_against_cpu(data, exp, r, config_path, method)
+        r["step_vs_cpu"], r["step_bad"] = contrastive_step_vs_cpu(method)
+        r["profile"] = _contrastive_profile(method, config, exp)
+        _log_profile(f"{method} profile", r["profile"])
+        check(sorted(done) == [2, 3, 4, 5, 6], f"{method}: stages {sorted(done)}")
+        check(len(step_ms) == 2 * CONTRASTIVE_STEPS
+              and all(math.isfinite(x) for x in r["loss"]), f"{method}: losses {r['loss']}")
+        check(k1_train == 0, f"{method}: the dithered train step launched K1 {k1_train} times")
+        if method == "moco":
+            check(len(rows) == 2 * CONTRASTIVE_STEPS and all(
+                q["ptr_after"] == (i + 1) * batch % k_total and q["max_abs_err"] <= 1e-5
+                for i, q in enumerate(rows)), f"moco: the queue {rows}")
+        check(not r["cpu_bad"], f"{method}: " + "; ".join(r["cpu_bad"]))
+        check(not r["step_bad"], f"{method}: the card's step against the CPU's")
+        for s in (5, 6):
+            check(len(done[s]["lines"]) == 1 and " EER " in done[s]["lines"][0],
+                  f"{method}: stage {s} printed {done[s]['lines']}")
+    # K1 on every stage-4 input: MoCo's against its plain version, SimCLR's the same batches
+    k1_rows, k1_matched = k1_on_eval_batches(
+        [os.path.join(data, d, "raw.list") for d in ("vox1", "vox2_dev")],
+        inputs["moco"]) if DEVICE == "cuda" else ([], False)
+    same = len(inputs["simclr"]) == len(inputs["moco"]) and all(
+        torch.equal(a, b) for a, b in zip(inputs["simclr"], inputs["moco"]))
+    out["k1_stage4_checks"] = k1_rows
+    log(f"[contrastive] K1 on all {len(inputs['moco'])} of MoCo's stage-4 inputs against its plain "
+        f"version (bar as [recipe]; inputs {'match' if k1_matched else 'DO NOT match'} "
+        f"EvalPipeline's batches; SimCLR's {len(inputs['simclr'])} inputs "
+        f"{'equal' if same else 'DIFFER from'} them): " + "; ".join(
+            f"{tuple(r['shape'])} x{r['batches']}: {r['off_bar']} past the bar, valid max|d| "
+            f"{r['valid']['max_abs_err']:.3e}" for r in k1_rows))
+    del inputs
+    check(launches["moco"] > 0 and k1_matched and same and launches["simclr"] == launches["moco"],
+          f"contrastive: stage 4's K1 inputs do not match EvalPipeline's batches ({launches})")
+    check(all(r["off_bar"] == 0 and r["finite"] for r in k1_rows),
+          "contrastive: K1 disagrees with its plain version on a stage-4 input")
+    return launches
+
+
+def write_cnceleb_data(data):
+    """phase_recipe's wavs laid out as CN-Celeb: `cnceleb_train` (vox2_dev's
+    1,536 utterances, its utt2spk naming CNCELEB_SPEAKERS speakers, the
+    rest without audio) and `eval` (vox1's 64), with the recipe's two trial
+    files under `eval/trials/` (VoxCeleb1-O's pairs split between them)."""
+    for src, dst in (("vox2_dev", "cnceleb_train"), ("vox1", "eval")):
+        os.makedirs(os.path.join(data, dst, "trials"), exist_ok=True)
+        Path(data, dst, "wav.scp").write_text(Path(data, src, "wav.scp").read_text())
+        u2s = [ln for ln in Path(data, src, "utt2spk").read_text().splitlines()
+               if "absent" not in ln]
+        if dst == "cnceleb_train":
+            spks = {ln.split()[1] for ln in u2s}
+            u2s += [f"cnc{s:05d}-absent cnc{s:05d}" for s in range(CNCELEB_SPEAKERS - len(spks))]
+        Path(data, dst, "utt2spk").write_text("\n".join(u2s) + "\n")
+    trials = Path(data, "vox1", "vox1_O_cleaned.kaldi").read_text().splitlines()
+    for i, name in enumerate(CNCELEB_TRIALS):
+        Path(data, "eval", "trials", name).write_text("\n".join(trials[i::2]) + "\n")
+
+
+def phase_cnceleb_finetune(report, root):
+    """recipes.cnceleb_v3_finetune stages 2-6 on the card with
+    examples/cnceleb/v3_finetune/conf/ecapa_tdnn_ft.yaml as the port's
+    reader parses it (ECAPA_TDNN_GLOB_c1024, ASTP, ArcMargin over 3 x 2,800
+    classes, batch 128 x 200 frames, speed perturbation, aug_prob 0.6, SGD
+    Nesterov), `--model_init` the average of phase_dino_recipe's epoch
+    checkpoints, overriding only the paths and the run's length (2 epochs
+    of 4 steps), on write_cnceleb_data's layout.  Stages 2-3, then 4-6,
+    each with K1's count set to 0 just before and read just after.
+    Checks: load_partial reports only `projection.*` missing and nothing
+    mismatched (bin/train's log line too); K1 on every stage-4 input
+    against its plain version; 16 embeddings and both trial files' score
+    files against the CPU.  Returns stage 4's K1 launches."""
+    import logging
+
+    from wespeaker_hubert_tpu_torch.bin import train as bin_train
+    from wespeaker_hubert_tpu_torch.bin.average_model import average_model
+    from wespeaker_hubert_tpu_torch.models.speaker_net import build_speaker_net
+    from wespeaker_hubert_tpu_torch.ops import fbank_kernel
+    from wespeaker_hubert_tpu_torch.recipes import cnceleb_v3_finetune
+    from wespeaker_hubert_tpu_torch.utils.checkpoint import load_partial
+    from wespeaker_hubert_tpu_torch.utils.config import apply_overrides, load_config
+
+    data, exp = os.path.join(root, "data"), os.path.join(root, "exp_cnceleb")
+    dino_exp = os.path.join(root, "exp_dino")
+    write_cnceleb_data(data)
+    avg = average_model(os.path.join(dino_exp, "models"), os.path.join(dino_exp, "avg_model.pt"),
+                        num=DINO_EPOCHS)
+    config_path = SSL_CONF / "cnceleb/v3_finetune/conf/ecapa_tdnn_ft.yaml"
+    overrides = [f"exp_dir={exp}", f"train_data={data}/cnceleb_train/raw.list",
+                 f"train_label={data}/cnceleb_train/utt2spk",
+                 f"dataset_args.reverb_data={data}/rirs_aug_store",
+                 f"dataset_args.noise_data={data}/musan_aug_store",
+                 "num_epochs=2", f"epoch_iter={DINO_EPOCH_ITER}"] + CNCELEB_EXTRA
+    common = ["--config", str(config_path), "--model_init", avg, "--data_root", data,
+              "--device", DEVICE] + overrides
+    out = report["cnceleb_finetune"] = {"overrides": overrides}
+    config = apply_overrides(load_config(str(config_path)), overrides)
+    net = build_speaker_net(config, 3 * CNCELEB_SPEAKERS)
+    out["load_partial"] = load_partial(avg, net, config["model"])
+    del net
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: records.append(rec.getMessage())
+    logging.getLogger("train").addHandler(handler)
+    timer = _StepTimer()
+    make = bin_train.make_train_step
+    bin_train.make_train_step = timer(make)
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        fbank_kernel.LAUNCHES = 0
+        t0 = time.perf_counter()
+        done = cnceleb_v3_finetune.main(["--stage", "2", "--stop_stage", "3"] + common)
+        train_s = time.perf_counter() - t0
+        bin_train.make_train_step = make
+        peak = torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else "not measured"
+        k1_train = fbank_kernel.LAUNCHES
+        fbank_kernel.LAUNCHES = 0
+        with _K1Spy(fbank_kernel) as k1_spy:
+            done.update(cnceleb_v3_finetune.main(["--stage", "4", "--stop_stage", "6"] + common))
+        k1_extract = fbank_kernel.LAUNCHES
+    finally:
+        bin_train.make_train_step = make
+        logging.getLogger("train").removeHandler(handler)
+    init_lines = [r for r in records if r.startswith("model_init")]
+    step_ms = [1e3 * t / n for n, t in timer.calls]
+    after_first = statistics.median(step_ms[1:])
+    batch = config["dataloader_args"]["batch_size"]
+    out.update({"step_ms": step_ms, "step_ms_median_after_first": after_first,
+                "audio_s_per_s": batch * config["dataset_args"]["num_frms"] / 100
+                / (after_first / 1e3), "peak_mem_gb": peak, "margins": timer.margins})
+    out.update({"stage_s": {s: d["s"] for s, d in done.items()},
+                "lines": {s: d["lines"] for s, d in done.items() if d["lines"]},
+                "model_init_log": init_lines, "k1_launches_stage_2_3": k1_train,
+                "k1_launches_stage_4_6": k1_extract, "stage_2_3_s": train_s})
+    log(f"[cnceleb] load_partial of the DINO average: missing {out['load_partial'][0]}, "
+        f"unexpected or mismatched {out['load_partial'][1]}; bin/train: {init_lines}")
+    log(f"[cnceleb] stages 2-6: " + ", ".join(f"{s} {d['s']:.1f} s" for s, d in done.items())
+        + f"; {len(step_ms)} steps of {batch} x 2 s, step ms " + ", ".join(
+            f"{x:.1f}" for x in step_ms) + f" (median after the first {after_first:.2f} = "
+        f"{out['audio_s_per_s']:.0f} audio-s/s), peak memory "
+        + (f"{peak:.2f} GB" if DEVICE == "cuda" else "not measured")
+        + f"; K1 launches stages 2-3 {k1_train}, stages 4-6 {k1_extract}")
+    for s in (5, 6):
+        log(f"[cnceleb] stage {s}: " + "; ".join(done[s]["lines"]))
+    trials = [os.path.join(data, "eval", "trials", t) for t in CNCELEB_TRIALS]
+    with ThreadPoolExecutor(1) as pool:  # the CPU's checks beside K1's on the card
+        cpu_run = pool.submit(recipe_against_cpu, data, exp, out, config_path, "cnceleb",
+                              "eval", "cnceleb_train", trials)
+        k1_rows, k1_matched = k1_on_eval_batches(
+            [os.path.join(data, d, "raw.list") for d in ("eval", "cnceleb_train")],
+            k1_spy.inputs) if DEVICE == "cuda" else ([], False)
+        cpu_bad = cpu_run.result()
+    n_caught = len(k1_spy.inputs)
+    del k1_spy
+    out["k1_stage4_checks"] = k1_rows
+    log(f"[cnceleb] K1 on all {n_caught} stage-4 inputs against its plain version (bar as "
+        f"[recipe]; inputs {'match' if k1_matched else 'DO NOT match'} EvalPipeline's batches): "
+        + "; ".join(f"{tuple(r['shape'])} x{r['batches']}: {r['off_bar']} past the bar, valid "
+                    f"max|d| {r['valid']['max_abs_err']:.3e}" for r in k1_rows))
+    check(sorted(done) == [2, 3, 4, 5, 6], f"cnceleb: stages {sorted(done)}")
+    check(out["load_partial"] == (["projection.weight"], []),
+          f"cnceleb: load_partial of the DINO average {out['load_partial']}")
+    check(init_lines == [f"model_init from {avg} (epoch 0, 1 missing, 0 unexpected)"],
+          f"cnceleb: bin/train's initialization {init_lines}")
+    check(k1_train == 0, f"cnceleb: the dithered train step launched K1 {k1_train} times")
+    check(k1_extract > 0 and k1_matched and n_caught == k1_extract,
+          f"cnceleb: stage 4's K1 inputs do not match EvalPipeline's batches ({n_caught}, "
+          f"{k1_extract})")
+    check(all(r["off_bar"] == 0 and r["finite"] for r in k1_rows),
+          "cnceleb: K1 disagrees with its plain version on a stage-4 input")
+    check(not cpu_bad, "cnceleb: " + "; ".join(cpu_bad))
+    for s in (5, 6):
+        check(len(done[s]["lines"]) == len(CNCELEB_TRIALS)
+              and all(" EER " in ln for ln in done[s]["lines"]),
+              f"cnceleb: stage {s} printed {done[s]['lines']}")
+    return k1_extract
 
 
 SCORE_SIZES = {"vox1_O": (40, 4874, 37720), "vox1_H": (1251, 153516, 552536)}
@@ -4403,6 +5361,7 @@ def main():
         train_launches = timed("train", phase_train, report, train_dir)
         if train_launches is not None:
             timed("train checks", phase_train_checks, report, train_dir)
+    NET_TEMPLATES.clear()
     with tempfile.TemporaryDirectory() as recipe_dir:
         recipe_launches = timed("recipe", phase_recipe, report, recipe_dir)
         # the same data directory: stages 1-2 run again on it
@@ -4411,6 +5370,13 @@ def main():
         redimnet_launches = timed("redimnet recipe", phase_redimnet_recipe, report, recipe_dir)
         gemini_launches = timed("gemini recipe", phase_gemini_recipe, report, recipe_dir)
         wavlm_launches = timed("wavlm recipe", phase_wavlm_recipe, report, recipe_dir)
+        NET_TEMPLATES.clear()
+        # self-supervised training: DINO, then the CN-Celeb fine-tune from its
+        # teacher, then MoCo and SimCLR, on the same data
+        dino = timed("dino recipe", phase_dino_recipe, report, recipe_dir)
+        cnceleb_launches = timed("cnceleb finetune", phase_cnceleb_finetune, report, recipe_dir)
+        contrastive_launches = timed("contrastive recipe", phase_contrastive_recipe, report,
+                                     recipe_dir)
     timed("ecapa step check", phase_ecapa_step_check, report)
     timed("resnet step check", phase_resnet_step_check, report)
     timed("zoo step check", phase_zoo_step_check, report)
@@ -4418,6 +5384,9 @@ def main():
         whisper_launches = timed("whisper recipe", phase_whisper_recipe, report, whisper_dir)
     with tempfile.TemporaryDirectory() as score_dir:
         timed("score", phase_score, report, score_dir)
+    t0 = time.perf_counter()
+    collect_deferred(failures)
+    phase_s["waiting for the deferred checks"] = time.perf_counter() - t0
     report["wall_s"] = time.perf_counter() - t_start
     report["failures"] = failures
     report["k1_history"] = {
@@ -4436,7 +5405,8 @@ def main():
     if (failures or k1 is None or launches is None or k2_row is None or k2_launches is None
             or k2_bwd_row is None or train_launches is None or recipe_launches is None
             or resnet_launches is None or whisper_launches is None or campplus_launches is None
-            or wavlm_launches is None or redimnet_launches is None or gemini_launches is None):
+            or wavlm_launches is None or redimnet_launches is None or gemini_launches is None
+            or dino is None or cnceleb_launches is None or contrastive_launches is None):
         for f in failures:
             print(f"chip_smoke FAILED {f}", file=sys.stderr)
         return 1
@@ -4457,6 +5427,9 @@ def main():
         "launches_redimnet_recipe": {"stage 4 (72 mels)": redimnet_launches[0]},
         "launches_gemini_recipe": {"stage 4": gemini_launches[0],
                                    "stage 9 (its stage 4)": gemini_launches[1]},
+        "launches_moco_recipe": {"stage 4": contrastive_launches["moco"]},
+        "launches_simclr_recipe": {"stage 4": contrastive_launches["simclr"]},
+        "launches_cnceleb_finetune": {"stage 4": cnceleb_launches},
         "max_abs_err": max(r["max_abs_err"] for r in report["fbank_checks"]),
         "max_err": max(r["max_abs_err"] for r in report["fbank_checks"]),
         "ms": k1["ms"],

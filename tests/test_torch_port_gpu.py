@@ -863,3 +863,88 @@ def test_whisper_log_mel_on_gpu_matches_cpu(cuda):
         want = whisper_log_mel(wav)
         assert got.shape == (shape[0], shape[1] // 160, 80)
         torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0.0)
+
+
+def _ssl_changes(before, after):
+    return torch.cat([(after[k].double() - before[k].double()).flatten() for k in before])
+
+
+def _ssl_snapshot(named):
+    return {f"{prefix}.{k}": v.detach().float().cpu().clone() for prefix, module in named
+            for k, v in module.state_dict().items() if v.is_floating_point()}
+
+
+@pytest.mark.cuda
+def test_dino_step_on_gpu_matches_cpu(cuda):
+    """One DINO step (a tiny EcapaTdnn, out_dim 64, 4 x (2 x 40 + 2 x 20
+    frames), features handed in, after the freeze) on the card against the
+    CPU from the same weights, float32 with TF32 off: loss within 1e-5
+    relative; the student's, the teacher's and the centre's changes within
+    1e-4 relative L2."""
+    from wespeaker_hubert_tpu_torch.models.ecapa_tdnn import EcapaTdnn
+    from wespeaker_hubert_tpu_torch.ssl import (
+        DINOHead,
+        DINONet,
+        cosine_schedule,
+        create_dino_state,
+        make_dino_train_step,
+    )
+
+    rng = np.random.default_rng(31)
+    batch = {k: torch.from_numpy(rng.standard_normal((4, 2, t, 16)).astype(np.float32))
+             for k, t in (("global_feat", 40), ("local_feat", 20))}
+    torch.manual_seed(0)
+    start = DINONet(EcapaTdnn(16, 16, 8, "ASTP", True), DINOHead(8, 64, 32, 8)).state_dict()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        torch.manual_seed(0)
+        net = DINONet(EcapaTdnn(16, 16, 8, "ASTP", True), DINOHead(8, 64, 32, 8))
+        net.load_state_dict(start)
+        state = create_dino_state(net.to(dev), 64)
+        state.step = 1
+        step = make_dino_train_step(cosine_schedule(0.1, 0.01, 4), cosine_schedule(1e-2, 1e-2, 4),
+                                    cosine_schedule(0.9, 1.0, 4), cosine_schedule(0.04, 0.07, 2),
+                                    n_global=2, n_local=2, freeze_last_layer_steps=1)
+        named = (("student", state.student), ("teacher", state.teacher))
+        before = {**_ssl_snapshot(named), "center": state.center.cpu().clone()}
+        loss = float(step(state, {k: v.to(dev) for k, v in batch.items()})["loss"])
+        after = {**_ssl_snapshot(named), "center": state.center.cpu().clone()}
+        out[dev] = (loss, _ssl_changes(before, after))
+    (got_loss, got), (want_loss, want) = out["cuda"], out["cpu"]
+    assert abs(got_loss - want_loss) <= 1e-5 * abs(want_loss)
+    assert float((got - want).norm() / want.norm()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_moco_step_on_gpu_matches_cpu(cuda):
+    """Two MoCo steps (a tiny x-vector encoder, K 16, batch 4 x 2 views x
+    40 frames, features handed in) on the card against the CPU from the
+    same weights and queue, float32 with TF32 off: losses within 1e-5
+    relative, the pointer 8, both encoders' changes and the queue within
+    1e-4 relative L2."""
+    from wespeaker_hubert_tpu_torch.bin.train_contrastive import _Encoder
+    from wespeaker_hubert_tpu_torch.models.tdnn import XVEC
+    from wespeaker_hubert_tpu_torch.ssl import create_moco_state, make_moco_train_step
+
+    rng = np.random.default_rng(32)
+    batches = [{k: torch.from_numpy(rng.standard_normal((4, 40, 16)).astype(np.float32))
+                for k in ("query_feat", "key_feat")} for _ in range(2)]
+    torch.manual_seed(0)
+    start = _Encoder(XVEC(feat_dim=16, hid_dim=16, stats_dim=24, embed_dim=8)).state_dict()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        enc = _Encoder(XVEC(feat_dim=16, hid_dim=16, stats_dim=24, embed_dim=8))
+        enc.load_state_dict(start)
+        state = create_moco_state(enc.to(dev), 8, K=16, generator=torch.Generator().manual_seed(2))
+        step = make_moco_train_step(m=0.9)
+        named = (("q", state.encoder_q), ("k", state.encoder_k))
+        before = {**_ssl_snapshot(named), "queue": state.queue.cpu().clone()}
+        losses = [float(step(state, {k: v.to(dev) for k, v in b.items()})["loss"])
+                  for b in batches]
+        after = {**_ssl_snapshot(named), "queue": state.queue.cpu().clone()}
+        out[dev] = (losses, _ssl_changes(before, after), state.queue_ptr)
+    (got_loss, got, ptr), (want_loss, want, _) = out["cuda"], out["cpu"]
+    assert ptr == 8
+    for a, b in zip(got_loss, want_loss):
+        assert abs(a - b) <= 1e-5 * abs(b)
+    assert float((got - want).norm() / want.norm()) <= 1e-4

@@ -59,9 +59,11 @@ def _module_names():
     "recipes.voxceleb_v1_whisper_pmfa", "models.campplus", "models.res2net", "models.eres2net",
     "recipes.voxceleb_v2_wavlm", "models.tdnn", "models.xi_vector", "models.gemini_dfresnet",
     "models.samresnet", "models.repvgg", "models.redimnet",
+    "ssl.dataset", "ssl.dino", "ssl.contrastive", "bin.train_dino", "bin.train_contrastive",
+    "recipes.voxceleb_v3_dino", "recipes.voxceleb_v3_contrastive", "recipes.cnceleb_v3_finetune",
 ])
 def test_training_modules_are_checked(name):
-    """The training, recipe, interop, Whisper and model-zoo slices' modules are among
+    """The training, recipe, interop, Whisper, model-zoo and SSL slices' modules are among
     those the checks above and the no-JAX process below import."""
     assert "wespeaker_hubert_tpu_torch." + name in set(_module_names())
     assert not FORBIDDEN.intersection(_imported_roots(PORT / (name.replace(".", "/") + ".py")))
@@ -106,6 +108,6 @@ def test_cpu_service_runs_without_jax(tmp_path):
 def test_packaging_finds_the_port():
     found = setuptools.find_packages(where=str(ROOT), include=["wespeaker_hubert_tpu*"])
     for sub in ("", ".ops", ".models", ".train", ".data", ".utils", ".cli", ".bin",
-                ".frontend", ".backend", ".recipes"):
+                ".frontend", ".backend", ".recipes", ".ssl"):
         assert "wespeaker_hubert_tpu_torch" + sub in found
     assert "wespeaker_hubert_tpu" in found

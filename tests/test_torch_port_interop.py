@@ -196,7 +196,7 @@ def test_export_model_from_jax_exp_dir(tmp_path):
 
 def test_recipe_stages_1_to_9_resnet_on_cpu(tmp_path, capsys, caplog):
     data = tmp_path / "data"
-    _write_recipe_data(data)
+    _write_recipe_data(data, n_train=16)  # two batches of 8: the runs' 2 steps
     paths = [f"train_data={data / 'vox2_dev' / 'shard.list'}",
              f"train_label={data / 'vox2_dev' / 'utt2spk'}",
              f"dataset_args.reverb_data={data / 'rirs_aug_store'}",

@@ -317,11 +317,11 @@ def test_two_step_call_equals_two_single_steps(tmp_path, monkeypatch):
 
 
 # ------------------------------------------------------------ the recipe
-def _write_recipe_data(root: Path):
-    """MUSAN / RIR stand-ins, a 24-utterance training set over 4 speakers
-    (2.5-7 s, so both QMF duration pools fill) whose utt2spk also names 2
-    speakers without audio, and 8 eval utterances with a labeled trial
-    list over all their pairs."""
+def _write_recipe_data(root: Path, n_train: int = 24):
+    """MUSAN / RIR stand-ins, an `n_train`-utterance training set over 4
+    speakers (2.5-7 s, so both QMF duration pools fill) whose utt2spk also
+    names 2 speakers without audio, and 8 eval utterances with a labeled
+    trial list over all their pairs."""
     rng = np.random.default_rng(0)
 
     def wav(path, x):
@@ -341,11 +341,11 @@ def _write_recipe_data(root: Path):
         t = np.arange(int(seconds * 16000)) / 16000
         return 0.1 * np.sin(2 * np.pi * (200 + 100 * spk) * t) + 0.05 * rng.standard_normal(len(t))
 
-    for dset, n, secs in (("vox2_dev", 24, (2.5, 3.0, 6.5, 7.0)), ("vox1", 8, (2.0,))):
+    for dset, n, secs in (("vox2_dev", n_train, (2.5, 3.0, 6.5, 7.0)), ("vox1", 8, (2.0,))):
         scp, u2s = [], []
         for i in range(n):
             spk, key = i % 4, f"{dset[:4]}-{i:03d}"
-            scp.append(f"{key} {wav(root / dset / f'{key}.wav', voice(spk, secs[i // 6 % len(secs)]))}")
+            scp.append(f"{key} {wav(root / dset / f'{key}.wav', voice(spk, secs[i * len(secs) // n]))}")
             u2s.append(f"{key} spk{spk}")
         if dset == "vox2_dev":
             u2s += ["absent-4 spk4", "absent-5 spk5"]

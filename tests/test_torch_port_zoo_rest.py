@@ -358,7 +358,7 @@ RECIPES = {
 @pytest.fixture(scope="module")
 def recipe_data(tmp_path_factory):
     data = tmp_path_factory.mktemp("zoo_recipe") / "data"
-    _write_recipe_data(data)
+    _write_recipe_data(data, n_train=12)
     return data
 
 

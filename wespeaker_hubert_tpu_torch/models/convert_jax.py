@@ -61,19 +61,31 @@ CF rows, columns and bias are permuted, as are `bottleneck`'s),
 `inputs_weights_{i}` (n, CF) -> (1, n, CF, 1), the final mix the last, and
 the frozen all-ones stage-0 weight added; no permutation: both packages
 order the 1-D axis f * C + c).
+
+Self-supervised training (ssl/): `dino_head_from_jax` maps flax's DINOHead
+(`mlp_i` / `bn_i` / `last_layer_v` / `last_layer_g`) to WeSpeaker's names
+(`mlp.{i}` Sequential indices, `last_layer.weight_v` (out, bottleneck),
+`last_layer.weight_g` (out, 1); without `last_layer_g`, g is 1);
+`dino_state_from_jax` and `moco_state_from_jax` carry a JAX `DINOState` /
+`MoCoState` (both parameter sets, both sets of BatchNorm statistics, the
+centre or the queue and pointer, the optimizer's momentum or Adam moments)
+to the port's names, and `load_converted_state` puts one into the port's
+state objects.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .resnet import strided_size
 
-__all__ = ["from_jax_variables", "frontend_from_jax", "whisper_frontend_from_jax"]
+__all__ = ["from_jax_variables", "frontend_from_jax", "whisper_frontend_from_jax",
+           "dino_head_from_jax", "dino_state_from_jax", "moco_state_from_jax",
+           "load_converted_state"]
 
 # flax module names inside an ECAPA SE-Res2 block -> torch module paths
 _SE_RES2 = {"conv1": "0", "res2": "1", "conv2": "2", "se": "3"}
@@ -466,9 +478,127 @@ def from_jax_variables(model_name: str, variables: Dict,
         sd["backbone.inputs_weights.0"] = np.ones((1, 1, 1, 1), np.float32)
     sd.update({f"frontend.{k}": v for k, v in frontend.items()})
     sd.update(head)
+    return _as_torch(sd)
+
+
+def dino_head_from_jax(params: Dict, stats: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+    """flax DINOHead parameters (and, with `use_bn`, its batch_stats) ->
+    ssl/dino.py:DINOHead's state_dict."""
+    stats = stats or {}
+    n = sum(1 for k in params if re.fullmatch(r"mlp_\d+", k))
+    use_bn = any(k.startswith("bn_") for k in params)
+    per = 3 if use_bn else 2  # Linear, [BatchNorm,] GELU
+    sd: Dict[str, np.ndarray] = {}
+    for i in range(n):
+        name = "mlp" if n == 1 else f"mlp.{per * i}"
+        sd[f"{name}.weight"] = _np(params[f"mlp_{i}"]["kernel"]).T
+        sd[f"{name}.bias"] = _np(params[f"mlp_{i}"]["bias"])
+    for k, leaves in params.items():
+        m = re.fullmatch(r"bn_(\d+)", k)
+        if m:
+            name = f"mlp.{per * int(m.group(1)) + 1}"
+            sd[f"{name}.weight"], sd[f"{name}.bias"] = _np(leaves["scale"]), _np(leaves["bias"])
+            if k not in stats:  # a gradient or optimizer tree: no statistics
+                continue
+            sd[f"{name}.running_mean"] = _np(stats[k]["mean"])
+            sd[f"{name}.running_var"] = _np(stats[k]["var"])
+            sd[f"{name}.num_batches_tracked"] = np.zeros((), np.int64)
+    v = _np(params["last_layer_v"])
+    sd["last_layer.weight_v"] = v.T
+    g = params.get("last_layer_g")
+    sd["last_layer.weight_g"] = (_np(g) if g is not None else np.ones(v.shape[1]))[:, None]
+    return _as_torch(sd)
+
+
+def _as_torch(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.asarray(v, np.int64 if k.endswith("tracked")
+                                           else np.float32).copy()) for k, v in sd.items()}
+
+
+def _net_from_jax(model_name: str, params: Dict, stats: Dict, feat_dim: int,
+                  head: bool) -> Dict[str, torch.Tensor]:
+    """A JAX {'backbone'[, 'head']} tree (a DINONet's, or the contrastive
+    trainer's _Encoder's) -> the port module's state_dict, `backbone.` and
+    `head.` prefixed."""
+    bb = from_jax_variables(model_name, {"params": {"backbone": params["backbone"]},
+                                         "batch_stats": {"backbone": stats.get("backbone", {})}},
+                            feat_dim=feat_dim)
+    sd = {f"backbone.{k}": v for k, v in bb.items()}
+    if head:
+        sd.update({f"head.{k}": v for k, v in
+                   dino_head_from_jax(params["head"], stats.get("head")).items()})
+    return sd
+
+
+def _optimizer_from_jax(model_name: str, opt_state, feat_dim: int, head: bool) -> Dict:
+    """optax's TraceState (momentum) or ScaleByAdamState (mu, nu, count),
+    alone or inside a chain's tuple -> {"momentum_buffer": sd} or
+    {"exp_avg": sd, "exp_avg_sq": sd, "step": n}."""
+    parts = opt_state if isinstance(opt_state, tuple) and not hasattr(opt_state, "trace") \
+        and not hasattr(opt_state, "mu") else (opt_state,)
+    for part in parts:
+        if hasattr(part, "trace"):
+            return {"momentum_buffer": _net_from_jax(model_name, part.trace, {}, feat_dim, head)}
+        if hasattr(part, "mu"):
+            return {"exp_avg": _net_from_jax(model_name, part.mu, {}, feat_dim, head),
+                    "exp_avg_sq": _net_from_jax(model_name, part.nu, {}, feat_dim, head),
+                    "step": int(np.asarray(part.count))}
+    raise ValueError(f"no momentum or Adam state in {type(opt_state).__name__}")
+
+
+def dino_state_from_jax(model_name: str, state, feat_dim: int = 80) -> Dict:
+    """A JAX `DINOState` -> {"step", "student", "teacher" (DINONet
+    state_dicts with their BatchNorm statistics), "center", "optimizer"}."""
     return {
-        k: torch.from_numpy(
-            np.asarray(v, np.int64 if k.endswith("tracked") else np.float32).copy()
-        )
-        for k, v in sd.items()
+        "step": int(np.asarray(state.step)),
+        "student": _net_from_jax(model_name, state.student_params, state.batch_stats,
+                                 feat_dim, True),
+        "teacher": _net_from_jax(model_name, state.teacher_params, state.teacher_batch_stats,
+                                 feat_dim, True),
+        "center": torch.from_numpy(np.asarray(state.center, np.float32).copy()),
+        "optimizer": _optimizer_from_jax(model_name, state.opt_state, feat_dim, True),
     }
+
+
+def moco_state_from_jax(model_name: str, state, feat_dim: int = 80) -> Dict:
+    """A JAX `MoCoState` of an encoder {'backbone': ...} -> {"step",
+    "encoder_q", "encoder_k", "queue", "queue_ptr", "optimizer"}."""
+    return {
+        "step": int(np.asarray(state.step)),
+        "encoder_q": _net_from_jax(model_name, state.params_q, state.batch_stats_q, feat_dim,
+                                   False),
+        "encoder_k": _net_from_jax(model_name, state.params_k, state.batch_stats_k, feat_dim,
+                                   False),
+        "queue": torch.from_numpy(np.asarray(state.queue, np.float32).copy()),
+        "queue_ptr": int(np.asarray(state.queue_ptr)),
+        "optimizer": _optimizer_from_jax(model_name, state.opt_state, feat_dim, False),
+    }
+
+
+def load_converted_state(state, converted: Dict) -> None:
+    """Put `dino_state_from_jax` / `moco_state_from_jax`'s result into the
+    port's DINOState or MoCoState (strict loads; the optimizer's state per
+    trainable parameter of the student / query encoder)."""
+    nets = (("student", "teacher") if hasattr(state, "student")
+            else ("encoder_q", "encoder_k"))
+    for name in nets:
+        getattr(state, name).load_state_dict(converted[name], strict=True)
+    trained = getattr(state, nets[0])
+    with torch.no_grad():
+        if hasattr(state, "center"):
+            state.center.copy_(converted["center"])
+        else:
+            state.queue.copy_(converted["queue"])
+            state.queue_ptr = converted["queue_ptr"]
+    state.step = converted["step"]
+    opt = converted["optimizer"]
+    for k, p in trained.named_parameters():
+        if not p.requires_grad:
+            continue
+        if "momentum_buffer" in opt:
+            entry = {"momentum_buffer": opt["momentum_buffer"][k].to(p.device, p.dtype, copy=True)}
+        else:
+            entry = {"step": torch.tensor(float(opt["step"])),
+                     "exp_avg": opt["exp_avg"][k].to(p.device, p.dtype, copy=True),
+                     "exp_avg_sq": opt["exp_avg_sq"][k].to(p.device, p.dtype, copy=True)}
+        state.optimizer.state[p] = entry

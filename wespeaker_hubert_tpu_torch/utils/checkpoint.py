@@ -14,7 +14,10 @@ The JAX package's own files, flax msgpack (`model_N.ckpt`, `avg_model.ckpt`:
 `{"params": {"backbone", "projection", ["frontend"]}, "batch_stats": ...}`),
 are read by `load_jax_checkpoint` (utils/flax_msgpack.py, no msgpack package)
 and reach the port's names through `models/convert_jax.py`; `load_state` and
-`load_partial` take either format.  JAX's `train_state.ckpt` (with the
+`load_partial` take either format, and both layouts of the JAX package's
+DINO teacher checkpoints (statistics nested under `backbone` or flat).
+`load_partial` refuses a checkpoint that holds a BatchNorm layer's
+parameters without its running statistics.  JAX's `train_state.ckpt` (with the
 optimizer state) is not read.
 """
 
@@ -81,7 +84,25 @@ def load_state(path: str, model: Optional[str] = None,
             "load the epoch's model_N.ckpt")
     if model is None:
         raise ValueError(f"{path} is a JAX checkpoint: its conversion needs the model name")
-    return from_jax_variables(model, tree, feat_dim=feat_dim)
+    return from_jax_variables(model, _nest_backbone_stats(path, tree), feat_dim=feat_dim)
+
+
+def _nest_backbone_stats(path: str, tree: Dict) -> Dict:
+    """A JAX SSL checkpoint's statistics under `batch_stats/backbone`.
+    bin/train_dino.py nests the teacher's statistics there, beside
+    `params/backbone`; examples/voxceleb/v3/dino/run.py writes them flat
+    (the backbone's modules at the top of `batch_stats`): those move under
+    `backbone`.  Flat statistics that are not the backbone's are refused,
+    never dropped."""
+    params, stats = tree["params"], tree.get("batch_stats") or {}
+    if "backbone" not in params or not stats or "backbone" in stats:
+        return tree
+    if set(stats) <= set(params["backbone"]):
+        return {**tree, "batch_stats": {"backbone": stats}}
+    raise ValueError(
+        f"{path}: batch_stats beside params/backbone name modules the backbone does not have "
+        f"({sorted(set(stats) - set(params['backbone']))[:4]}): neither the nested nor the flat "
+        "layout of a JAX SSL checkpoint")
 
 
 def load_partial(path: str, net, model: Optional[str] = None) -> Tuple[List[str], List[str]]:
@@ -93,6 +114,13 @@ def load_partial(path: str, net, model: Optional[str] = None) -> Tuple[List[str]
 
     state = load_state(path, model, getattr(net.backbone, "feat_dim", 80))
     own = speaker_state_dict(net)
+    fresh = [k for k in own if k.endswith(("running_mean", "running_var")) and k not in state
+             and not k.startswith(("frontend.", "projection."))
+             and k.rsplit(".", 1)[0] + ".weight" in state]
+    if fresh:
+        raise ValueError(f"{path} holds the parameters of {len(fresh)} BatchNorm layers without "
+                         f"their statistics ({fresh[:2]}...): refusing to load them with fresh "
+                         "running statistics")
     mismatched = [k for k, v in state.items() if k in own and own[k].shape != v.shape]
     state = {k: v for k, v in state.items() if k not in mismatched}
     missing, unexpected = load_speaker_state(net, state)
