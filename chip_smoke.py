@@ -170,6 +170,21 @@ Phases:
      stage-4 input, embeddings and score files against the CPU, a step of
      each card against CPU (batch 4, the full queue), 3 profiled steps of
      each.
+ 26. diarization at ResNet34's full width (resnet34.yaml: 80 mels, TSTP,
+     256-d, float32) with seeded weights and seeded Silero parameters
+     (the model directory's vad.npz), on constructed conversations of 2-4
+     speakers (alternating tones of 1-3 s, zero gaps of 0.4-0.9 s) with
+     exact reference RTTMs: recipes.voxconverse_v2 (spectral and density)
+     and recipes.voxconverse_v1 (oracle and Silero SAD) over 4
+     conversations of 120-600 s, printing DER at collar 0.25 (reported, not
+     gated: the weights are random); K1 on every segment bucket of one
+     conversation against its plain version; window embeddings and labels
+     of a 60 s conversation card against CPU; Silero card against CPU
+     within 1e-5; 8 concurrent /diarize posts of 60-300 s and a KServe
+     `run` infer equal to a direct diarize_pcm_batch, that equal to
+     sequential diarize_pcm (energy VAD, then Silero); a 2,700 s
+     conversation (>= 2,000 windows) through the spectral path on the card
+     and on the host at its 4 speakers, eigh timed on both.
 
 A kernel's bound is the least time the card could take for the work the
 function needs (for log-mel: an FFT and a sparse mel product; for
@@ -2461,6 +2476,16 @@ class _K1Spy:
         self.module.fbank_kernel = self.fn
 
 
+def k1_held(got, want, truth):
+    """K1's bar, FBANK_TOL, element by element: against the plain version
+    where that version meets the float64 log-mel, against the float64
+    log-mel where it does not.  Returns (held, plain_off)."""
+    plain_off = ~torch.isclose(want.double(), truth, **FBANK_TOL)
+    held = torch.where(plain_off, torch.isclose(got.double(), truth, **FBANK_TOL),
+                       torch.isclose(got, want, **FBANK_TOL))
+    return held, plain_off
+
+
 def k1_on_eval_batches(lists, caught=None, mels=80):
     """K1 against its plain version and a float64 log-mel on every batch
     that EvalPipeline (bin/extract's batching, batch 32, `mels` mels) makes of
@@ -2502,9 +2527,7 @@ def k1_on_eval_batches(lists, caught=None, mels=80):
                 "valid": {"max_abs_err": 0.0, "kernel_vs_float64": 0.0, "plain_vs_float64": 0.0},
                 "padded": {"max_abs_err": 0.0, "kernel_vs_float64": 0.0, "plain_vs_float64": 0.0}})
             row["batches"] += 1
-            plain_off = ~torch.isclose(want.double(), truth, **FBANK_TOL)
-            held = torch.where(plain_off, torch.isclose(got.double(), truth, **FBANK_TOL),
-                               torch.isclose(got, want, **FBANK_TOL))
+            held, plain_off = k1_held(got, want, truth)
             row["off_bar"] += int((~held).sum())
             row["plain_off_float64"] += int(plain_off.sum())
             row["finite"] &= bool(torch.isfinite(got).all())
@@ -5211,6 +5234,373 @@ def phase_cnceleb_finetune(report, root):
     return k1_extract
 
 
+DIAR_CONFIG = RESNET_CONFIG  # examples/voxconverse/v2/README.md diarizes with ResNet34
+DIAR_SEED = 20251027
+DIAR_RECIPE = ((120, 2), (240, 3), (360, 4), (600, 3))  # (seconds, speakers): (a), (b)
+DIAR_SERVED = (60, 90, 120, 150, 180, 210, 240, 300)  # (c): 8 concurrent /diarize posts
+DIAR_CPU_SECONDS = 60  # the conversation embedded on the card and on the CPU
+DIAR_LONG = (2700, 4)  # (d): at least DIAR_LONG_WINDOWS windows
+DIAR_LONG_WINDOWS = 2000
+SILERO_TOL = 1e-5
+
+
+def conversation(rng, seconds, n_spk):
+    """Alternating-tone turns of `n_spk` speakers (each turn 1-3 s of the
+    speaker's two tones plus noise, then a zero gap of 0.4-0.9 s; the next
+    speaker differs from the last), on the int16 grid: the samples and the
+    exact reference turns [(begin_s, end_s, speaker)].  The JAX package's
+    tests/test_diar_batch.py:_conversation, extended to K speakers."""
+    parts, turns, t, spk = [], [], 0.0, 0
+    while t < seconds:
+        n = int(float(rng.uniform(1.0, 3.0)) * SR)
+        tt = np.arange(n) / SR
+        f0 = 150 + 90 * spk
+        x = 0.3 * np.sin(2 * np.pi * f0 * tt) + 0.12 * np.sin(2 * np.pi * 2.1 * f0 * tt)
+        parts.append(x + rng.standard_normal(n) * 0.01)
+        turns.append((t, min(t + n / SR, seconds), f"S{spk}"))
+        gap = int(float(rng.uniform(0.4, 0.9)) * SR)
+        parts.append(np.zeros(gap))
+        t += (n + gap) / SR
+        spk = (spk + 1 + int(rng.integers(n_spk - 1))) % n_spk
+    wav = np.concatenate(parts)[: int(seconds * SR)]
+    wav = (np.round(np.clip(wav, -1, 1) * 32767) / 32768).astype(np.float32)
+    return wav, [(b, e, s) for b, e, s in turns if e > b]
+
+
+def write_diar_model_dir(root):
+    """resnet34.yaml as the port's reader parses it, ResNet34 with seeded
+    weights (strict load) and seeded Silero parameters as vad.npz."""
+    from wespeaker_hubert_tpu_torch.diar.silero import save_silero_params, silero_init_params
+    from wespeaker_hubert_tpu_torch.models.registry import get_speaker_model
+    from wespeaker_hubert_tpu_torch.utils.config import load_config
+
+    config = load_config(str(DIAR_CONFIG))
+    model = get_speaker_model(config["model"])(**config["model_args"])
+    sd = seeded_state_dict(model, DIAR_SEED)
+    model.load_state_dict(sd, strict=True)
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump(config, f)
+    torch.save(sd, os.path.join(root, "avg_model.pt"))
+    save_silero_params(os.path.join(root, "vad.npz"),
+                       silero_init_params(np.random.default_rng(DIAR_SEED)))
+    return config
+
+
+def _same_partition(a, b):
+    pairs = set(zip(a, b))
+    return len(a) == len(b) and len(pairs) == len(set(a)) == len(set(b))
+
+
+def _k1_launches():
+    from wespeaker_hubert_tpu_torch.ops import fbank_kernel
+
+    return fbank_kernel.LAUNCHES
+
+
+def _zero_k1():
+    from wespeaker_hubert_tpu_torch.ops import fbank_kernel
+
+    fbank_kernel.LAUNCHES = 0
+
+
+def k1_on_inputs(inputs):
+    """K1 against its plain version on each (wav, cfg) it was given, at
+    `k1_held`'s bar.  Per shape: batches, elements past the bar, the
+    largest errors."""
+    from wespeaker_hubert_tpu_torch.ops import fbank_kernel
+
+    rows = {}
+    for wav, cfg in inputs:
+        got = fbank_kernel.fbank_kernel(wav, cfg)
+        want = fbank_kernel.fbank_kernel_reference(wav, cfg)
+        truth = fbank_float64(wav, cfg)
+        held, plain_off = k1_held(got, want, truth)
+        row = rows.setdefault(tuple(wav.shape), {"shape": list(wav.shape), "batches": 0,
+                                                "off_bar": 0, "plain_off_float64": 0,
+                                                "max_abs_err": 0.0, "kernel_vs_float64": 0.0,
+                                                "finite": True})
+        row["batches"] += 1
+        row["off_bar"] += int((~held).sum())
+        row["plain_off_float64"] += int(plain_off.sum())
+        row["max_abs_err"] = max(row["max_abs_err"], float((got - want).abs().max()))
+        row["kernel_vs_float64"] = max(row["kernel_vs_float64"],
+                                       float((got.double() - truth).abs().max()))
+        row["finite"] &= bool(torch.isfinite(got).all())
+        del got, want, truth, plain_off, held
+    return list(rows.values())
+
+
+def phase_diarization(report, root):
+    """Diarization at ResNet34's full width (resnet34.yaml: 80 mels, TSTP,
+    256-d, float32, TF32 off) with seeded weights and seeded Silero
+    parameters, on constructed conversations of 2-4 speakers with exact
+    reference RTTMs:
+      (a) recipes.voxconverse_v2 over 4 conversations of 120-600 s, with
+          --clusterer spectral and density, DER at collar 0.25;
+      (b) recipes.voxconverse_v1 on the same 4, oracle and system (Silero)
+          SAD;
+      (c) the server: 8 concurrent /diarize posts of 60-300 s and one
+          KServe `run` infer, each equal to a direct diarize_pcm_batch on the
+          card, and that equal to sequential diarize_pcm (energy VAD, then
+          Silero on the batched path);
+      (d) a conversation of at least 2,000 windows through
+          spectral.cluster(impl="device") and impl="host" at its 4 speakers.
+    Checks: K1 against its plain version on every segment bucket of the 360
+    s conversation; window embeddings and labels of a 60 s conversation card
+    against CPU; Silero card against CPU within 1e-5; the served and batched
+    results as above; (d)'s labels.  K1's launches on each path are counted.
+    The DERs are reported (random weights), not gated."""
+    import contextlib
+    import io
+
+    from wespeaker_hubert_tpu_torch.bin.serve import EmbeddingService, make_http_server
+    from wespeaker_hubert_tpu_torch.cli.speaker import Speaker
+    from wespeaker_hubert_tpu_torch.data.wav_io import write_wav
+    from wespeaker_hubert_tpu_torch.diar import (density_cluster, make_seg_id,
+                                                 spectral_cluster, subsegment_fbank,
+                                                 write_rttm)
+    from wespeaker_hubert_tpu_torch.diar import spectral as spectral_mod
+    from wespeaker_hubert_tpu_torch.diar.silero import silero_probs
+    from wespeaker_hubert_tpu_torch.ops import fbank_kernel
+    from wespeaker_hubert_tpu_torch.recipes import voxconverse_v1, voxconverse_v2
+
+    out = report["diarization"] = {"config": DIAR_CONFIG.name}
+    model_dir = os.path.join(root, "model")
+    os.makedirs(model_dir)
+    config = write_diar_model_dir(model_dir)
+    data = Path(root) / "data"
+    (data / "ref").mkdir(parents=True)
+    rng = np.random.default_rng(DIAR_SEED)
+    convs = {}
+    for i, (seconds, n_spk) in enumerate(DIAR_RECIPE):
+        utt = f"conv{i}"
+        wav, turns = conversation(rng, seconds, n_spk)
+        write_wav(str(data / f"{utt}.wav"), wav)
+        write_rttm(str(data / "ref" / f"{utt}.rttm"), [(utt, b, e, s) for b, e, s in turns])
+        convs[utt] = (wav, turns)
+    (data / "wav.scp").write_text("".join(f"{u} {data / u}.wav\n" for u in convs))
+    write_rttm(str(data / "ref.rttm"),
+               [(u, b, e, s) for u, (_, turns) in convs.items() for b, e, s in turns])
+    log(f"[diar] {config['model']} {config['model_args']}; conversations "
+        + ", ".join(f"{u} {len(w) / SR:.0f} s / {len({s for *_, s in t})} speakers / "
+                    f"{len(t)} turns" for u, (w, t) in convs.items()))
+
+    def recipe(mod, tag, args):
+        _zero_k1()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            d = mod.main(["--model_dir", model_dir, "--wav_scp", str(data / "wav.scp"),
+                          "--out_rttm", str(Path(root) / f"{tag}.rttm"), "--device", DEVICE]
+                         + args)
+        secs = time.perf_counter() - t0
+        row = {"der": d["der"], "miss": d["miss"] / d["total"], "fa": d["fa"] / d["total"],
+               "confusion": d["confusion"] / d["total"], "scored_s": d["total"],
+               "seconds": secs, "k1_launches": _k1_launches(),
+               "printed": buf.getvalue().strip().splitlines()[-1]}
+        log(f"[diar {tag}] {row['printed']} ({row['scored_s']:.1f} s scored, collar 0.25); "
+            f"{secs:.1f} s for {sum(len(w) for w, _ in convs.values()) / SR:.0f} s of audio; "
+            f"K1 launches {row['k1_launches']}")
+        check(DEVICE != "cuda" or row["k1_launches"] > 0, f"diarization {tag}: K1 never launched")
+        return row
+
+    # (a), (b)
+    out["v2_spectral"] = recipe(voxconverse_v2, "v2_spectral",
+                                ["--ref_rttm", str(data / "ref.rttm"), "--clusterer", "spectral"])
+    out["v2_density"] = recipe(voxconverse_v2, "v2_density",
+                               ["--ref_rttm", str(data / "ref.rttm"), "--clusterer", "density"])
+    for sad in ("oracle", "system"):
+        out[f"v1_{sad}"] = recipe(voxconverse_v1, f"v1_{sad}",
+                                  ["--ref_rttm_dir", str(data / "ref"), "--sad_type", sad])
+
+    card = Speaker(model_dir, device=DEVICE)
+    cpu = Speaker(model_dir, device="cpu")
+    # K1 on every segment bucket of the 360 s conversation
+    wav, _ = convs["conv2"]
+    segs = card._vad_segments(wav)
+    k1_inputs, real_k1 = [], fbank_kernel.fbank_kernel
+
+    def keep(w, cfg):
+        k1_inputs.append((w.clone(), cfg))
+        return real_k1(w, cfg)
+    fbank_kernel.fbank_kernel = keep
+    try:
+        card._segment_fbanks(wav, segs)
+    finally:
+        fbank_kernel.fbank_kernel = real_k1
+    k1_rows = k1_on_inputs(k1_inputs) if DEVICE == "cuda" else []
+    out["k1_segment_buckets"] = k1_rows
+    log(f"[diar K1] {len(segs)} VAD segments of conv2 in {len(k1_inputs)} batches: "
+        + "; ".join(f"{tuple(r['shape'])} x{r['batches']}: {r['off_bar']} elements past the bar "
+                    f"(max|err| vs plain {r['max_abs_err']:.3e}, vs float64 "
+                    f"{r['kernel_vs_float64']:.3e}; plain off float64 {r['plain_off_float64']})"
+                    for r in k1_rows))
+    check(DEVICE != "cuda" or k1_inputs and all(r["off_bar"] == 0 and r["finite"] for r in k1_rows),
+          f"diarization: K1 disagrees with its plain version on a segment bucket {k1_rows}")
+
+    # window embeddings and labels of a 60 s conversation, card against CPU
+    wav60, _ = conversation(np.random.default_rng(DIAR_SEED + 1), DIAR_CPU_SECONDS, 3)
+    segs60 = card._vad_segments(wav60)
+
+    def windows(spk, w, s):
+        subsegs, fbanks = [], []
+        for (b, e), f in zip(s, spk._segment_fbanks(w, s)):
+            ids, m = subsegment_fbank(f, make_seg_id("c60", int(b * 1000), int(e * 1000)))
+            subsegs += ids
+            fbanks += m
+        return np.stack(fbanks)
+
+    t0 = time.perf_counter()
+    emb_card = card._extract_embedding_feats(windows(card, wav60, segs60))
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    emb_cpu = cpu._extract_embedding_feats(windows(cpu, wav60, segs60))
+    cpu_s = time.perf_counter() - t0
+    cos = [cosine(a, b) for a, b in zip(emb_card, emb_cpu)]
+    lab_card, lab_cpu = density_cluster(emb_card), density_cluster(emb_cpu)
+    sp_card = spectral_cluster(emb_card, seed=DIAR_SEED, impl="host")
+    sp_cpu = spectral_cluster(emb_cpu, seed=DIAR_SEED, impl="host")
+    out["card_vs_cpu"] = {"windows": len(cos), "min_cosine": min(cos), "bar": COS_MIN["f32"],
+                          "density_same_partition": _same_partition(lab_card, lab_cpu),
+                          "spectral_same_partition": _same_partition(sp_card, sp_cpu),
+                          "card_s": card_s, "cpu_s": cpu_s}
+    log(f"[diar card vs CPU] {len(cos)} windows of a {DIAR_CPU_SECONDS} s conversation: min "
+        f"cosine {min(cos):.7f} (bar {COS_MIN['f32']}); labels the same partition: density "
+        f"{out['card_vs_cpu']['density_same_partition']} ({len(set(lab_card))} speakers), "
+        f"spectral {out['card_vs_cpu']['spectral_same_partition']} ({len(set(sp_card))}); "
+        f"fbank + embeddings {card_s:.2f} s on the card, {cpu_s:.2f} s on the CPU")
+    check(len(cos) == len(emb_cpu) and min(cos) >= COS_MIN["f32"],
+          f"diarization: window embeddings card vs CPU, min cosine {min(cos)}")
+    check(out["card_vs_cpu"]["density_same_partition"]
+          and out["card_vs_cpu"]["spectral_same_partition"],
+          "diarization: labels from the card's embeddings differ from the CPU's")
+
+    # Silero card against CPU
+    card.set_vad(True)
+    cpu.set_vad(True)
+    wav120 = convs["conv0"][0]
+    p_card = silero_probs(card.vad_model, wav120)
+    p_cpu = silero_probs(cpu.vad_model, wav120)
+    silero_err = float(np.abs(p_card - p_cpu).max())
+    out["silero"] = {"chunks": len(p_card), "max_abs_err": silero_err, "tol": SILERO_TOL}
+    log(f"[diar silero] {len(p_card)} chunks of conv0, card vs CPU max|d| {silero_err:.2e} "
+        f"(tol {SILERO_TOL})")
+    check(silero_err <= SILERO_TOL, f"diarization: Silero card vs CPU {silero_err}")
+    del cpu
+
+    # (c) the server
+    service = EmbeddingService(model_dir, device=DEVICE)
+    httpd = make_http_server(service, "127.0.0.1", 0)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        srng = np.random.default_rng(DIAR_SEED + 2)
+        served = [conversation(srng, s, 2 + i % 3)[0] for i, s in enumerate(DIAR_SERVED)]
+        bodies = [wav_bytes(w) for w in served]
+        _zero_k1()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(bodies)) as pool:
+            replies = list(pool.map(lambda b: post(url + "/diarize", b), bodies))
+        burst_s = time.perf_counter() - t0
+        served_launches = _k1_launches()
+        got = [[(s["utt"], s["begin"], s["end"], s["speaker"]) for s in r["segments"]]
+               for r in replies]
+        kserve_body = json.dumps({"inputs": [{"name": "input", "datatype": "FP32",
+                                              "shape": [1, len(served[0])],
+                                              "data": served[0].tolist()}]}).encode()
+        kserve = post(url + "/v2/models/run/infer", kserve_body)["outputs"][0]
+        stats = get(url + "/stats")["diarization"]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        service.close()
+        server.join(timeout=30)
+    spk = service.speaker
+    t0 = time.perf_counter()
+    direct = spk.diarize_pcm_batch(served, utts=["unk"] * len(served))
+    direct_s = time.perf_counter() - t0
+    timings = dict(spk.last_diar_timings)
+    sequential = [spk.diarize_pcm(w) for w in served]
+    kserve_rows = np.asarray(kserve["data"], np.float64).reshape(kserve["shape"])
+    kserve_ok = kserve_rows.tolist() == [[b, e, float(s)] for _, b, e, s in direct[0]]
+    audio_s = sum(len(w) for w in served) / SR
+    out["served"] = {"requests": len(served), "audio_s": audio_s, "burst_s": burst_s,
+                     "audio_s_per_s": audio_s / burst_s, "k1_launches": served_launches,
+                     "served_equal_direct": got == direct, "kserve_equal_direct": kserve_ok,
+                     "direct_equal_sequential": direct == sequential,
+                     "direct_s": direct_s, "last_diar_timings": timings, "stats": stats}
+    log(f"[diar served] {len(served)} concurrent /diarize posts, {audio_s:.0f} s of audio in "
+        f"{burst_s:.2f} s: {audio_s / burst_s:.1f} audio-s/s; K1 launches {served_launches}; "
+        f"served == direct diarize_pcm_batch {got == direct}, KServe run == direct {kserve_ok}, "
+        f"direct == sequential diarize_pcm {direct == sequential}")
+    log(f"[diar served] direct diarize_pcm_batch {direct_s:.2f} s, last_diar_timings "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items()))
+    check(DEVICE != "cuda" or served_launches > 0, "diarization: the served burst launched no K1")
+    check(got == direct and kserve_ok and direct == sequential,
+          "diarization: served / KServe / batched / sequential results differ")
+    check(stats["total_steps"] == len(served) + 1, f"diarization /stats {stats}")
+    # the batched path with Silero: the segment fbank sliced from the VAD's rows
+    spk.set_vad(True)
+    _zero_k1()
+    silero_batch = spk.diarize_pcm_batch(served[:4], utts=["unk"] * 4)
+    out["served"]["silero_batch_k1_launches"] = _k1_launches()
+    silero_seq = [spk.diarize_pcm(w) for w in served[:4]]
+    out["served"]["silero_batch_equal_sequential"] = silero_batch == silero_seq
+    log(f"[diar served] Silero VAD: diarize_pcm_batch == sequential {silero_batch == silero_seq}"
+        f" on 4 conversations, last_diar_timings "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in spk.last_diar_timings.items()))
+    check(silero_batch == silero_seq, "diarization: Silero batched != sequential")
+    del service, spk
+
+    # (d) device spectral against host at >= 2,000 windows
+    seconds, n_spk = DIAR_LONG
+    wav, turns = conversation(np.random.default_rng(DIAR_SEED + 3), seconds, n_spk)
+    segs = [(b, e) for b, e, _ in turns if e - b >= 0.255]
+    emb = card._extract_embedding_feats(windows(card, wav, segs))
+    check(len(emb) >= DIAR_LONG_WINDOWS, f"diarization (d): {len(emb)} windows")
+    dev = spectral_cluster(emb, num_spks=n_spk, seed=DIAR_SEED, impl="device", device=DEVICE)
+    host = spectral_cluster(emb, num_spks=n_spk, seed=DIAR_SEED, impl="host")
+    routed = []
+    real = spectral_mod._spectral_eigh_device
+    spectral_mod._spectral_eigh_device = lambda e, p, d: routed.append(1) or real(e, p, DEVICE)
+    try:
+        auto = spectral_cluster(emb, num_spks=n_spk, seed=DIAR_SEED, impl="auto", device="cuda")
+    finally:
+        spectral_mod._spectral_eigh_device = real
+    lap = spectral_mod._laplacian(spectral_mod._prune(spectral_mod._cosine_similarity(emb), 0.01))
+    if DEVICE == "cuda":
+        dev_ms = host_median_ms(lambda: real(emb, 0.01, DEVICE), reps=5, warmup=1)
+        lap_t = torch.from_numpy(lap).to(DEVICE)
+        eigh_dev_ms = cuda_median_ms(lambda: torch.linalg.eigh(lap_t), reps=5, warmup=1)
+    else:
+        dev_ms = eigh_dev_ms = float("nan")
+    import scipy.linalg
+
+    t0 = time.perf_counter()
+    scipy.linalg.eigh(lap)
+    eigh_host_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    spectral_mod._laplacian(spectral_mod._prune(spectral_mod._cosine_similarity(emb), 0.01))
+    host_pipe_ms = (time.perf_counter() - t0) * 1e3 + eigh_host_ms
+    out["long"] = {"seconds": seconds, "speakers": n_spk, "windows": len(emb),
+                   "same_partition": _same_partition(dev, host),
+                   "auto_took_device": routed == [1] and _same_partition(auto, host),
+                   "device_pipeline_ms": dev_ms, "device_eigh_ms": eigh_dev_ms,
+                   "host_pipeline_ms": host_pipe_ms, "host_eigh_ms": eigh_host_ms,
+                   "host_speakers_found": len(set(host))}
+    log(f"[diar long] {seconds} s, {n_spk} speakers, {len(emb)} windows: device labels == host "
+        f"labels (up to permutation) {out['long']['same_partition']}, auto took the device "
+        f"{out['long']['auto_took_device']}; eigh {eigh_dev_ms:.2f} ms on the card "
+        f"(torch.linalg.eigh, events), {eigh_host_ms:.1f} ms on the host (scipy); "
+        f"similarity -> prune -> Laplacian -> eigh {dev_ms:.2f} ms on the card, "
+        f"{host_pipe_ms:.1f} ms on the host")
+    check(out["long"]["same_partition"] and out["long"]["auto_took_device"],
+          "diarization (d): device spectral labels differ from the host's")
+    return {k: out[k]["k1_launches"] for k in ("v2_spectral", "v2_density", "v1_oracle",
+                                               "v1_system", "served")}
+
+
 SCORE_SIZES = {"vox1_O": (40, 4874, 37720), "vox1_H": (1251, 153516, 552536)}
 
 
@@ -5384,6 +5774,8 @@ def main():
         whisper_launches = timed("whisper recipe", phase_whisper_recipe, report, whisper_dir)
     with tempfile.TemporaryDirectory() as score_dir:
         timed("score", phase_score, report, score_dir)
+    with tempfile.TemporaryDirectory() as diar_dir:
+        diar_launches = timed("diarization", phase_diarization, report, diar_dir)
     t0 = time.perf_counter()
     collect_deferred(failures)
     phase_s["waiting for the deferred checks"] = time.perf_counter() - t0
@@ -5406,7 +5798,8 @@ def main():
             or k2_bwd_row is None or train_launches is None or recipe_launches is None
             or resnet_launches is None or whisper_launches is None or campplus_launches is None
             or wavlm_launches is None or redimnet_launches is None or gemini_launches is None
-            or dino is None or cnceleb_launches is None or contrastive_launches is None):
+            or dino is None or cnceleb_launches is None or contrastive_launches is None
+            or diar_launches is None):
         for f in failures:
             print(f"chip_smoke FAILED {f}", file=sys.stderr)
         return 1
@@ -5430,6 +5823,10 @@ def main():
         "launches_moco_recipe": {"stage 4": contrastive_launches["moco"]},
         "launches_simclr_recipe": {"stage 4": contrastive_launches["simclr"]},
         "launches_cnceleb_finetune": {"stage 4": cnceleb_launches},
+        "launches_diarization": diar_launches,
+        "launches_diarization_scope": "voxconverse_v2 (spectral, density) and voxconverse_v1 "
+                                      "(oracle, system SAD) over 4 conversations of 120-600 s; "
+                                      "8 concurrent /diarize posts",
         "max_abs_err": max(r["max_abs_err"] for r in report["fbank_checks"]),
         "max_err": max(r["max_abs_err"] for r in report["fbank_checks"]),
         "ms": k1["ms"],

@@ -948,3 +948,93 @@ def test_moco_step_on_gpu_matches_cpu(cuda):
     for a, b in zip(got_loss, want_loss):
         assert abs(a - b) <= 1e-5 * abs(b)
     assert float((got - want).norm() / want.norm()) <= 1e-4
+
+
+def _tone_conversation(rng, seconds, n_spk):
+    """Alternating tones of `n_spk` speakers with zero gaps, on the int16
+    grid (chip_smoke.conversation's audio)."""
+    parts, t, spk = [], 0.0, 0
+    while t < seconds:
+        n = int(rng.uniform(1.0, 3.0) * 16000)
+        tt = np.arange(n) / 16000
+        f0 = 150 + 90 * spk
+        parts.append(0.3 * np.sin(2 * np.pi * f0 * tt) + 0.12 * np.sin(4.2 * np.pi * f0 * tt)
+                     + 0.01 * rng.standard_normal(n))
+        gap = int(rng.uniform(0.4, 0.9) * 16000)
+        parts.append(np.zeros(gap))
+        t += (n + gap) / 16000
+        spk = (spk + 1 + int(rng.integers(n_spk - 1))) % n_spk
+    wav = np.concatenate(parts)[: int(seconds * 16000)]
+    return (np.round(np.clip(wav, -1, 1) * 32767) / 32768).astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_fbank_kernel_on_zero_gapped_segment_buckets(cuda):
+    """K1 on the diarization's own segment batches: energy-VAD segments of
+    a zero-gapped conversation, 32 rows at power-of-two sample buckets
+    (cli/speaker.py's batching), edges carrying the silent gaps.  K1
+    within the bar of its plain version wherever that version meets a
+    float64 log-mel, and of the float64 log-mel elsewhere."""
+    from wespeaker_hubert_tpu_torch.cli.speaker import SEG_ROWS, _bucket_groups
+    from wespeaker_hubert_tpu_torch.diar import energy_vad
+
+    wav = _tone_conversation(np.random.default_rng(4), 90.0, 3)
+    segs = [wav[max(int(b * 16000) - 4000, 0): int(e * 16000) + 4000]
+            for b, e in energy_vad(wav, 16000)]
+    cfg = FbankConfig(spectrum_impl="kernel")
+    groups = _bucket_groups([len(s) for s in segs])
+    assert len(groups) >= 2
+    for bucket, idx in groups:
+        batch = np.zeros((SEG_ROWS, bucket), np.float32)
+        for row, j in enumerate(idx):
+            batch[row, : len(segs[j])] = segs[j]
+        x = torch.from_numpy(batch).to(cuda)
+        got = fbank_kernel.fbank_kernel(x, cfg).double()
+        want = fbank_kernel.fbank_kernel_reference(x, cfg).double()
+        truth = _fbank_float64(x, cfg)
+        plain_ok = torch.isclose(want, truth, **FBANK_TOL)
+        held = torch.where(plain_ok, torch.isclose(got, want, **FBANK_TOL),
+                           torch.isclose(got, truth, **FBANK_TOL))
+        assert bool(held.all()) and bool(torch.isfinite(got).all()), (bucket, int((~held).sum()))
+
+
+@pytest.mark.cuda
+def test_silero_on_gpu_matches_cpu(cuda):
+    """Silero's probabilities (the STFT projection, the encoder convs and
+    cuDNN's LSTM) on the card against the CPU within 1e-5, one
+    conversation alone and in a batch."""
+    from wespeaker_hubert_tpu_torch.diar.silero import (SileroVAD, silero_init_params,
+                                                        silero_probs, silero_probs_batch)
+
+    params = silero_init_params(np.random.default_rng(3))
+    card, cpu = SileroVAD.from_params(params, cuda), SileroVAD.from_params(params)
+    rng = np.random.default_rng(5)
+    wavs = [_tone_conversation(rng, s, 2) for s in (3.0, 37.0, 61.0)]
+    batched = silero_probs_batch(card, wavs)
+    for w, b in zip(wavs, batched):
+        want = silero_probs(cpu, w)
+        np.testing.assert_allclose(silero_probs(card, w), want, rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(b, silero_probs(card, w))
+
+
+@pytest.mark.cuda
+def test_spectral_device_matches_host_on_gpu(cuda):
+    """The spectral path on the card (similarity, prune, Laplacian,
+    torch.linalg.eigh) against the host's at a fixed speaker count, 2,100
+    windows: the same partition; 'auto' takes the card there."""
+    from wespeaker_hubert_tpu_torch.diar import spectral
+
+    rng = np.random.default_rng(6)
+    centers = rng.standard_normal((4, 64))
+    emb = np.concatenate([c + 0.15 * np.linalg.norm(c) * rng.standard_normal((525, 64)) / 8
+                          for c in centers]).astype(np.float32)
+    host = spectral.cluster(emb, num_spks=4, seed=1, impl="host")
+    dev = spectral.cluster(emb, num_spks=4, seed=1, impl="device", device=cuda)
+    auto = spectral.cluster(emb, num_spks=4, seed=1, impl="auto", device=cuda)
+    for got in (dev, auto):
+        assert len(set(zip(host, got))) == len(set(host)) == len(set(got)) == 4
+    vals, _ = spectral._spectral_eigh_device(emb, 0.01, cuda)
+    lap = spectral._laplacian(spectral._prune(spectral._cosine_similarity(emb), 0.01))
+    import scipy.linalg
+
+    np.testing.assert_allclose(vals[:8], scipy.linalg.eigh(lap)[0][:8], rtol=0, atol=1e-3)

@@ -1,7 +1,10 @@
 """The port stands alone: no file of `wespeaker_hubert_tpu_torch` or
 `chip_smoke.py` imports JAX, flax, optax, msgpack or the JAX package (the
-port reads flax's msgpack checkpoints with its own reader), and a process
-that imports every port module and serves on the CPU never loads jax."""
+port reads flax's msgpack checkpoints with its own reader), nor sklearn,
+umap or hdbscan (the card's machine has none: the diarization's k-means,
+spectral embedding and HDBSCAN are the port's own), and a process that
+imports every port module, serves and diarizes on the CPU never loads
+any of them."""
 
 import ast
 import json
@@ -16,7 +19,8 @@ import setuptools
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "wespeaker_hubert_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "wespeaker_hubert_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "wespeaker_hubert_tpu",
+             "sklearn", "umap", "hdbscan"}
 
 
 def _port_files():
@@ -61,10 +65,13 @@ def _module_names():
     "models.samresnet", "models.repvgg", "models.redimnet",
     "ssl.dataset", "ssl.dino", "ssl.contrastive", "bin.train_dino", "bin.train_contrastive",
     "recipes.voxceleb_v3_dino", "recipes.voxceleb_v3_contrastive", "recipes.cnceleb_v3_finetune",
+    "diar.rttm", "diar.subsegment", "diar.der", "diar.sad", "diar.silero", "diar.spectral",
+    "diar.pahc", "diar.density", "cli.speaker", "cli.hub", "bin.serve",
+    "recipes.voxconverse_v1", "recipes.voxconverse_v2",
 ])
 def test_training_modules_are_checked(name):
-    """The training, recipe, interop, Whisper, model-zoo and SSL slices' modules are among
-    those the checks above and the no-JAX process below import."""
+    """The training, recipe, interop, Whisper, model-zoo, SSL and diarization slices'
+    modules are among those the checks above and the no-JAX process below import."""
     assert "wespeaker_hubert_tpu_torch." + name in set(_module_names())
     assert not FORBIDDEN.intersection(_imported_roots(PORT / (name.replace(".", "/") + ".py")))
 
@@ -90,6 +97,11 @@ def test_cpu_service_runs_without_jax(tmp_path):
         svc = EmbeddingService(d, device="cpu", max_batch=2, max_seconds=2.0,
                                chunk_frames=50)
         emb = svc.embed_samples(np.zeros(8000, np.float32) + 0.01)
+        t = np.arange(64000) / 16000
+        conv = (0.3 * np.sin(2 * np.pi * np.where(t % 2 < 1, 150, 240) * t)
+                * (t % 1 < 0.8)).astype(np.float32)
+        for clusterer in ("spectral", "density"):
+            assert svc.speaker.diarize_pcm(conv, clusterer=clusterer)
         svc.close()
         print(json.dumps({{"dim": int(emb.shape[-1]),
                           "jax": sorted(m for m in sys.modules
@@ -108,6 +120,6 @@ def test_cpu_service_runs_without_jax(tmp_path):
 def test_packaging_finds_the_port():
     found = setuptools.find_packages(where=str(ROOT), include=["wespeaker_hubert_tpu*"])
     for sub in ("", ".ops", ".models", ".train", ".data", ".utils", ".cli", ".bin",
-                ".frontend", ".backend", ".recipes", ".ssl"):
+                ".frontend", ".backend", ".recipes", ".ssl", ".diar"):
         assert "wespeaker_hubert_tpu_torch" + sub in found
     assert "wespeaker_hubert_tpu" in found

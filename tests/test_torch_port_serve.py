@@ -278,12 +278,21 @@ def test_kserve_models(server, shared):
 
 
 @pytest.mark.parametrize("path", ["/diarize", "/v2/models/run/infer"])
-def test_unported_endpoints_answer_404(server, path):
+def test_diarize_endpoints_refuse_malformed_requests(server, path):
+    """/diarize and the KServe `run` model answer (tests/test_torch_port_diarize.py
+    holds their results); a body that is no WAV, or no `input` tensor, is a 400."""
     url, _ = server
     with pytest.raises(urllib.error.HTTPError) as err:
         _post(url + path, b"{}")
-    assert err.value.code == 404
-    assert json.loads(err.value.read())["error"] == "not ported yet"
+    assert err.value.code == 400
+    assert "error" in json.loads(err.value.read())
+
+
+def test_grpc_is_refused(model_dir):
+    from wespeaker_hubert_tpu_torch.bin.serve import serve
+
+    with pytest.raises(NotImplementedError, match="gRPC"):
+        serve(model_dir, port=0, grpc_port=8001, device="cpu")
 
 
 def test_speaker_default_device_needs_cuda(model_dir):

@@ -1,15 +1,22 @@
-"""Batch embedding server on PyTorch / CUDA.
+"""Batch embedding and diarization server on PyTorch / CUDA.
 
 Counterpart of `wespeaker_hubert_tpu/bin/serve.py`: a stdlib HTTP server
-whose handler threads enqueue requests into a micro-batching queue; one
-device thread drains up to `max_batch` requests every `batch_window_ms`
-and runs the chunked fixed-shape embedding path (train/chunked.py).  All
-device work of the running service happens on that thread.  Endpoints:
+whose handler threads enqueue requests into micro-batching queues.  One
+device thread drains up to `max_batch` embedding requests every
+`batch_window_ms` and runs the chunked fixed-shape embedding path
+(train/chunked.py); a second thread drains up to `diar_max_batch`
+diarization requests per window and runs them as one
+`Speaker.diarize_pcm_batch` (float32), whose per-conversation results equal
+one-at-a-time `diarize_pcm`'s.  Endpoints:
 
   POST /embed        body: WAV bytes            -> {"embedding": [...]}
   POST /similarity   body: WAV||WAV (separator b"--8<--")
                                                 -> {"similarity": s}
-  GET  /stats                                   -> throughput counters
+  POST /diarize      body: WAV bytes            -> {"segments": [{"utt",
+                                                   "begin", "end", "speaker"}]}
+  GET  /stats                                   -> throughput counters, the
+                                                   diarization's under
+                                                   "diarization"
 
 and the KServe-v2 (Triton HTTP) protocol:
 
@@ -18,10 +25,11 @@ and the KServe-v2 (Triton HTTP) protocol:
   POST /v2/models/<name>/infer                  -> outputs
        <name> = feature_extractor: wav -> CMN'd fbank "speech"
                 speaker_model:     feats -> "embs"
+                run, diarization:  "input" wav -> "LABELS" FP32 [N, 3]
+                                   (begin, end, speaker) rows
                 anything else:     WAV -> EMBEDDINGS
 
-Diarization (/diarize, the `run` / `diarization` models) and gRPC are not
-ported yet and answer 404.
+The KServe gRPC protocol is not ported (`--grpc_port` is refused).
 
     python -m wespeaker_hubert_tpu_torch.bin.serve --model_dir DIR \\
         [--device cuda] [--port 8501] [--f32]
@@ -101,7 +109,13 @@ class EmbeddingService:
         self._feats_embed = make_eval_embed(net, compute_dtype=self._compute_dtype)
         self.embed_dim = int(net.backbone.embed_dim)
         self.meter = ThroughputMeter()
+        # /diarize has its own counters: mixed into the embedding meter it
+        # would corrupt that path's rtf and audio_seconds_per_s
+        self.diar_meter = ThroughputMeter()
+        self.diar_max_batch = 8
+        self._diar_window = max(self.window, 0.02)
         self._q: "queue.Queue[_Item]" = queue.Queue()
+        self._diar_q: "queue.Queue[Tuple[np.ndarray, str, queue.Queue]]" = queue.Queue()
         self._stop = threading.Event()
         self._worker = threading.Thread(target=self._loop, daemon=True)
         self._worker.start()
@@ -109,6 +123,9 @@ class EmbeddingService:
         # of a length does not pay the kernel build or library set-up
         for b in self.buckets:
             self._call(self._embed_batch, [np.zeros(b, np.float32)], False)
+        self.speaker.warm_diarize(max_seconds)
+        self._diar_worker = threading.Thread(target=self._diar_loop, daemon=True)
+        self._diar_worker.start()
 
     # ------------------------------------------------------------- device
     def _loop(self):
@@ -138,6 +155,32 @@ class EmbeddingService:
                 except Exception as e:  # noqa: BLE001 — report to the caller
                     logger.exception("device job failed")
                     out_q.put((False, e))
+
+    def _diar_loop(self):
+        while not self._stop.is_set():
+            try:
+                first = self._diar_q.get(timeout=0.1)
+            except queue.Empty:
+                continue
+            batch = [first]
+            deadline = time.perf_counter() + self._diar_window
+            while len(batch) < self.diar_max_batch:
+                remaining = deadline - time.perf_counter()
+                if remaining <= 0:
+                    break
+                try:
+                    batch.append(self._diar_q.get(timeout=remaining))
+                except queue.Empty:
+                    break
+            try:
+                outs = self.speaker.diarize_pcm_batch(
+                    [w for w, _, _ in batch], utts=[u for _, u, _ in batch])
+                results = [(True, o) for o in outs]
+            except Exception as e:  # noqa: BLE001 — report to every waiting client
+                logger.exception("diarization batch failed")
+                results = [(False, e)] * len(batch)
+            for (_, _, out_q), res in zip(batch, results):
+                out_q.put(res)
 
     def _run_embeds(self, items: List[_Item]):
         try:
@@ -187,19 +230,38 @@ class EmbeddingService:
         return next(b for b in self.buckets if b >= min(n, self.max_samples))
 
     # --------------------------------------------------------------- api
-    def embed_wav_bytes(self, data: bytes) -> np.ndarray:
+    def _samples(self, data: bytes) -> np.ndarray:
+        """A request's WAV body -> float32 samples at the model rate."""
         wav, sr = read_wav_bytes(data)
         if sr != self.speaker.resample_rate:
             raise ValueError(
                 f"sample rate {sr}, the model takes {self.speaker.resample_rate}"
             )
-        return self.embed_samples(wav)
+        return wav
+
+    def embed_wav_bytes(self, data: bytes) -> np.ndarray:
+        return self.embed_samples(self._samples(data))
 
     def embed_samples(self, wav: np.ndarray) -> np.ndarray:
         """Embed raw float32 samples at the model sample rate."""
         out_q: queue.Queue = queue.Queue()
         self._q.put((None, np.asarray(wav, np.float32).reshape(-1), out_q))
         return self._reply(out_q)
+
+    def diarize_wav_bytes(self, data: bytes, utt: str = "unk"):
+        return self.diarize_samples(self._samples(data), utt=utt)
+
+    def diarize_samples(self, wav: np.ndarray, utt: str = "unk"):
+        """Diarize float32 samples at the model rate through the
+        diarization queue: (utt, begin, end, speaker) segments."""
+        wav = np.asarray(wav, np.float32).reshape(-1)
+        out_q: queue.Queue = queue.Queue()
+        self._diar_q.put((wav, utt, out_q))
+        ok, payload = out_q.get(timeout=600)
+        if not ok:
+            raise payload
+        self.diar_meter.update(len(wav) / self.speaker.resample_rate, 1)
+        return payload
 
     def similarity(self, a: bytes, b: bytes) -> float:
         e1 = self.embed_wav_bytes(a)
@@ -253,18 +315,26 @@ class EmbeddingService:
             torch.cuda.get_device_name(self.device)
             if self.device.type == "cuda" else "cpu"
         )
+        d = self.diar_meter.totals()
+        d["audio_seconds_per_s"] = self.diar_meter.audio_seconds_per_s
+        d["rtf"] = self.diar_meter.rtf
+        t["diarization"] = d
         return t
 
     def close(self):
         self._stop.set()
         self._worker.join(timeout=5)
+        self._diar_worker.join(timeout=5)
 
 
 def _make_handler(service: EmbeddingService):
     nm = int(service.speaker.fbank_cfg.num_mel_bins)
 
     def metadata(name):
-        if name == "feature_extractor":
+        if name in _DIAR_MODELS:
+            inputs = [{"name": "input", "datatype": "FP32", "shape": [1, -1]}]
+            outputs = [{"name": "LABELS", "datatype": "FP32", "shape": [-1, 3]}]
+        elif name == "feature_extractor":
             inputs = [{"name": "wav", "datatype": "FP32", "shape": [1, -1]}]
             outputs = [{"name": "speech", "datatype": "FP32", "shape": [-1, nm]}]
         elif name == "speaker_model":
@@ -280,6 +350,14 @@ def _make_handler(service: EmbeddingService):
 
     def infer(model, req):
         tensors = {t["name"]: t for t in req.get("inputs", [])}
+        if model in _DIAR_MODELS:
+            if "input" not in tensors:
+                raise ValueError("missing input tensor 'input'")
+            wav = np.asarray(tensors["input"]["data"], np.float32).reshape(-1)
+            rows = [[float(b), float(e), float(s)]
+                    for _u, b, e, s in service.diarize_samples(wav)]
+            return {"name": "LABELS", "datatype": "FP32", "shape": [len(rows), 3],
+                    "data": [x for r in rows for x in r]}
         if model == "feature_extractor":
             if "wav" not in tensors:
                 raise ValueError("missing input tensor 'wav'")
@@ -330,10 +408,7 @@ def _make_handler(service: EmbeddingService):
                 self._json(200, {})
             elif self.path.startswith("/v2/models/"):
                 name = self.path[len("/v2/models/"):].split("/")[0]
-                if name in _DIAR_MODELS:
-                    self._json(404, {"error": NOT_PORTED})
-                else:
-                    self._json(200, metadata(name))
+                self._json(200, metadata(name))
             else:
                 self._json(404, {"error": "unknown path"})
 
@@ -348,14 +423,15 @@ def _make_handler(service: EmbeddingService):
                     a, b = data.split(BOUNDARY, 1)
                     self._json(200, {"similarity": service.similarity(a, b)})
                 elif self.path == "/diarize":
-                    self._json(404, {"error": NOT_PORTED})
+                    segs = service.diarize_wav_bytes(data)
+                    self._json(200, {"segments": [
+                        {"utt": u, "begin": b, "end": e, "speaker": s}
+                        for u, b, e, s in segs
+                    ]})
                 elif self.path.startswith("/v2/models/") and self.path.endswith(
                     "/infer"
                 ):
                     model = self.path.split("/")[3]
-                    if model in _DIAR_MODELS:
-                        self._json(404, {"error": NOT_PORTED})
-                        return
                     out = infer(model, json.loads(data))
                     self._json(200, {"model_name": model, "outputs": [out]})
                 else:
@@ -378,7 +454,10 @@ def make_http_server(service: EmbeddingService, host: str, port: int):
     return _HTTPServer((host, port), _make_handler(service))
 
 
-def serve(model_dir: str, host: str = "0.0.0.0", port: int = 8501, **kwargs):
+def serve(model_dir: str, host: str = "0.0.0.0", port: int = 8501,
+          grpc_port: Optional[int] = None, **kwargs):
+    if grpc_port:
+        raise NotImplementedError(f"the KServe gRPC protocol is {NOT_PORTED}")
     service = EmbeddingService(model_dir, **kwargs)
     server = make_http_server(service, host, port)
     print(f"serving {model_dir} on {host}:{port} ({service.stats()['device']})")
@@ -396,13 +475,15 @@ def main():
     p.add_argument("--model_dir", required=True)
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8501)
+    p.add_argument("--grpc_port", type=int, default=None,
+                   help="the KServe gRPC protocol: not ported, refused")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     p.add_argument("--max_batch", type=int, default=16)
     p.add_argument("--f32", action="store_true",
                    help="disable bf16 inference (default: bf16 on)")
     args = p.parse_args()
-    serve(args.model_dir, args.host, args.port, device=args.device,
+    serve(args.model_dir, args.host, args.port, grpc_port=args.grpc_port, device=args.device,
           max_batch=args.max_batch, bf16=not args.f32)
 
 

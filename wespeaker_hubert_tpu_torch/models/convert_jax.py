@@ -71,6 +71,13 @@ Self-supervised training (ssl/): `dino_head_from_jax` maps flax's DINOHead
 centre or the queue and pointer, the optimizer's momentum or Adam moments)
 to the port's names, and `load_converted_state` puts one into the port's
 state objects.
+
+Diarization: `silero_state_from_jax` maps the JAX package's Silero parameter
+tree (`stft_basis`, `encoder_{i}/kernel|bias`, `lstm/weight_ih|...`,
+`out/kernel|bias`; diar/silero.py's `vad.npz` layout) to
+diar/silero.py:SileroVAD's state_dict (`stft_basis`, `encoder.{i}.weight`,
+`lstm.weight_ih_l0`, ..., `out.weight`): the layouts already agree, only
+the names change.
 """
 
 from __future__ import annotations
@@ -85,7 +92,7 @@ from .resnet import strided_size
 
 __all__ = ["from_jax_variables", "frontend_from_jax", "whisper_frontend_from_jax",
            "dino_head_from_jax", "dino_state_from_jax", "moco_state_from_jax",
-           "load_converted_state"]
+           "load_converted_state", "silero_state_from_jax"]
 
 # flax module names inside an ECAPA SE-Res2 block -> torch module paths
 _SE_RES2 = {"conv1": "0", "res2": "1", "conv2": "2", "se": "3"}
@@ -507,6 +514,21 @@ def dino_head_from_jax(params: Dict, stats: Optional[Dict] = None) -> Dict[str, 
     sd["last_layer.weight_v"] = v.T
     g = params.get("last_layer_g")
     sd["last_layer.weight_g"] = (_np(g) if g is not None else np.ones(v.shape[1]))[:, None]
+    return _as_torch(sd)
+
+
+def silero_state_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    """The Silero parameter tree -> diar/silero.py:SileroVAD's state_dict."""
+    sd = {"stft_basis": _np(params["stft_basis"])}
+    i = 0
+    while f"encoder_{i}" in params:
+        sd[f"encoder.{i}.weight"] = _np(params[f"encoder_{i}"]["kernel"])
+        sd[f"encoder.{i}.bias"] = _np(params[f"encoder_{i}"]["bias"])
+        i += 1
+    for k in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+        sd[f"lstm.{k}_l0"] = _np(params["lstm"][k])
+    sd["out.weight"] = _np(params["out"]["kernel"])
+    sd["out.bias"] = _np(params["out"]["bias"])
     return _as_torch(sd)
 
 
