@@ -81,7 +81,7 @@ Phases:
      TSTP, ArcMargin over 3 x 5,994 classes, batch 128 x 2 s, float32; the
      large-margin fine-tune at batch 64 x 6 s, margin 0.5, from the base
      run's averaged model), overriding only the paths and the run's length
-     (2 epochs of 4 steps; lm 1 epoch of 2 steps), on phase 12's data:
+     (2 epochs of 2 steps; lm 1 epoch of 2 steps), on phase 12's data:
      training, averaging, extraction (K1 on every stage-4 input against its
      plain version), scoring, export of the model directory and its
      torch.export program (stage 8), each twice; 16 stage-4 embeddings
@@ -99,8 +99,8 @@ Phases:
      20 heads of 64, layers 16-23 concatenated, ln_post2; the PMFA head,
      ArcMargin over 3 x 1,211 classes, SGD with Nesterov momentum, float32)
      with attn_impl flash, overriding only the paths, a seeded 32-block
-     OpenAI-layout checkpoint for stage 3 and the run's length (4 frozen
-     steps at batch 64 x 5 s, 6 joint steps at batch 16), on seeded
+     OpenAI-layout checkpoint for stage 3 and the run's length (3 frozen
+     steps at batch 64 x 5 s, 4 joint steps at batch 16), on seeded
      speech-like wavs: K2's float32 kernels launch 24 times per step and
      per extraction batch (asserted per stage); the frozen encoder stays
      bitwise as imported; 3 stage-5 embeddings (one past the 30 s cut)
@@ -133,7 +133,7 @@ Phases:
      stage-3 steps;
  20. ERes2Net34_Base and Res2Net34_Base at full width: one float32 step on
      the card against the CPU, eval embeddings through K1 against the CPU,
-     and 3 timed steps at 128 x 2 s; also REPVGG_TINY_A0 (with its
+     and 2 timed steps at 128 x 2 s; also REPVGG_TINY_A0 (with its
      deploy form from convert_repvgg_params against the training form),
      XVEC, XI_VEC_ECAPA_TDNN_c512, Gemini_DF_ResNet114 with its AdamW, and
      SimAM_ResNet34_ASP (resnet34.yaml with the model swapped: no config
@@ -166,7 +166,7 @@ Phases:
  25. MoCo and SimCLR: recipes.voxceleb_v3_contrastive stages 2-6 on
      examples/voxceleb/v3/{moco,simclr}/conf/ecapa_tdnn.yaml
      (ECAPA_TDNN_GLOB_c512, batch 128 x 2 views x 2 s, K 65,536), 2 epochs
-     of 4 steps each: MoCo's pointer and queue rows per step, K1 on every
+     of 2 steps each: MoCo's pointer and queue rows per step, K1 on every
      stage-4 input, embeddings and score files against the CPU, a step of
      each card against CPU (batch 4, the full queue), 3 profiled steps of
      each.
@@ -185,6 +185,24 @@ Phases:
      sequential diarize_pcm (energy VAD, then Silero); a 2,700 s
      conversation (>= 2,000 windows) through the spectral path on the card
      and on the host at its 4 speakers, eigh timed on both.
+
+ 27. the NIST SRE recipes at ResNet34's full width on 8 kHz audio with 64
+     mels (resnet34.yaml + dataset_args.resample_rate 8000): recipes.sre_v2
+     stages 1-7 (2 epochs of 2 steps of 128 x 200 frames; extraction of the
+     four sets, cosine, PLDA and adapted PLDA scores, the export and its
+     torch.export program), bin/infer_export on that program against
+     bin/extract (cosine >= 0.99999), bin/tools compute_feats, and
+     recipes.sre_v3 stages 1-2 and 4-8 (CTS key, energy-VAD system SAD,
+     voiced-duration filter, aug copies; the chain, the in-domain mean,
+     adaptation) on seeded speech-like wavs, K1 counted in each stage 4,
+     compute_feats and infer_export and held to its plain version on every
+     input there; then the float64 PLDA back end at the SRE16 /
+     CTS-superset size (1,817,280 x 256 training rows of 6,867 speakers,
+     2,272 in-domain rows, 1,200 models, 9,300 test segments, 2,000,000
+     trials) on seeded Gaussian embeddings, each step timed with its peak
+     memory and host share, adaptation lowering the EER on the shifted
+     set; and at a cut size (700 speakers, 60,900 rows, 200,000 trials) on
+     the card against the CPU.
 
 A kernel's bound is the least time the card could take for the work the
 function needs (for log-mel: an FFT and a sparse mel product; for
@@ -511,17 +529,20 @@ def phase_kernel_checks(report):
 
     # the served shapes, then the recipe's stage-4 extraction shapes (full
     # batches of 32 in EvalPipeline's 400- and 800-frame buckets), then 40
-    # mels, then ReDimNet's stage-4 shapes at its 72 mels
-    cases = [(16, 480000, 80), (16, 32000, 80), (1, 32240, 80), (32, 64240, 80),
-             (32, 128240, 80), (16, 32000, 40), (32, 64240, 72), (32, 128240, 72)]
+    # mels, then ReDimNet's stage-4 shapes at its 72 mels, then the SRE
+    # recipes' at 8 kHz (a 256-point FFT) and 64 mels; (b, w, mels, rate)
+    cases = [(16, 480000, 80, SR), (16, 32000, 80, SR), (1, 32240, 80, SR),
+             (32, 64240, 80, SR), (32, 128240, 80, SR), (16, 32000, 40, SR),
+             (32, 64240, 72, SR), (32, 128240, 72, SR), (32, 32120, SRE_MELS, SRE_SR),
+             (32, 64120, SRE_MELS, SRE_SR)]
     rows = []
-    for i, (b, w, m) in enumerate(cases):
-        cfg = FbankConfig(num_mel_bins=m, spectrum_impl="kernel")
+    for i, (b, w, m, sr) in enumerate(cases):
+        cfg = FbankConfig(num_mel_bins=m, sample_rate=sr, spectrum_impl="kernel")
         rng = np.random.default_rng(100 + i)
         wav = torch.from_numpy(
             (rng.standard_normal((b, w)) * 0.1).astype(np.float32)
         ).cuda()
-        fft_cfg = FbankConfig(num_mel_bins=m, spectrum_impl="fft")
+        fft_cfg = FbankConfig(num_mel_bins=m, sample_rate=sr, spectrum_impl="fft")
         got = fbank_kernel.fbank_kernel(wav, cfg)
         torch.cuda.synchronize()
         want = fbank_kernel.fbank_kernel_reference(wav, cfg)
@@ -545,7 +566,8 @@ def phase_kernel_checks(report):
         p_ms = cuda_median_ms(lambda: fbank_kernel.fbank_kernel_reference(wav, cfg))
         l_ms = cuda_median_ms(lambda: fbank(wav, fft_cfg))
         bound_ms, bound_by, flop, nbytes, dense_flop = fbank_bound(b, w, cfg)
-        row = dict(shape=[b, w], mels=m, max_abs_err=err, max_abs_err_vs_fft_path=fft_err,
+        row = dict(shape=[b, w], mels=m, sample_rate=sr, max_abs_err=err,
+                   max_abs_err_vs_fft_path=fft_err,
                    fft_path_off_plain=fft_off_n,
                    fft_path_max_abs_err=float((fft - want).abs().max()),
                    max_abs_err_vs_float64=vs64, ok=ok, ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound_ms,
@@ -553,7 +575,7 @@ def phase_kernel_checks(report):
                    earlier_dense_dft_gflop=dense_flop / 1e9, roofline_share=bound_ms / k_ms)
         rows.append(row)
         earlier = K1_DENSE_DFT_MS.get((b, w))
-        log(f"[K1] ({b}, {w}) mels={m}: max|err|={err:.3e} against the plain version, "
+        log(f"[K1] ({b}, {w}) mels={m} rate={sr}: max|err|={err:.3e} against the plain version, "
             f"{fft_err:.3e} against the rFFT path {'ok' if ok else 'FAIL'} (rtol 1e-4, "
             f"atol 2e-3; the rFFT path {row['fft_path_max_abs_err']:.3e} from the plain "
             f"version, {fft_off_n} elements past the bar, where K1 is not held to it; "
@@ -2365,10 +2387,10 @@ def grouped_profile(prof, wall_us, groups):
     }
 
 
-def speechlike(rng, seconds, f0):
+def speechlike(rng, seconds, f0, sr=SR):
     """Two harmonics of f0 under a syllable-rate envelope over a noise floor,
-    on the int16 grid."""
-    t = np.arange(int(seconds * SR)) / SR
+    on the int16 grid, at `sr`."""
+    t = np.arange(int(seconds * sr)) / sr
     env = np.clip(np.sin(2 * np.pi * rng.uniform(2, 6) * t + rng.uniform(0, 6)), 0, None)
     x = env * (0.1 * np.sin(2 * np.pi * f0 * t) + 0.05 * np.sin(4 * np.pi * f0 * t + 1.0))
     x = x + rng.uniform(0.005, 0.03) * rng.standard_normal(len(t))
@@ -2458,16 +2480,17 @@ class _StepTimer:
 
 class _K1Spy:
     """Wraps ops/fbank_kernel.fbank_kernel for a run: keeps a copy of every
-    input the run hands it, in order, and calls the wrapper unchanged, so
-    each launch counts as the run's.  The copies are the only change to the
-    run."""
+    input the run hands it, in order, with its config (`cfgs`), and calls
+    the wrapper unchanged, so each launch counts as the run's.  The copies
+    are the only change to the run."""
 
     def __init__(self, module):
-        self.module, self.fn, self.inputs = module, module.fbank_kernel, []
+        self.module, self.fn, self.inputs, self.cfgs = module, module.fbank_kernel, [], []
 
     def __enter__(self):
         def spy(wav, cfg):
             self.inputs.append(wav.clone())
+            self.cfgs.append(cfg)
             return self.fn(wav, cfg)
         self.module.fbank_kernel = spy
         return self
@@ -2965,7 +2988,7 @@ RESNET_CHECK_SEED = 20251021
 # the earlier paths, run fewer for the script's time (PERF.md section 4
 # lists the earlier, longer cuts)
 RECIPE_EPOCH_STEPS, RECIPE_LM_STEPS = 8, 4
-RESNET_STEPS, CAMPPLUS_STEPS = (4, 2), (8, 2)  # (steps an epoch, lm steps)
+RESNET_STEPS, CAMPPLUS_STEPS = (2, 2), (8, 2)  # (steps an epoch, lm steps)
 RESNET_CHECK_BATCH = 16
 # the exported program against the eager model: (B, T) feature shapes
 PROGRAM_SHAPES = ((16, 200), (3, 517))
@@ -3375,7 +3398,7 @@ ZOO_CONFIGS = {name: CONF / f"{name}.yaml"
                             "gemini_dfresnet_adam")}
 ZOO_SWAPPED = {"simam_resnet34": (CONF / "resnet34.yaml", "SimAM_ResNet34_ASP")}
 ZOO_CHECK_SEED = 20251023
-ZOO_TIMED_BATCH, ZOO_TIMED_STEPS = None, 3  # batch None: the config's; 2 s chunks
+ZOO_TIMED_BATCH, ZOO_TIMED_STEPS = None, 2  # batch None: the config's; 2 s chunks
 REDIMNET_CONFIG = CONF / "redimnet.yaml"
 GEMINI_CONFIG = CONF / "gemini_dfresnet_adam.yaml"
 GEMINI_LM_CONFIG = CONF / "gemini_dfresnet_sgd_lm.yaml"
@@ -3943,7 +3966,7 @@ def phase_wavlm_recipe(report, root):
 WHISPER_CONF = Path(__file__).resolve().parent / "examples/voxceleb/v1/Whisper-PMFA/conf"
 WHISPER_SPEAKERS = 1211  # VoxCeleb1 dev: the head has 3 x 1,211 classes
 WHISPER_TRAIN_SPEAKERS, WHISPER_PER_SPEAKER = 64, 4  # 256 utterances of 2-7.9 s
-WHISPER_STEPS = {3: 4, 4: 6}  # stage 3 at batch 64, stage 4 at batch 16
+WHISPER_STEPS = {3: 3, 4: 4}  # stage 3 at batch 64, stage 4 at batch 16
 WHISPER_SEED = 20251022
 WHISPER_CHECK_BATCH = 4
 WHISPER_CPU_UTTS = 3  # stage-5 utterances re-extracted on the CPU, one past 30 s
@@ -4430,7 +4453,7 @@ DINO_EMA_STEP = 1  # the step whose teacher EMA and centre are checked (lr > 0 f
 DINO_CHECK_BATCH = 2
 DINO_BENCH_MODEL = "ECAPA_TDNN_c512"  # bench.py's DINO_ECAPA_c512_train_step row
 SSL_TIMED_STEPS = 3
-CONTRASTIVE_STEPS = 4  # steps per epoch, 2 epochs
+CONTRASTIVE_STEPS = 2  # steps per epoch, 2 epochs
 CONTRASTIVE_CHECK_BATCH = 4
 CONTRASTIVE_SEED = 20251026
 CNCELEB_SPEAKERS = 2800  # CN-Celeb1 dev + CN-Celeb2: the head has 3 x 2,800 classes
@@ -4993,7 +5016,7 @@ def phase_contrastive_recipe(report, root):
     SimCLR with examples/voxceleb/v3/{moco,simclr}/conf/ecapa_tdnn.yaml as
     the port's reader parses them (ECAPA_TDNN_GLOB_c512, batch 128 x 2
     views x 200 frames, aug_prob 1.0, K 65,536, m 0.999, T 0.07, SGD 0.05),
-    overriding only the paths, num_epochs 2, epoch_iter 4,
+    overriding only the paths, num_epochs 2, epoch_iter CONTRASTIVE_STEPS,
     save_epoch_interval 1 and num_avg 2, on phase_recipe's data.  Stages
     2-3, then 4-6, each with K1's count set to 0 just before and read just
     after.  Checks: MoCo's pointer after each step is steps x 128 mod 65,536
@@ -5699,6 +5722,453 @@ def phase_score(report, root):
               f"score {name}: EERs {c['eer_mindcf']}")
         del emb, got
 
+
+SRE_CONFIG = RESNET_CONFIG  # ResNet34 (32 channels, TSTP, 256-d), SRE v2's extractor
+SRE_SEED = 20251028
+SRE_SR = 8000  # SRE's telephone speech
+SRE_MELS = 64
+# SRE v2's front end on resnet34.yaml: 8 kHz wavs, 64 mels (a 256-point FFT)
+SRE_FRONT = [f"dataset_args.resample_rate={SRE_SR}",
+             f"dataset_args.fbank_args.num_mel_bins={SRE_MELS}", f"model_args.feat_dim={SRE_MELS}"]
+SRE_TRAIN = (64, 4)  # swbd_sre speakers, utterances each: 2 batches of 128 an epoch
+SRE_EPOCH_STEPS = 2  # 2 epochs
+SRE_EXTRA = []  # more overrides, for a CPU rehearsal (batch size, width)
+SRE_CHAIN = "mean-subtract | length-norm | lda --dim 100 | length-norm"
+# (speakers, segments, copies, adaptation segments, models, test segments,
+# trials): the SRE16 / CTS-superset recipe's PLDA set (6,867 speakers,
+# 605,760 segments, x3 with the augmented copies), sre16 major (2,272),
+# enrollment (1,200 models of 1 or 3 segments) and test (9,300), 2 M trials;
+# and the cut size run on the card and on the CPU
+SRE_BACKEND = {"full": (6867, 605760, 3, 2272, 1200, 9300, 2_000_000),
+               "cut": (700, 20300, 3, 2272, 1200, 9300, 200_000)}
+SRE_DIM = 256
+SRE_NUISANCE = (24, 2.5)  # in-domain channel: directions, std
+SRE_WITHIN = 1.0
+
+
+def write_sre_data(data, cts):
+    """SRE v2's DATA directory and a CTS-superset root from seeded 8 kHz
+    audio (`speechlike`, a pitch per speaker): MUSAN / RIR stand-ins;
+    swbd_sre (SRE_TRAIN, 2.5-4.5 s) and sre (40 speakers x 4) with VAD
+    files; sre16_major (64 unlabeled); sre16_eval_enroll (20 models of 1-3
+    segments), sre16_eval_test (60 segments of those speakers) and their
+    1,200 labeled trials; the CTS key TSV with 40 segments of 6 s over 20
+    speakers.  Returns {set: audio seconds}."""
+    from wespeaker_hubert_tpu_torch.data.wav_io import write_wav
+
+    rng = np.random.default_rng(SRE_SEED)
+    sr = SRE_SR
+
+    def put(path, x):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        write_wav(str(path), x, sr)
+        return str(path)
+
+    scp = []
+    for kind, n in (("noise", 3), ("music", 2), ("speech", 2)):
+        for i in range(n):
+            x = (rng.uniform(0.05, 0.2) * rng.standard_normal(6 * sr)).astype(np.float32)
+            scp.append(f"{kind}-{i} {put(f'{data}/musan/{kind}-{i}.wav', x)}")
+    Path(f"{data}/musan/wav.scp").write_text("\n".join(scp) + "\n")
+    scp = []
+    for i in range(4):
+        n = int(0.25 * sr)
+        x = rng.standard_normal(n) * np.exp(-np.arange(n) / rng.uniform(200, 800)) * 0.3
+        x[0] = 1.0
+        scp.append(f"rir-{i} {put(f'{data}/rirs/rir-{i}.wav', x.astype(np.float32))}")
+    Path(f"{data}/rirs/wav.scp").write_text("\n".join(scp) + "\n")
+    f0s = rng.uniform(90, 280, 200)
+    seconds = {}
+    eval_spk = rng.integers(0, 20, 60)
+    # {set: [(speaker (its pitch), utterances, label)]}; enrollment labels
+    # are the trial file's model ids
+    layout = {"swbd_sre": [(s, SRE_TRAIN[1], f"spk{s}") for s in range(SRE_TRAIN[0])],
+              "sre": [(100 + s, 4, f"spk{100 + s}") for s in range(40)],
+              "sre16_major": [(140 + s % 32, 1, None) for s in range(64)],
+              "sre16_eval_enroll": [(180 + m, 1 + m % 3, f"m{m}") for m in range(20)],
+              "sre16_eval_test": [(180 + int(m), 1, None) for m in eval_spk]}
+    for dset, speakers in layout.items():
+        scp, u2s, vad, total = [], [], [], 0.0
+        for j, (s, count, label) in enumerate(speakers):
+            for k in range(count):
+                d = float(rng.uniform(2.5, 4.5))
+                x = speechlike(rng, d, f0s[s], sr)
+                total += len(x) / sr
+                utt = f"{dset}-{j:03d}-{k}"
+                scp.append(f"{utt} {put(f'{data}/{dset}/wav/{utt}.wav', x)}")
+                u2s.append(f"{utt} {label}")
+                vad.append(f"{utt}-0000 {utt} 0.100 {d - 0.1:.3f}")
+        Path(f"{data}/{dset}/wav.scp").write_text("\n".join(scp) + "\n")
+        if dset in ("swbd_sre", "sre", "sre16_eval_enroll"):
+            Path(f"{data}/{dset}/utt2spk").write_text("\n".join(u2s) + "\n")
+        if dset in ("swbd_sre", "sre"):
+            Path(f"{data}/{dset}/vad").write_text("\n".join(vad) + "\n")
+        seconds[dset] = total
+    tests = [ln.split()[0] for ln in Path(f"{data}/sre16_eval_test/wav.scp").read_text().split("\n")
+             if ln]
+    Path(f"{data}/trials").write_text("".join(
+        f"m{m} {t} {'target' if m == s else 'nontarget'}\n"
+        for m in range(20) for t, s in zip(tests, eval_spk)))
+    rows = ["segmentid\tsubjectid\tspeakerid"]
+    for j in range(40):
+        s = 64 + j % 20  # pitches no other set uses
+        seg = f"cts-{j:03d}"
+        put(f"{cts}/data/{seg}.wav", speechlike(rng, 6.0, f0s[s], sr))
+        rows.append(f"{seg}.sph\t{s}\tcts{s}")
+    os.makedirs(f"{cts}/docs", exist_ok=True)
+    Path(f"{cts}/docs/cts_superset_segment_key.tsv").write_text("\n".join(rows) + "\n")
+    seconds["cts"] = 40 * 6.0
+    return seconds
+
+
+def _step_line(st):
+    """'1.234 s, peak 5.67 GB, host share 0.123' of a timed back-end step
+    (the seconds alone on the CPU)."""
+    if isinstance(st["peak_gb"], str):  # a CPU run
+        return f"{st['s']:.3f} s"
+    return f"{st['s']:.3f} s, peak {st['peak_gb']:.2f} GB, host share {st['host_share']:.3f}"
+
+
+def sre_backend_data(size, seed, device):
+    """Seeded Gaussian embeddings at SRE_BACKEND[size], made on `device`:
+    speaker centres with a decaying spectrum, segments a centre plus noise
+    (SRE_WITHIN), each copied 3 times with small noise (the augmented
+    copies); the in-domain sets (adaptation, enrollment, test) from other
+    speakers, shifted in mean and with a nuisance of SRE_NUISANCE[1] in
+    SRE_NUISANCE[0] random directions (the channel BUT adaptation is for).
+    Trials: every test segment against its own model, the rest random
+    pairs.  All float32 but the labels."""
+    n_spk, n_seg, copies, n_adapt, n_models, n_test, n_trials = SRE_BACKEND[size]
+    g = torch.Generator(device).manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device=device)
+
+    def ints(hi, n):
+        return torch.randint(0, hi, (n,), generator=g, device=device)
+
+    d = SRE_DIM
+    scale = torch.exp(-torch.arange(d, device=device) / 60.0) + 0.15
+    nuis, _ = torch.linalg.qr(r(d, SRE_NUISANCE[0]))
+    shift = r(d) * (8.0 / math.sqrt(d)) * 0.6
+
+    def in_domain(x):
+        return x + shift + (SRE_NUISANCE[1] * r(len(x), SRE_NUISANCE[0])) @ nuis.T
+
+    centres = r(n_spk, d) * scale
+    seg_spk = torch.cat([torch.arange(n_spk, device=device), ints(n_spk, n_seg - n_spk)])
+    seg = centres[seg_spk] + SRE_WITHIN * r(n_seg, d)
+    train = torch.cat([seg + 0.25 * r(n_seg, d) for _ in range(copies)])
+    del seg
+    adapt_centres = r(n_adapt, d) * scale
+    adapt = in_domain(adapt_centres[ints(n_adapt, n_adapt)] + SRE_WITHIN * r(n_adapt, d))
+    model_centres = r(n_models, d) * scale
+    sessions = 1 + 2 * ints(2, n_models)
+    e_model = torch.repeat_interleave(torch.arange(n_models, device=device), sessions)
+    enroll = in_domain(model_centres[e_model] + SRE_WITHIN * r(len(e_model), d))
+    t_spk = ints(n_models, n_test)
+    test = in_domain(model_centres[t_spk] + SRE_WITHIN * r(n_test, d))
+    e_idx = torch.cat([t_spk, ints(n_models, n_trials - n_test)])
+    t_idx = torch.cat([torch.arange(n_test, device=device), ints(n_test, n_trials - n_test)])
+    return {"train": train, "labels": seg_spk.repeat(copies), "adapt": adapt, "enroll": enroll,
+            "e_model": e_model, "test": test, "e_idx": e_idx, "t_idx": t_idx,
+            "target": (t_spk[t_idx] == e_idx)}
+
+
+def sre_backend(data, device, timed):
+    """The SRE v3 back end on `data` (sre_backend_data) on `device`, each
+    step through `timed(name, fn)`: fit SRE_CHAIN on the training rows
+    (speakers through an utt2spk over their keys), apply it, PLDA accumulate / 5 EM iterations / finalize, adaptation on
+    the chain-processed in-domain rows, then enrollment and test through the
+    chain and TwoCovPLDA.score_trials over the trial keys, before and after
+    adaptation.  Returns {"psi", "scores", "adapted_scores", "adapt_info",
+    "eer", "adapted_eer"} (EERs in percent, scores float64 on the host)."""
+    from wespeaker_hubert_tpu_torch.backend.metrics import eer_from_scores
+    from wespeaker_hubert_tpu_torch.backend.plda import TwoCovPLDA
+    from wespeaker_hubert_tpu_torch.backend.processing import EmbeddingProcessingChain
+
+    def on(x):
+        return x.to(device)
+
+    labels = on(data["labels"])
+    # utterance and speaker keys, as an embedding set and its utt2spk give
+    # them (set-up, not timed)
+    keys = [f"u{i:07d}" for i in range(len(labels))]
+    utt2spk = dict(zip(keys, (f"s{v:05d}" for v in data["labels"].tolist())))
+    chain = timed("chain fit", lambda: EmbeddingProcessingChain(device=device).fit(
+        SRE_CHAIN, on(data["train"]), utt2spk=utt2spk, keys=keys))
+    x = timed("chain apply (train)", lambda: chain(on(data["train"])))
+    plda = TwoCovPLDA(x.shape[1], normalize_length=True, device=device)
+    timed("accumulate", lambda: plda.accumulate_rows(x, labels))
+    del x
+
+    def em():
+        for _ in range(5):
+            plda.em_one_iter()
+    timed("EM (5 iterations)", em)
+    timed("finalize", plda.finalize)
+    adapted = timed("adapt", lambda: plda.adapt(chain(on(data["adapt"]))))
+    # trial keys, as a trial file gives them (set-up, not timed)
+    e_model = data["e_model"].cpu().numpy()
+    m_keys = np.asarray([f"m{i:05d}" for i in range(int(e_model.max()) + 1)])
+    t_keys = np.asarray([f"t{i:05d}" for i in range(len(data["test"]))])
+    trials = list(zip(m_keys[data["e_idx"].cpu().numpy()].tolist(),
+                      t_keys[data["t_idx"].cpu().numpy()].tolist()))
+    target = data["target"].cpu().numpy().astype(np.int64)
+    out = {"psi": plda.psi.cpu().numpy(), "adapt_info": adapted.adapt_info}
+    for tag, model in (("scores", plda), ("adapted_scores", adapted)):
+        def score(model=model):
+            e = chain(on(data["enroll"])).cpu().numpy()
+            t = chain(on(data["test"])).cpu().numpy()
+            order = np.argsort(e_model, kind="stable")
+            bounds = np.searchsorted(e_model[order], np.arange(len(m_keys) + 1))
+            enroll = {m_keys[i]: e[order[bounds[i]:bounds[i + 1]]] for i in range(len(m_keys))}
+            return model.score_trials(enroll, dict(zip(t_keys.tolist(), t)), trials,
+                                      multisession_avg=False)
+        out[tag] = timed(f"transform + score {len(trials):,} trials"
+                         + (" (adapted)" if tag != "scores" else ""), score)
+    out["eer"] = 100 * eer_from_scores(out["scores"], target)[0]
+    out["adapted_eer"] = 100 * eer_from_scores(out["adapted_scores"], target)[0]
+    return out
+
+
+def phase_sre(report, root):
+    """The NIST SRE recipes on the card.
+    Part 1: recipes.sre_v2 stages 1-7 on resnet34.yaml (ResNet34, 32
+    channels, TSTP, 256-d, batch 128 x 200 frames, float32) at 8 kHz with
+    64 mels (SRE_FRONT), overriding only the paths and the run's length (2
+    epochs of 2 steps), on write_sre_data's corpus; then bin/infer_export on
+    the stage-7 program against bin/extract on one wav, bin/tools
+    compute_feats (16 kHz, its signature's rate) on 8 wavs, and
+    recipes.sre_v3 stages 1-2 (CTS key, energy-VAD system SAD at 8 kHz,
+    voiced-duration filter, aug copies) and 4-8 on the same config and data
+    (stage 3 skipped: v2's checkpoints are in the same exp_dir).  K1 is
+    counted in each stage 4, compute_feats and infer_export (zeroed just
+    before, read just after) and held to its plain version on every input
+    it was given there.  Part 2: the back end (sre_backend) at the SRE16 /
+    CTS-superset size on seeded Gaussian embeddings, each step timed with
+    its peak memory and host share, and at the cut size on the card and on
+    the CPU: scores within 1e-6, psi within 1e-9 relative, EERs within 0.01
+    pp."""
+    import contextlib
+    import io
+
+    from wespeaker_hubert_tpu_torch.bin import infer_export, tools
+    from wespeaker_hubert_tpu_torch.bin import train as bin_train
+    from wespeaker_hubert_tpu_torch.bin.extract import extract
+    from wespeaker_hubert_tpu_torch.data.wav_io import write_wav
+    from wespeaker_hubert_tpu_torch.ops import fbank_kernel
+    from wespeaker_hubert_tpu_torch.ops.signal import mel_banks
+    from wespeaker_hubert_tpu_torch.recipes import sre_v2, sre_v3
+    from wespeaker_hubert_tpu_torch.utils.config import apply_overrides, load_config
+
+    out = report["sre"] = {}
+    t_phase = time.perf_counter()
+    data, cts, exp = (os.path.join(root, n) for n in ("data", "cts", "exp"))
+    out["audio_s"] = write_sre_data(data, cts)
+    banks = mel_banks(SRE_MELS, 256, float(SRE_SR))
+    out["empty_mel_filters"] = int((np.count_nonzero(banks, axis=0) == 0).sum())
+    check(banks.shape == (129, SRE_MELS) and out["empty_mel_filters"] == 0,
+          f"sre: {out['empty_mel_filters']} empty mel filters at 8 kHz / 256-point FFT")
+    overrides = ([f"exp_dir={exp}", f"train_data={data}/swbd_sre/shard.list",
+                  f"train_label={data}/swbd_sre/utt2spk",
+                  f"dataset_args.reverb_data={data}/rirs_aug_store",
+                  f"dataset_args.noise_data={data}/musan_aug_store",
+                  "num_epochs=2", f"epoch_iter={SRE_EPOCH_STEPS}", "save_epoch_interval=1",
+                  "num_avg=2"] + SRE_FRONT + SRE_EXTRA)
+    config = apply_overrides(load_config(str(SRE_CONFIG)), overrides)
+    trials = os.path.join(data, "trials")
+    v2_args = ["--config", str(SRE_CONFIG), "--data_root", data, "--trials", trials,
+               "--out_dir", os.path.join(root, "v2_scores"), "--device", DEVICE] + overrides
+    k1_in, runs = [], {}
+
+    def run(tag, fn):
+        """fn() with K1's count zeroed just before and read just after, and
+        its inputs kept; printed lines captured."""
+        _zero_k1()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with _K1Spy(fbank_kernel) as spy, contextlib.redirect_stdout(buf):
+            res = fn()
+        runs[tag] = {"s": time.perf_counter() - t0, "k1": _k1_launches(),
+                     "printed": [ln for ln in buf.getvalue().splitlines() if "EER " in ln]}
+        k1_in.extend((tag, w, c) for w, c in zip(spy.inputs, spy.cfgs))
+        log(f"[sre {tag}] {runs[tag]['s']:.1f} s, K1 launches {runs[tag]['k1']}"
+            + "".join(f"; {ln.strip()}" for ln in runs[tag]["printed"]))
+        return res
+
+    def v2(a, b):
+        return sre_v2.main(["--stage", str(a), "--stop_stage", str(b)] + v2_args)
+
+    step_timer, make = _StepTimer(), bin_train.make_train_step
+    bin_train.make_train_step = step_timer(make)
+    try:
+        run("v2 stages 1-3", lambda: v2(1, 3))
+    finally:
+        bin_train.make_train_step = make
+    steps_ms = [1e3 * s for _, s in step_timer.calls]
+    out["train_step_ms"] = steps_ms
+    log(f"[sre] stage 3: {len(steps_ms)} steps of {config['model']} at "
+        f"{config['dataloader_args']['batch_size']} x {config['dataset_args']['num_frms']} "
+        f"frames, 8 kHz, {SRE_MELS} mels: " + ", ".join(f"{v:.2f}" for v in steps_ms)
+        + f" ms (median of the steps after the first "
+        f"{statistics.median(steps_ms[1:] or steps_ms):.2f} ms)")
+    run("v2 stage 4", lambda: v2(4, 4))
+    run("v2 stages 5-7", lambda: v2(5, 7))
+    exported = os.path.join(exp, "exported")
+    check(sorted(os.listdir(exported)) == ["avg_model.pt", "config.json", "model.pt2"],
+          f"sre: stage 7 wrote {sorted(os.listdir(exported))}")
+    # infer_export against bin/extract on one wav of exactly one extraction
+    # bucket (200 frames): bin/extract pads nothing, both see the same frames
+    one = os.path.join(root, "one.wav")
+    write_wav(one, speechlike(np.random.default_rng(SRE_SEED + 1), 16120 / SRE_SR + 1e-6,
+                              170.0, SRE_SR)[:16120], SRE_SR)
+    Path(root, "one.list").write_text(json.dumps({"key": "one", "wav": one, "spk": "x"}) + "\n")
+    _, want = extract(config, os.path.join(root, "one.list"), os.path.join(exp, "avg_model.pt"),
+                      None, device=DEVICE)
+    got = run("infer_export", lambda: infer_export.infer(
+        os.path.join(exported, "model.pt2"),
+        infer_export.compute_fbank(one, num_mel_bins=SRE_MELS, device=DEVICE), device=DEVICE))
+    out["infer_export_cosine"] = float(cosine(got[0], want[0]))
+    # compute_feats, 16 kHz as its signature fixes
+    rng = np.random.default_rng(SRE_SEED + 2)
+    scp = []
+    for i in range(8):
+        path = os.path.join(root, "feats", f"u{i}.wav")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        write_wav(path, speechlike(rng, float(rng.uniform(1.5, 6.0)), rng.uniform(90, 280)))
+        scp.append(f"u{i} {path}")
+    Path(root, "feats", "wav.scp").write_text("\n".join(scp) + "\n")
+    n_feats = run("compute_feats", lambda: tools.compute_feats(
+        os.path.join(root, "feats", "wav.scp"), os.path.join(root, "feats", "feats.ark"),
+        os.path.join(root, "feats", "feats.scp"), device=DEVICE))
+    emb = os.path.join(exp, "embeddings")
+    v3_args = ["--config", str(SRE_CONFIG), "--data_root", data, "--cts_dir", cts,
+               "--exp_dir", os.path.join(root, "v3"),
+               "--eval_sets", "sre16_major,sre16_eval_enroll,sre16_eval_test",
+               "--enroll_emb", os.path.join(emb, "sre16_eval_enroll.npz"),
+               "--enroll_utt2spk", os.path.join(data, "sre16_eval_enroll", "utt2spk"),
+               "--test_emb", os.path.join(emb, "sre16_eval_test.npz"), "--trials", trials,
+               "--indomain_emb", os.path.join(emb, "sre16_major.npz"),
+               "--device", DEVICE] + overrides
+    run("v3 stages 1-2", lambda: sre_v3.main(["--stage", "1", "--stop_stage", "2"] + v3_args))
+    run("v3 stage 4", lambda: sre_v3.main(["--stage", "4", "--stop_stage", "4"] + v3_args))
+    run("v3 stages 5-8", lambda: sre_v3.main(["--stage", "5", "--stop_stage", "8"] + v3_args))
+    out["runs"] = runs
+    out["cts_kept"] = len(Path(data, "cts", "wav.scp").read_text().splitlines())
+    out["vad_segments"] = len(Path(data, "cts", "vad").read_text().splitlines())
+    eers = {ln.split(":")[0]: float(ln.split("EER ")[1].split("%")[0])
+            for r in runs.values() for ln in r["printed"]}
+    out["eers_random_weights"] = eers
+    k1 = {t: runs[t]["k1"] for t in ("v2 stage 4", "v3 stage 4", "compute_feats", "infer_export")}
+    out["k1_launches"] = k1
+    if DEVICE == "cuda":
+        rows = k1_on_inputs([(w, c) for _, w, c in k1_in])
+        out["k1_checks"] = rows
+        off = sum(r["off_bar"] for r in rows)
+        log(f"[sre] K1 on all {len(k1_in)} inputs of the SRE paths against its plain version "
+            f"(8 kHz 64 mels and compute_feats' 16 kHz 80 mels; {FBANK_TOL}): {off} elements "
+            "past the bar; " + "; ".join(
+                f"{tuple(r['shape'])} x{r['batches']} max {r['max_abs_err']:.2e}" for r in rows))
+        check(off == 0 and all(r["finite"] for r in rows), f"sre: K1 off its bar {rows}")
+        check(all(v > 0 for v in k1.values()) and k1["compute_feats"] == n_feats == 8
+              and k1["infer_export"] == 1, f"sre: K1 launches {k1}")
+        check(all(runs[t]["k1"] == 0 for t in ("v2 stages 1-3", "v2 stages 5-7",
+                                               "v3 stages 1-2", "v3 stages 5-8")),
+              f"sre: K1 launched outside the stage 4s {runs}")
+    log(f"[sre] front end {out['empty_mel_filters']} empty mel filters (64 mels, 256-point FFT, "
+        f"8 kHz); CTS {out['cts_kept']} of 40 kept by the voiced-duration filter "
+        f"({out['vad_segments']} SAD segments); infer_export vs bin/extract cosine "
+        f"{out['infer_export_cosine']:.7f}; EERs (random weights, 4 steps) {eers}")
+    check(out["infer_export_cosine"] >= COS_MIN["f32"],
+          f"sre: infer_export vs bin/extract cosine {out['infer_export_cosine']}")
+    want_eers = {"cosine", "plda", "plda_adapt", "plda_ctsmean.score",
+                 "plda_indomainmean.score", "plda_adapt.score"}
+    check(set(eers) == want_eers and all(0 <= v <= 100 for v in eers.values()),
+          f"sre: EER lines {eers}")
+    check(out["cts_kept"] == 40, f"sre: the voiced-duration filter kept {out['cts_kept']}")
+    out["part1_s"] = time.perf_counter() - t_phase
+
+    # Part 2: the back end at full size on the card, then the cut size on the
+    # card and on the CPU
+    def timer(steps, device):
+        def timed(name, fn):
+            dev = torch.device(device)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) \
+                        as prof:
+                    t0 = time.perf_counter()
+                    res = fn()
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                busy, n = device_busy_us(prof)
+                steps[name] = {"s": wall, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                               "device_busy_s": busy / 1e6, "kernels": n,
+                               "host_share": 1.0 - busy / 1e6 / wall}
+            else:
+                t0 = time.perf_counter()
+                res = fn()
+                steps[name] = {"s": time.perf_counter() - t0, "peak_gb": "not measured",
+                               "host_share": "not measured"}
+            return res
+        return timed
+
+    back = out["backend"] = {}
+    full_steps = {}
+    if DEVICE == "cuda":
+        empty_cache()
+    t0 = time.perf_counter()
+    full_data = sre_backend_data("full", SRE_SEED + 3, DEVICE)
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    back["full_data_s"] = time.perf_counter() - t0
+    full = sre_backend(full_data, DEVICE, timer(full_steps, DEVICE))
+    del full_data
+    back["full"] = {"size": dict(zip(("speakers", "segments", "copies", "adapt", "models",
+                                      "test", "trials"), SRE_BACKEND["full"])),
+                    "steps": full_steps, "eer": full["eer"], "adapted_eer": full["adapted_eer"],
+                    "adapt_info": full["adapt_info"]}
+    log(f"[sre backend full] {SRE_BACKEND['full']} (speakers, segments, copies, adaptation, "
+        f"models, test, trials), data made on the {DEVICE} in {back['full_data_s']:.2f} s; "
+        + "; ".join(f"{k} {_step_line(v)}" for k, v in full_steps.items()))
+    log(f"[sre backend full] EER {full['eer']:.3f}% -> {full['adapted_eer']:.3f}% adapted; "
+        f"adaptation {full['adapt_info']}")
+    check(full["adapted_eer"] < full["eer"] and all(0 < e < 50 for e in (full["eer"],
+                                                                      full["adapted_eer"])),
+          f"sre backend full: EER {full['eer']} -> {full['adapted_eer']}")
+    cut = {}
+    for dev in (DEVICE, "cpu"):
+        steps = {}
+        cut[dev] = sre_backend(sre_backend_data("cut", SRE_SEED + 4, "cpu"), dev,
+                               timer(steps, dev))
+        cut[dev]["steps"] = steps
+    a, b = cut[DEVICE], cut["cpu"]
+    errs = {"scores": float(np.abs(a["scores"] - b["scores"]).max()),
+            "adapted_scores": float(np.abs(a["adapted_scores"] - b["adapted_scores"]).max()),
+            "psi_rel": float(np.linalg.norm(a["psi"] - b["psi"]) / np.linalg.norm(b["psi"])),
+            "eer_pp": abs(a["eer"] - b["eer"]), "adapted_eer_pp": abs(a["adapted_eer"]
+                                                                      - b["adapted_eer"])}
+    back["cut"] = {"size": SRE_BACKEND["cut"], "card_vs_cpu": errs, **{
+        dev: {k: v for k, v in r.items() if k in ("steps", "eer", "adapted_eer", "adapt_info")}
+        for dev, r in cut.items()}}
+    for dev, r in cut.items():
+        log(f"[sre backend cut {dev}] EER {r['eer']:.3f}% -> {r['adapted_eer']:.3f}%; adaptation "
+            f"{r['adapt_info']}; " + "; ".join(f"{k} {_step_line(v)}"
+                                               for k, v in r["steps"].items()))
+    log(f"[sre backend cut] card vs CPU {errs} (bars: scores 1e-6, psi 1e-9 relative, EER "
+        "0.01 pp)")
+    check(errs["scores"] <= 1e-6 and errs["adapted_scores"] <= 1e-6 and errs["psi_rel"] <= 1e-9
+          and errs["eer_pp"] <= 0.01 and errs["adapted_eer_pp"] <= 0.01,
+          f"sre backend cut: card vs CPU {errs}")
+    check(a["adapt_info"]["n_above_1"] == b["adapt_info"]["n_above_1"],
+          f"sre backend cut: adaptation {a['adapt_info']} vs {b['adapt_info']}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[sre] phase {out['wall_s']:.1f} s (part 1 {out['part1_s']:.1f} s)")
+    return k1
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs "
@@ -5776,6 +6246,8 @@ def main():
         timed("score", phase_score, report, score_dir)
     with tempfile.TemporaryDirectory() as diar_dir:
         diar_launches = timed("diarization", phase_diarization, report, diar_dir)
+    with tempfile.TemporaryDirectory() as sre_dir:
+        sre_launches = timed("sre", phase_sre, report, sre_dir)
     t0 = time.perf_counter()
     collect_deferred(failures)
     phase_s["waiting for the deferred checks"] = time.perf_counter() - t0
@@ -5799,7 +6271,7 @@ def main():
             or resnet_launches is None or whisper_launches is None or campplus_launches is None
             or wavlm_launches is None or redimnet_launches is None or gemini_launches is None
             or dino is None or cnceleb_launches is None or contrastive_launches is None
-            or diar_launches is None):
+            or diar_launches is None or sre_launches is None):
         for f in failures:
             print(f"chip_smoke FAILED {f}", file=sys.stderr)
         return 1
@@ -5827,6 +6299,12 @@ def main():
         "launches_diarization_scope": "voxconverse_v2 (spectral, density) and voxconverse_v1 "
                                       "(oracle, system SAD) over 4 conversations of 120-600 s; "
                                       "8 concurrent /diarize posts",
+        "launches_sre": sre_launches,
+        "launches_sre_scope": "recipes.sre_v2 and sre_v3 stage 4 (8 kHz, 64 mels), "
+                              "bin/tools compute_feats (8 utterances), bin/infer_export",
+        "at_sre_shapes": [{k: r[k] for k in ("shape", "mels", "sample_rate", "max_abs_err", "ms",
+                                             "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                          for r in report["fbank_checks"] if r["sample_rate"] == SRE_SR],
         "max_abs_err": max(r["max_abs_err"] for r in report["fbank_checks"]),
         "max_err": max(r["max_abs_err"] for r in report["fbank_checks"]),
         "ms": k1["ms"],

@@ -1038,3 +1038,60 @@ def test_spectral_device_matches_host_on_gpu(cuda):
     import scipy.linalg
 
     np.testing.assert_allclose(vals[:8], scipy.linalg.eigh(lap)[0][:8], rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_plda_on_gpu_matches_cpu(cuda):
+    """Two-covariance PLDA (float64) trained, scored with multisession
+    counts and adapted on the card against the same code on the CPU: psi
+    within 1e-9 relative, scores within 1e-6 absolute (cuSOLVER's and
+    LAPACK's eigenvectors may differ in sign; scores do not see it)."""
+    from wespeaker_hubert_tpu_torch.backend.plda import TwoCovPLDA
+
+    rng = np.random.default_rng(7)
+    centres = 2.0 * rng.standard_normal((200, 64))
+    labels = rng.integers(0, 200, 3000)
+    emb = (centres[labels] + rng.standard_normal((3000, 64))).astype(np.float32)
+    enroll = {f"m{i}": rng.standard_normal((1 + i % 3, 64)) for i in range(40)}
+    test = {f"t{i}": rng.standard_normal(64) for i in range(50)}
+    trials = [(e, t) for e in enroll for t in test]
+    adp = 1.3 * rng.standard_normal((500, 64)) + 0.2
+    out = {}
+    for dev in (cuda, "cpu"):
+        plda = TwoCovPLDA(64, normalize_length=True, device=dev).train_rows(emb, labels, 5)
+        adapted = plda.adapt(adp)
+        out[str(dev)] = (plda.psi.cpu().numpy(),
+                         plda.score_trials(enroll, test, trials, multisession_avg=False),
+                         adapted.score_trials(enroll, test, trials), adapted.adapt_info)
+    card, cpu = out[str(cuda)], out["cpu"]
+    assert np.linalg.norm(card[0] - cpu[0]) <= 1e-9 * np.linalg.norm(cpu[0])
+    np.testing.assert_allclose(card[1], cpu[1], rtol=0, atol=1e-6)
+    np.testing.assert_allclose(card[2], cpu[2], rtol=0, atol=1e-6)
+    assert card[3]["n_above_1"] == cpu[3]["n_above_1"]
+
+
+@pytest.mark.cuda
+def test_compute_feats_on_k1_matches_plain(cuda, tmp_path):
+    """bin/tools compute_feats on the card runs K1 (one launch per
+    utterance) and writes what the plain path writes on the CPU, within
+    K1's bar, with equal frame counts."""
+    from wespeaker_hubert_tpu_torch.backend.kaldi_io import read_kaldi_matrices
+    from wespeaker_hubert_tpu_torch.bin import tools
+    from wespeaker_hubert_tpu_torch.data.wav_io import write_wav
+
+    rng = np.random.default_rng(8)
+    rows = []
+    for i, n in enumerate((7000, 16000, 40321)):
+        write_wav(str(tmp_path / f"u{i}.wav"), (0.1 * rng.standard_normal(n)).astype(np.float32))
+        rows.append(f"u{i} {tmp_path / f'u{i}.wav'}")
+    (tmp_path / "wav.scp").write_text("\n".join(rows) + "\n")
+    launches = fbank_kernel.LAUNCHES
+    for dev in ("cuda", "cpu"):
+        tools.compute_feats(str(tmp_path / "wav.scp"), str(tmp_path / f"{dev}.ark"),
+                            str(tmp_path / f"{dev}.scp"), device=dev)
+    assert fbank_kernel.LAUNCHES == launches + 3
+    got = read_kaldi_matrices(str(tmp_path / "cuda.ark"))
+    want = read_kaldi_matrices(str(tmp_path / "cpu.ark"))
+    for (k, g), (kw, w) in zip(got, want):
+        assert k == kw and g.shape == w.shape
+        np.testing.assert_allclose(g, w, **FBANK_TOL)

@@ -68,10 +68,13 @@ def _module_names():
     "diar.rttm", "diar.subsegment", "diar.der", "diar.sad", "diar.silero", "diar.spectral",
     "diar.pahc", "diar.density", "cli.speaker", "cli.hub", "bin.serve",
     "recipes.voxconverse_v1", "recipes.voxconverse_v2",
+    "backend.plda", "backend.processing", "backend.kaldi_io", "bin.plda_bins",
+    "bin.train_plda", "bin.eval_plda", "bin.adapt_plda", "bin.embd_proc", "bin.compute_det",
+    "bin.datadir", "utils.file_utils", "bin.infer_export", "recipes.sre_v2", "recipes.sre_v3",
 ])
 def test_training_modules_are_checked(name):
-    """The training, recipe, interop, Whisper, model-zoo, SSL and diarization slices'
-    modules are among those the checks above and the no-JAX process below import."""
+    """The training, recipe, interop, Whisper, model-zoo, SSL, diarization and
+    back-end (PLDA, SRE) slices' modules are among those the checks above and the no-JAX process below import."""
     assert "wespeaker_hubert_tpu_torch." + name in set(_module_names())
     assert not FORBIDDEN.intersection(_imported_roots(PORT / (name.replace(".", "/") + ".py")))
 

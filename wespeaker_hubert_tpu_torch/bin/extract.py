@@ -68,12 +68,15 @@ def extract(
     dataset_args = config.get("dataset_args", {})
     # fbank_args nested (train-config style) or top-level
     fb = dataset_args.get("fbank_args", config.get("fbank_args", {}))
+    # the wavs' rate (SRE's telephone speech: 8000); the pipeline does not resample
+    sample_rate = dataset_args.get("resample_rate", 16000)
     feature_cfg = FeaturePipelineConfig(
         fbank=FbankConfig(
             num_mel_bins=fb.get("num_mel_bins", 80),
             frame_shift_ms=fb.get("frame_shift", 10),
             frame_length_ms=fb.get("frame_length", 25),
             dither=0.0,  # eval: no dither
+            sample_rate=sample_rate,
             spectrum_impl="kernel",  # the CUDA fbank kernel on a GPU
         ),
         spec_aug=False,
@@ -110,7 +113,8 @@ def extract(
     net.to(device).eval()
     embed_fn = make_eval_embed(net, feature_cfg=feature_cfg, compute_dtype=compute_dtype)
 
-    pipe = EvalPipeline(load_data_list(data_list), data_type=data_type, batch_size=batch_size)
+    pipe = EvalPipeline(load_data_list(data_list), data_type=data_type, batch_size=batch_size,
+                        sample_rate=sample_rate)
     frame_shift_s = fb.get("frame_shift", 10) / 1000.0
 
     # host decode and batching overlap device compute: a producer thread
@@ -142,7 +146,7 @@ def extract(
             x, length, unit = batch["feat"], batch["feat_length"], frame_shift_s
             names = ("feat", "feat_length")
         else:
-            x, length, unit = batch["wav"], batch["length"], 1.0 / 16000.0
+            x, length, unit = batch["wav"], batch["length"], 1.0 / sample_rate
             names = ("wav", "length")
         dev_batch = {
             names[0]: torch.from_numpy(x).to(device, non_blocking=True),

@@ -1,9 +1,11 @@
-"""Data-preparation tools of the speaker-verification recipe.
+"""Data-preparation tools.
 
-The subset of `wespeaker_hubert_tpu/bin/tools.py` that
-recipes/voxceleb_v2.py runs:
+Counterpart of `wespeaker_hubert_tpu/bin/tools.py`:
 
     python -m wespeaker_hubert_tpu_torch.bin.tools make_raw_list wav.scp utt2spk raw.list
+    python -m wespeaker_hubert_tpu_torch.bin.tools make_feat_list feats.scp utt2spk feat.list
+    python -m wespeaker_hubert_tpu_torch.bin.tools compute_feats wav.scp feats.ark feats.scp \
+        [--num_mel_bins 80] [--frame_shift 10] [--frame_length 25] [--device cuda|cpu]
     python -m wespeaker_hubert_tpu_torch.bin.tools make_shard_list wav.scp utt2spk \\
         shards/ shard.list [--num_utts_per_shard 1000] [--compress gz|zstd]
     python -m wespeaker_hubert_tpu_torch.bin.tools vector_mean emb.npz utt2spk out.npz
@@ -12,7 +14,8 @@ recipes/voxceleb_v2.py runs:
         utt2dur utt2spk trials [--each_trial_num 10000] [--seed 42]
     python -m wespeaker_hubert_tpu_torch.bin.tools build_aug_store wav.scp out_dir
 
-Raw lists are JSONL {key, wav, spk}; shards are tar archives of KEY.wav +
+Raw lists are JSONL {key, wav, spk}, feat lists {key, feat, spk} with
+`feat` a Kaldi matrix-ark rxspecifier 'file.ark:offset'; shards are tar archives of KEY.wav +
 KEY.spk members, plain, gzip or zstd; embedding sets are `.npz`
 (utils/embeddings.py).  The seeded draws (shard order, calibration trials)
 are the JAX package's, so the same inputs give the same files.
@@ -33,7 +36,9 @@ import numpy as np
 
 __all__ = [
     "make_raw_list",
+    "make_feat_list",
     "make_shard_list",
+    "compute_feats",
     "vector_mean",
     "wav2dur",
     "generate_calibration_trial",
@@ -74,6 +79,60 @@ def make_raw_list(wav_scp: str, utt2spk: str, out_list: str,
             f.write(json.dumps(obj) + "\n")
             n += 1
     return n
+
+
+def make_feat_list(feat_scp: str, utt2spk: str, out_list: str) -> int:
+    """feats.scp (utt -> 'file.ark:offset') + utt2spk -> a JSONL feat list
+    {key, feat, spk} for `data_type: feat`; returns the lines written."""
+    utt2feat = {u: p for u, p in (r[:2] for r in _read_table(feat_scp))}
+    utt2spk_map = {u: s for u, s in (r[:2] for r in _read_table(utt2spk))}
+    n = 0
+    with open(out_list, "w") as f:
+        for utt, feat in utt2feat.items():
+            if utt not in utt2spk_map:
+                continue
+            f.write(json.dumps({"key": utt, "feat": feat, "spk": utt2spk_map[utt]}) + "\n")
+            n += 1
+    return n
+
+
+def compute_feats(
+    wav_scp: str,
+    ark_path: str,
+    scp_path: str,
+    num_mel_bins: int = 80,
+    frame_shift: int = 10,
+    frame_length: int = 25,
+    device="cuda",
+) -> int:
+    """Offline fbank: wav.scp -> a Kaldi matrix ark + scp, through the
+    training fbank (ops/fbank.py) at 16 kHz, dither off: the CUDA fbank
+    kernel on the card, its plain version on the CPU.  One utterance at a
+    time, zero-padded to a power of two (at least 512 samples) as the JAX
+    package buckets it; the frames past the utterance are dropped."""
+    import torch
+
+    from ..backend.kaldi_io import write_kaldi_matrices
+    from ..data.wav_io import read_wav
+    from ..ops.fbank import FbankConfig, fbank
+    from ..utils.device import resolve_device
+
+    device = resolve_device(device)
+    cfg = FbankConfig(num_mel_bins=num_mel_bins, frame_shift_ms=frame_shift,
+                      frame_length_ms=frame_length, dither=0.0, spectrum_impl="kernel")
+    names, mats = [], []
+    for utt, path in (r[:2] for r in _read_table(wav_scp)):
+        wav, _sr = read_wav(path)
+        n = len(wav)
+        buf = np.zeros((max(1 << max(0, n - 1).bit_length(), 512),), np.float32)
+        buf[:n] = wav
+        x = torch.from_numpy(buf).to(device)[None]
+        with torch.inference_mode():
+            feats, t = fbank(x, cfg, lengths=torch.tensor([n], device=device))
+        names.append(utt)
+        mats.append(feats[0, :int(t[0])].cpu().numpy())
+    write_kaldi_matrices(ark_path, names, mats, scp_path)
+    return len(names)
 
 
 def _write_shard(args) -> str:
@@ -276,6 +335,20 @@ def main():
     s.add_argument("out_list")
     s.add_argument("--vad", default=None)
 
+    s = sub.add_parser("make_feat_list")
+    s.add_argument("feat_scp")
+    s.add_argument("utt2spk")
+    s.add_argument("out_list")
+
+    s = sub.add_parser("compute_feats")
+    s.add_argument("wav_scp")
+    s.add_argument("ark_path")
+    s.add_argument("scp_path")
+    s.add_argument("--num_mel_bins", type=int, default=80)
+    s.add_argument("--frame_shift", type=int, default=10)
+    s.add_argument("--frame_length", type=int, default=25)
+    s.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
     s = sub.add_parser("make_shard_list")
     s.add_argument("wav_scp")
     s.add_argument("utt2spk")
@@ -309,6 +382,11 @@ def main():
     args = p.parse_args()
     if args.cmd == "make_raw_list":
         print(make_raw_list(args.wav_scp, args.utt2spk, args.out_list, args.vad))
+    elif args.cmd == "make_feat_list":
+        print(make_feat_list(args.feat_scp, args.utt2spk, args.out_list))
+    elif args.cmd == "compute_feats":
+        print(compute_feats(args.wav_scp, args.ark_path, args.scp_path, args.num_mel_bins,
+                            args.frame_shift, args.frame_length, device=args.device))
     elif args.cmd == "make_shard_list":
         print(len(make_shard_list(args.wav_scp, args.utt2spk, args.shards_dir, args.out_list,
                                   args.num_utts_per_shard, args.num_workers,

@@ -89,6 +89,7 @@ def _feature_cfg(dataset_args: dict) -> FeaturePipelineConfig:
             frame_shift_ms=fb.get("frame_shift", 10),
             frame_length_ms=fb.get("frame_length", 25),
             dither=fb.get("dither", 1.0),
+            sample_rate=dataset_args.get("resample_rate", 16000),
         ),
         spec_aug=dataset_args.get("spec_aug", False),
         spec_aug_num_t_mask=sa.get("num_t_mask", 1),
@@ -158,6 +159,7 @@ def train(config: Union[str, dict], device="cuda", **overrides) -> TrainState:
     pipe_cfg = TrainPipelineConfig(
         data_type=data_type,
         num_frms=dataset_args.get("num_frms", 200),
+        sample_rate=dataset_args.get("resample_rate", 16000),
         shuffle=dataset_args.get("shuffle", True),
         shuffle_size=dataset_args.get("shuffle_args", {}).get("shuffle_size", 2500),
         filter_min_frames=filter_args.get("min_num_frames", 100),
