@@ -92,6 +92,8 @@ Phases:
      CPU;
  16. bin/score at VoxCeleb1-O's and VoxCeleb1-H's sizes on seeded
      embeddings (5,994-speaker cohort, top 300), card against CPU, timed;
+     run in the worker process beside the recipes (its work is the
+     host's), collected at the end;
  17. the Whisper-PMFA recipe: recipes.voxceleb_v1_whisper_pmfa stages 2-7
      on examples/voxceleb/v1/Whisper-PMFA/conf/whisper_pmfa_stage0.yaml and
      whisper_pmfa_stage1.yaml as the port's reader parses them
@@ -128,9 +130,10 @@ Phases:
      through stage 1, each stage from the previous average (stage 3's head
      fresh), 16 stage-3 embeddings through bin/extract (float32 on the card
      against the CPU, bf16 against the CPU's float32 at cosine 0.9998, bf16
-     with K2 against bf16 with plain attention), a bf16 stage-2 step against
-     the float32 step with a fault control for each bar, and 3 profiled
-     stage-3 steps;
+     with K2 against bf16 with plain attention at 0.99985), a bf16 stage-2
+     step against the float32 step, a fault control for each bar, and 3
+     profiled stage-3 steps (stage 3 on the C++ loader its num_workers 8
+     asks for);
  20. ERes2Net34_Base and Res2Net34_Base at full width: one float32 step on
      the card against the CPU, eval embeddings through K1 against the CPU,
      and 2 timed steps at 128 x 2 s; also REPVGG_TINY_A0 (with its
@@ -203,6 +206,26 @@ Phases:
      memory and host share, adaptation lowering the EER on the shifted
      set; and at a cut size (700 speakers, 60,900 rows, 200,000 trials) on
      the card against the CPU.
+ 28. the CN-Celeb v2 recipe: recipes.cnceleb_v2 stages 1-9 on
+     examples/cnceleb/v2/conf/resnet34.yaml (ResNet34 at full width,
+     ArcMargin over 3 x 2,800 classes, 128 x 2 s, stage 3 on the C++ loader
+     its num_workers 8 asks for) and, for stage 9, resnet_lm.yaml (64 x 6
+     s, margin 0.5), 2 epochs of 2 steps and 2 lm steps on phase 12's wavs
+     laid out as CN-Celeb (256 training utterances, the two trial lists):
+     K1 on every stage-4 input, the batches stage 3 trained on against the
+     C++ loader's own run, 16 embeddings through bin/extract on the CPU, and
+     the CPU driver's stages 5-7 on the card's embeddings (cosine, AS-Norm
+     and QMF files of both lists) against the card's;
+ 29. the host loader's cost: 6 steps of ecapa_tdnn.yaml at full width
+     (128 x 2 s, float32, loop_steps 1) through bin/train with num_workers 8
+     (the C++ loader) and 0 (TrainPipeline), step ms and the device's idle
+     share of each (the `[loader]` line);
+ 30. every training head and the multi-head poolings at ResNet34's full
+     width with CN-Celeb's head size: add_margin,
+     arc_margin_intertopk_subcenter, sphere, sphereface2 (its own loss) and
+     linear with TSTP, and MHASTP and MQMHASTP with arc_margin, one float32
+     step each at batch 8 x 2 s on the card against the CPU, then eval
+     embeddings through K1 and the head's logits card against CPU.
 
 A kernel's bound is the least time the card could take for the work the
 function needs (for log-mel: an FFT and a sparse mel product; for
@@ -452,16 +475,26 @@ def get(url):
 
 # --------------------------------------------------------------- phases
 def phase_build(report):
-    """The kernels' nvcc runs start together (one thread each)."""
+    """The kernels' nvcc runs and the C++ host loader's g++ run start
+    together (one thread each)."""
     from wespeaker_hubert_tpu_torch.ops import fbank_kernel
     from wespeaker_hubert_tpu_torch.ops import flash_attention as k2
     from wespeaker_hubert_tpu_torch.utils import cuda_build
 
+    from wespeaker_hubert_tpu_torch.data import native_loader
+
+    def host_loader():
+        t = time.perf_counter()
+        native_loader.build_native_library()
+        return time.perf_counter() - t
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:  # builds csrc/*.cu unless already built
+    with ThreadPoolExecutor(4) as pool:  # builds csrc/*.cu and the C++ loader unless built
+        loader = pool.submit(host_loader)
         for f in [pool.submit(fbank_kernel._library), pool.submit(k2._library),
                   pool.submit(k2._bwd_library)]:
             f.result()
+        loader_s = loader.result()
     report["build_s"] = {"wall": time.perf_counter() - t0}
     report["ptxas"] = {}
     for name, (secs, out) in cuda_build.BUILD_LOG.items():
@@ -500,9 +533,12 @@ def phase_build(report):
         for fn, c in counts.items():
             log(f"[build]   {name} SASS {_demangle(fn)}: "
                 + ", ".join(f"{k} {v}" for k, v in c.items()))
+    report["build_s"]["host loader (g++)"] = loader_s
     log(f"[build] {report['build_s']['wall']:.1f} s wall for "
         + ", ".join(f"{n} {t:.1f} s" for n, t in report["build_s"].items() if n != "wall")
-        + f" (nvcc {cuda_build.NVCC_FLAGS[1]}, in parallel)")
+        + f" (nvcc {cuda_build.NVCC_FLAGS[1]}, in parallel; the C++ host loader "
+        f"{native_loader.build_native_library().name}, zstd "
+        f"{native_loader.native_zstd_available()})")
     for name, lines in report["ptxas"].items():
         for line in lines:
             log(f"[build]   {name}: {line}")
@@ -2817,9 +2853,14 @@ def phase_recipe(report, root):
     # a few profiled steps of the same config (the recipe's averaged weights)
     out["profile"] = profile_recipe_steps(config, data, exp, "recipe profile")
     check(sorted(done) == list(range(1, 8)), f"recipe: stages {sorted(done)}")
-    check([n for n, _ in calls] == [8, 1, 1, 1, 1] * 2,
-          f"recipe: step calls {[n for n, _ in calls]}, want an 8-step call and, where the "
-          "12 batches of the epoch's data run out, a 4-step tail")
+    # the C++ loader (num_workers 8) assembles each shard's batches apart:
+    # 1,000 and 536 utterances make 7 + 4 batches of 128 an epoch
+    n_batches = native_epoch_batches(Path(data, "vox2_dev", "shard.list"), batch_size,
+                                     config["dataloader_args"]["num_workers"])
+    want = loop_calls(n_batches, 12, config["loop_steps"]) * 2
+    check([n for n, _ in calls] == want,
+          f"recipe: step calls {[n for n, _ in calls]}, want {want}: 8-step calls and, where "
+          f"the {n_batches} batches of the epoch's data run out, the tail's single steps")
     check(k1_train == 0, f"recipe: the dithered train step launched K1 {k1_train} times")
     check(k1_extract > 0, "recipe: stage 4 launched no K1")
     check(k1_matched and n_caught == k1_extract, "recipe: the spy's stage-4 inputs do not "
@@ -2840,11 +2881,11 @@ ECAPA_CHECK_BATCH = 32
 ECAPA_CHECK_CHUNK = 31920  # samples of 198 fbank frames: a 2 s chunk
 
 
-def _ecapa_check_batch(seed, n=None):
+def _ecapa_check_batch(seed, n=None, classes=3 * RECIPE_SPEAKERS):
     """A packed, speed-perturbed batch of n (ECAPA_CHECK_BATCH unless given)
     x 2 s (198 frames) for a recipe model: wav (n, speed_input_len), labels
-    over 17,982 classes, an eighth of the rows reverberated and an eighth
-    noised (host tensors)."""
+    over `classes` (17,982 unless given), an eighth of the rows reverberated
+    and an eighth noised (host tensors)."""
     from wespeaker_hubert_tpu_torch.ops.augment import speed_input_len
 
     rng = np.random.default_rng(seed)
@@ -2854,7 +2895,7 @@ def _ecapa_check_batch(seed, n=None):
     wav = np.stack([speechlike(rng, w / SR + 0.001, rng.uniform(90, 280))[:w] for _ in range(n)])
     rir = rng.standard_normal((rows_aug, 8000)) * np.exp(-np.arange(8000) / 800) * 0.3
     rir[:, 0] = 1.0
-    batch = {"wav": wav, "label": rng.integers(0, 3 * RECIPE_SPEAKERS, n).astype(np.int32),
+    batch = {"wav": wav, "label": rng.integers(0, classes, n).astype(np.int32),
              "speed_idx": rng.integers(0, 3, n).astype(np.int32),
              "rir": rir.astype(np.float32),
              "noise": (0.1 * rng.standard_normal((rows_aug, chunk))).astype(np.float32),
@@ -2873,11 +2914,12 @@ def config_optimizer(net, config):
                           weight_decay=args.get("weight_decay", 1e-4))
 
 
-def _ecapa_net(device, num_steps=1, config_path=None, seed=ECAPA_CHECK_SEED):
+def _ecapa_net(device, num_steps=1, config_path=None, seed=ECAPA_CHECK_SEED,
+               classes=3 * RECIPE_SPEAKERS):
     """A recipe config's model (the flagship ECAPA_TDNN_GLOB_c512 unless
-    `config_path` names another) + ArcMargin over 17,982 classes with seeded
-    weights and the config's optimizer, float32, dither 0 and SpecAug off,
-    on `device`."""
+    `config_path` names another config, or is one as a dict) + its head
+    over `classes` (17,982 unless given) with seeded weights and the
+    config's optimizer, float32, dither 0 and SpecAug off, on `device`."""
     from wespeaker_hubert_tpu_torch.bin.train import _feature_cfg
     from wespeaker_hubert_tpu_torch.models.speaker_net import build_speaker_net
     from wespeaker_hubert_tpu_torch.train.executor import make_train_step
@@ -2885,11 +2927,12 @@ def _ecapa_net(device, num_steps=1, config_path=None, seed=ECAPA_CHECK_SEED):
     from wespeaker_hubert_tpu_torch.train.state import TrainState
     from wespeaker_hubert_tpu_torch.utils.config import load_config
 
-    config = load_config(str(config_path or RECIPE_CONFIG))
+    config = (copy.deepcopy(config_path) if isinstance(config_path, dict)
+              else load_config(str(config_path or RECIPE_CONFIG)))
     config["dataset_args"]["fbank_args"]["dither"] = 0.0
     config["dataset_args"]["spec_aug"] = False
     torch.manual_seed(0)
-    net = build_speaker_net(config, 3 * RECIPE_SPEAKERS)
+    net = build_speaker_net(config, classes)
     # the whole SpeakerNet's names (backbone. and projection.), strictly
     net.load_state_dict(seeded_state_dict(net, seed))
     net.to(device)
@@ -3038,33 +3081,37 @@ def program_cosines(dirs, device, shapes):
     return out
 
 
-DEFERRED = []  # (phase, report entry, key, future) of the checks in worker processes
+DEFERRED = []  # (phase, report entry, key, future, program check) of the worker's work
 _WORKERS = []
 
 
-def defer_check(phase, entry, key, fn, *args):
+def defer_check(phase, entry, key, fn, *args, program=True):
     """Run fn(*args) in a spawned worker process beside the rest of the
-    script; main() waits for it, stores its result under entry[key] and
-    fails `phase` there if the bar is missed."""
+    script; main() waits for it and stores its result under entry[key].
+    A program check (`program`) fails `phase` there if a stage-8 program
+    misses its bar; any worker error fails it too."""
     if not _WORKERS:
         import multiprocessing
 
         from concurrent.futures import ProcessPoolExecutor
 
         _WORKERS.append(ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")))
-    DEFERRED.append((phase, entry, key, _WORKERS[0].submit(fn, *args)))
+    DEFERRED.append((phase, entry, key, _WORKERS[0].submit(fn, *args), program))
 
 
 def collect_deferred(failures):
-    """Wait for the deferred checks; a stage-8 program under COS_MIN's
-    float32 bar, or a worker's error, is its phase's failure."""
+    """Wait for the worker's work; a stage-8 program under COS_MIN's
+    float32 bar, or a worker's error (a phase's failed check included), is
+    its phase's failure."""
     try:
-        for phase, entry, key, future in DEFERRED:
+        for phase, entry, key, future, program in DEFERRED:
             try:
                 entry[key] = got = future.result(timeout=900)
             except Exception as e:  # noqa: BLE001 — reported as the phase's failure
                 traceback.print_exc()
                 failures.append(f"{phase} (deferred {key}): {type(e).__name__}: {e}")
+                continue
+            if not program:
                 continue
             log(f"[{phase}] stage-8 torch.export program on the card against the eager model "
                 "(a worker process): min cosine "
@@ -3311,11 +3358,12 @@ def beside_cpu(run):
     return out
 
 
-def step_vs_cpu(config_path, seed, tag):
-    """One float32 train step of a recipe config's model at full width
-    (ArcMargin over 17,982 classes; batch RESNET_CHECK_BATCH x 2 s, speed
-    perturbation, reverb and noise rows, dither 0, SpecAug off) on the card
-    against the same step on the CPU: loss within 1e-5 relative, every
+def step_vs_cpu(config_path, seed, tag, n=None, classes=3 * RECIPE_SPEAKERS, after=None):
+    """One float32 train step of a recipe config's model at full width (its
+    head over `classes`, 17,982 unless given; batch n, RESNET_CHECK_BATCH
+    unless given, x 2 s, speed perturbation, reverb and noise rows, dither
+    0, SpecAug off) on the card against the same step on the CPU: loss
+    within 1e-5 relative, every
     tensor's update by _update_agreement (cosine >= 0.9999, or within
     CONTROL_SLACK x the control's difference, the control the card on the
     wav times 1 + 2^-20, or at the noise floor).  The first BatchNorm
@@ -3324,18 +3372,24 @@ def step_vs_cpu(config_path, seed, tag):
     the control measures how far the step moves under an input change of
     that size, and the bar is relative to it.  With Adam or AdamW the
     parameters' first moments ((1 - b1) g after one step) stand in for
-    their updates.  Returns the report entry."""
+    their updates.  `after(net, device)`, given, runs on each side after
+    the step; its results are the entry's "after" {card, cpu, control}.
+    Returns the report entry."""
     from wespeaker_hubert_tpu_torch.utils.config import load_config
 
-    batch = _ecapa_check_batch(seed, RESNET_CHECK_BATCH)
-    adam = load_config(str(config_path)).get("optimizer", "SGD").upper() in ("ADAM", "ADAMW")
+    n = n or RESNET_CHECK_BATCH
+    batch = _ecapa_check_batch(seed, n, classes)
+    config = config_path if isinstance(config_path, dict) else load_config(str(config_path))
+    adam = config.get("optimizer", "SGD").upper() in ("ADAM", "ADAMW")
 
     def run(dev, scale):
-        net, state, step = _ecapa_net(dev, config_path=config_path, seed=seed)
+        net, state, step = _ecapa_net(dev, config_path=config_path, seed=seed, classes=classes)
         b = {k: v.to(dev) for k, v in batch.items()}
         t0 = time.perf_counter()
         got = {"step": _one_step(net, state, step, _perturbed(b) if scale else b, prefix="")}
         got["s"] = time.perf_counter() - t0
+        if after is not None:
+            got["after"] = after(net, dev)
         if adam:
             # Adam's first update is lr g / (|g| + eps), about lr sign(g): at
             # an element whose |g| lies within the rounding of the gradient
@@ -3349,9 +3403,10 @@ def step_vs_cpu(config_path, seed, tag):
         del net, state, step
         return got
 
-    res = {}
+    res, afters = {}, {}
     for kind, got in beside_cpu(run).items():
         res[kind], res[kind + "_s"] = got["step"], got["s"]
+        afters[kind] = got.get("after")
         if adam:
             res[kind + "_update"] = got["update"]
     empty_cache()
@@ -3369,9 +3424,11 @@ def step_vs_cpu(config_path, seed, tag):
         "compared": "first moments of the parameters (Adam)" if adam else "updates"}
     if adam:
         out["adam_updates_rel_l2"] = _rel_l2(res["card_update"], res["cpu_update"])
-    name = Path(config_path).stem
-    log(f"[{tag}] f32 {name} step at full width ({3 * RECIPE_SPEAKERS} classes, batch "
-        f"{RESNET_CHECK_BATCH} x 2 s), card vs CPU: loss {res['card'][0]:.6f} vs "
+    if after is not None:
+        out["after"] = afters
+    name = tag if isinstance(config_path, dict) else Path(config_path).stem
+    log(f"[{tag}] f32 {name} step at full width ({classes} classes, batch "
+        f"{n} x 2 s), card vs CPU: loss {res['card'][0]:.6f} vs "
         f"{res['cpu'][0]:.6f} (rel {loss_rel:.2e}, bar 1e-5); "
         + (f"Adam: the parameters' first moments compared (the updates' relative L2 "
            f"{out['adam_updates_rel_l2']:.2e}); " if adam else "")
@@ -3424,9 +3481,18 @@ def phase_redimnet_recipe(report, root):
     float32; no lm config, so no stage 9), by recipe_1_to_9 on
     phase_recipe's data (6 batches of 256 an epoch): K1 at 72 mels.
     Returns the K1 launches of stage 4."""
-    # 1,536 utterances make 6 batches of 256 a pass, fewer than loop_steps:
-    # each epoch's steps run as the single-step flushes of bin/train's tail
-    return recipe_1_to_9(report, root, "redimnet", REDIMNET_CONFIG, None, ([1] * 12,))
+    # the C++ loader makes 3 + 2 batches of 256 of the two shards' 1,000 and
+    # 536 utterances, fewer than loop_steps: each epoch's steps run as the
+    # single-step flushes of bin/train's tail
+    from wespeaker_hubert_tpu_torch.utils.config import load_config
+
+    config = load_config(str(REDIMNET_CONFIG))
+    shard_list = Path(root, "data", "vox2_dev", "shard.list")
+    check(shard_list.exists(), "redimnet: phase_recipe's shards are missing")
+    n = native_epoch_batches(shard_list, config["dataloader_args"]["batch_size"],
+                             config["dataloader_args"]["num_workers"])
+    return recipe_1_to_9(report, root, "redimnet", REDIMNET_CONFIG, None,
+                         (loop_calls(n, RECIPE_EPOCH_STEPS, config["loop_steps"]) * 2,))
 
 
 def phase_gemini_recipe(report, root):
@@ -3573,21 +3639,38 @@ WAVLM_EPOCH_STEPS = 2
 WAVLM_STAGE_STEPS = {1: 3 * WAVLM_EPOCH_STEPS, 2: 2 * WAVLM_EPOCH_STEPS, 3: WAVLM_EPOCH_STEPS}
 WAVLM_CPU_UTTS = 16  # stage-3 embeddings re-extracted in float32 on the CPU
 WAVLM_EXTRA = []  # more overrides, for a CPU rehearsal (the upstream, batch sizes)
-# 16 bf16 stage-3 embeddings against float32 bin/extract on the CPU: min
-# cosine 0.9998351 at these weights (1 - cosine 1.649e-4).  The JAX
-# package's bf16 path cannot run here; at data-matched BatchNorm statistics
-# on the CPU it loses as much as the port's (the port within 1.25 x JAX's
-# loss, tests/test_torch_port_wavlm_bf16.py), so the bar allows the
-# reading that margin: 1 - 1.25 x 1.649e-4 = 0.99979, rounded up.
+WAVLM_STEP_SEEDS = (7,)  # TrainPipeline seeds of the stage-2 step check's batches
+# keys masked at the end of each row in K2's control runs; the first is
+# the checks' control (perf_wavlm_bars.py reads more)
+WAVLM_MASKED_KEYS = (32,)
+# The bf16 bars, each between the largest sound reading and its control, a
+# fault of the same path, read over both batch orders (stage 3 on the C++
+# loader, as the config's num_workers 8 asks, and on TrainPipeline) and the
+# config's seed 42 and seed 7 by perf_wavlm_bars.py on an H100 80GB HBM3
+# at 700 W (PERF.md section 6).  The phase fails if a
+# reading misses its bar or a control does not exceed it.  Embeddings, in
+# 1 - cosine over 16 stage-3 utterances, the control K2 with each row's
+# last WAVLM_MASKED_KEYS[0] valid keys masked:
+# - bf16 on the card against float32 on the CPU: sound 1.473e-4-1.649e-4
+#   over 4 runs, control 2.550e-4 / 2.702e-4 (2 runs): 2e-4;
+# - bf16 with K2 against bf16 with plain attention: sound 0.984e-4-
+#   1.060e-4 (4 runs), control 2.195e-4-2.484e-4 (4 runs): 1.5e-4, about
+#   their geometric mean (the plain path's own bf16 rounding, 1.571e-4-
+#   1.658e-4 from the CPU, is most of the sound reading).
+# A bf16 stage-2 step against the float32 step at the same weights and
+# batch:
+# - the loss, relative to the float32 loss (at least 1), the control the
+#   bf16 step with the norm statistics in bf16: sound 1.2e-5-2.856e-3 over
+#   12 batches (3 a run), control on the phase's batch (seed 7) 2.413e-2-
+#   5.497e-2 (3 runs; 1.86 in the 4th, whose loss there is 1.1e-4): 8e-3.
+#   On 3 other batches this control reads 1.785e-3-8.611e-3, so it shows
+#   the bar's power on the phase's batch alone;
+# - the whole update (relative L2), the control the update held in bf16
+#   weights (no float32 master weights): sound 1.868e-3-3.042e-3, control
+#   1.902e-2-1.988e-2 (12 batches): 1e-2.
 WAVLM_BF16_COS_MIN = 0.9998
-# one bf16 stage-2 step against the float32 step at the same weights and
-# batch, each bar between the sound reading and a control, a fault of the
-# bf16 path (PERF.md section 2): the loss (sound 5.83e-4 relative) against
-# the bf16 step with the norm layers' statistics taken in bf16 (2.41e-2),
-# the whole update (relative L2, sound 2.965e-3) against the bf16 update
-# held in bf16 weights, no float32 master weights (1.965e-2); H100 80GB
-# HBM3, 700 W.  The phase fails if a control does not exceed its bar.
-WAVLM_BF16_LOSS_BAR, WAVLM_BF16_UPDATE_BAR = 2e-3, 1e-2
+WAVLM_K2_COS_MIN = 0.99985
+WAVLM_BF16_LOSS_BAR, WAVLM_BF16_UPDATE_BAR = 8e-3, 1e-2
 
 
 def _wavlm_step_net(config, ckpt, compute_dtype):
@@ -3636,9 +3719,11 @@ def phase_wavlm_recipe(report, root):
     5,994 classes); 16 stage-3 embeddings through bin/extract, float32 on
     the card against float32 on the CPU, bf16 on the card against float32 on
     the CPU (WAVLM_BF16_COS_MIN) and bf16 with K2 against bf16 with plain
-    attention; a bf16 stage-2 step against the float32 step at the same
-    weights and batch, with a control for each bar; 3 profiled stage-3
-    steps.  Returns K2's launches per stage."""
+    attention (WAVLM_K2_COS_MIN), each beside its control, K2 with the last
+    keys of each row masked; a bf16 stage-2 step against the float32 step
+    at the same weights and batch, with a control for each bar; 3 profiled
+    stage-3 steps.  Stage 3 trains on the loader the config names.  Returns
+    K2's launches per stage."""
     import copy
 
     from torch.profiler import ProfilerActivity, profile
@@ -3766,104 +3851,162 @@ def phase_wavlm_recipe(report, root):
 
     # 16 stage-3 embeddings: float32 bin/extract on the CPU (in a thread,
     # beside the card's untimed extractions) against float32 and bf16 on the
-    # card; bf16 with K2 against bf16 with plain attention on the card.  The
-    # shortest 16 of the eval list (3-4 s): the CPU's float32 WavLM-Large
+    # card; bf16 with K2 against bf16 with plain attention on the card; and
+    # the two controls (WAVLM_K2_COS_MIN's comment).  The shortest 16 of the
+    # eval list (3-4 s): the CPU's float32 WavLM-Large
+    from wespeaker_hubert_tpu_torch.frontend import ssl_encoder
+    from wespeaker_hubert_tpu_torch.models import norm
+
     rows = Path(data, "vox1", "raw.list").read_text().splitlines()
     rows = sorted(rows, key=lambda r: os.path.getsize(json.loads(r)["wav"]))[:WAVLM_CPU_UTTS]
     sub = os.path.join(root, "wavlm_vox1_16.list")
     Path(sub).write_text("\n".join(rows) + "\n")
-    t1 = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:
-        cpu_run = pool.submit(extract, configs[3], sub, done[3]["avg_model"], "", device="cpu")
-        card, launches_extract = {}, {}
-        for tag, dtype, impl in (("bf16", "bf16", "flash"), ("bf16_plain_attention", "bf16",
-                                                              "einsum"), ("f32", None, "flash")):
-            cfg = copy.deepcopy(configs[3])
-            cfg["dataset_args"]["s3prl_args"]["attn_impl"] = impl
-            if dtype:
-                cfg["compute_dtype"] = dtype
+    flash = ssl_encoder.flash_attention
+
+    def keys_masked(n):
+        def attend(q, k, v, key_len=None, **kw):
+            full = torch.full((q.shape[0],), q.shape[1], dtype=torch.int32, device=q.device)
+            return flash(q, k, v, key_len=(full if key_len is None else key_len) - n, **kw)
+
+        def fault():
+            ssl_encoder.flash_attention = attend
+            return lambda: setattr(ssl_encoder, "flash_attention", flash)
+        return fault
+
+    card, launches_extract = {}, {}
+
+    def card_extract(tag, dtype, impl, fault=None):
+        cfg = copy.deepcopy(configs[3])
+        cfg["dataset_args"]["s3prl_args"]["attn_impl"] = impl
+        if dtype:
+            cfg["compute_dtype"] = dtype
+        undo = fault() if fault else None
+        try:
             _zero_counts()
             keys, card[tag] = extract(cfg, sub, done[3]["avg_model"], "", device=DEVICE)
             launches_extract[tag] = _counts()[0]
+        finally:
+            if undo:
+                undo()
+        return keys
+
+    t1 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        cpu_run = pool.submit(extract, configs[3], sub, done[3]["avg_model"], "", device="cpu")
+        for tag, dtype, impl in (("bf16", "bf16", "flash"),
+                                 ("bf16_plain_attention", "bf16", "einsum"),
+                                 ("f32", None, "flash")):
+            keys = card_extract(tag, dtype, impl)
         cpu_keys, cpu = cpu_run.result()
-    cos = {tag: [cosine(a, b) for a, b in zip(card[tag], cpu)] for tag in ("bf16", "f32")}
-    cos["bf16_k2_vs_plain"] = [cosine(a, b) for a, b in zip(card["bf16"],
-                                                            card["bf16_plain_attention"])]
+    # the controls patch the module's attention function, which the CPU's
+    # extraction calls too: they run after it
+    masked = [(f"control_keys_masked_{n}", keys_masked(n)) for n in WAVLM_MASKED_KEYS]
+    for tag, fault in masked:
+        card_extract(tag, "bf16", "flash", fault)
+
+    def gap(a, b):  # 1 - cosine, each utterance
+        return [1.0 - cosine(x, y) for x, y in zip(a, b)]
+
+    gaps = {"f32": gap(card["f32"], cpu), "bf16": gap(card["bf16"], cpu),
+            "bf16_plain_vs_cpu": gap(card["bf16_plain_attention"], cpu),
+            "bf16_k2_vs_plain": gap(card["bf16"], card["bf16_plain_attention"]),
+            **{t: gap(card[t], card["bf16_plain_attention"]) for t, *_ in masked},
+            **{f"{t}_vs_cpu": gap(card[t], cpu) for t, *_ in masked}}
+    gaps["control_k2_vs_plain"] = gaps[masked[0][0]]
+    gaps["control_bf16_vs_cpu"] = gaps[f"{masked[0][0]}_vs_cpu"]
+    cos = {k: [1.0 - g for g in v] for k, v in gaps.items()}
     extract_launches = launches_extract["bf16"]
+    emb_bars = {"f32": COS_MIN["f32"], "bf16_k2_vs_plain": WAVLM_K2_COS_MIN,
+                "bf16": WAVLM_BF16_COS_MIN}
     out["stage3_embeddings"] = {
         "n": len(rows), "k2_launches": launches_extract, "cpu_s": time.perf_counter() - t1,
         **{k: {"min_cosine": min(v), "median_cosine": statistics.median(v)}
            for k, v in cos.items()},
-        "bars": {"f32": COS_MIN["f32"], "bf16_k2_vs_plain": COS_MIN["bf16"],
-                 "bf16": WAVLM_BF16_COS_MIN}}
+        "bars": emb_bars,
+        "controls": f"K2 with the last {WAVLM_MASKED_KEYS[0]} valid keys of each row masked: "
+                    "control_bf16_vs_cpu against the CPU, control_k2_vs_plain against plain "
+                    "attention"}
     log(f"[wavlm] {len(rows)} stage-3 embeddings through bin/extract, against float32 on the "
         f"CPU: float32 on the card min cosine {min(cos['f32']):.7f} (bar {COS_MIN['f32']}); bf16 "
-        f"on the card min {min(cos['bf16']):.7f} (bar {WAVLM_BF16_COS_MIN}), median "
-        f"{statistics.median(cos['bf16']):.7f}; "
-        f"bf16 with K2 against bf16 with plain attention min "
-        f"{min(cos['bf16_k2_vs_plain']):.7f} (bar {COS_MIN['bf16']}); K2 launches "
+        f"on the card min {min(cos['bf16']):.7f} (bar {WAVLM_BF16_COS_MIN}; control, K2 with "
+        f"the last {WAVLM_MASKED_KEYS[0]} valid keys masked, "
+        f"{min(cos['control_bf16_vs_cpu']):.7f}), median "
+        f"{statistics.median(cos['bf16']):.7f}; bf16 with plain attention min "
+        f"{min(cos['bf16_plain_vs_cpu']):.7f}; bf16 with K2 against bf16 with plain attention "
+        f"min {min(cos['bf16_k2_vs_plain']):.7f} (bar {WAVLM_K2_COS_MIN}; control, K2 with the "
+        "last valid keys masked, " + ", ".join(
+            f"{t[len('control_keys_masked_'):]}: {min(cos[t]):.7f}" for t, *_ in masked)
+        + "); K2 launches "
         f"{launches_extract}; {out['stage3_embeddings']['cpu_s']:.1f} s with the CPU's")
 
     # a bf16 stage-2 step against the float32 step: same weights (stage 1's
-    # average, stage 2's start), same batch
-    cfg2 = configs[2]
-    da = cfg2["dataset_args"]
-    pipe = TrainPipeline(
-        Path(data, "vox2_dev", "shard.list").read_text().split(),
-        read_spk2id(os.path.join(data, "vox2_dev", "utt2spk")),
-        TrainPipelineConfig(data_type="shard", num_frms=da["num_frms"],
-                            batch_size=cfg2["dataloader_args"]["batch_size"],
-                            shuffle_size=da["shuffle_args"]["shuffle_size"], seed=7),
-        AugStore(root=os.path.join(data, "rirs_aug_store")),
-        AugStore(root=os.path.join(data, "musan_aug_store")))
-    batch = _to_device(next(iter(pipe)), torch.device(DEVICE))
-    res = {}
-    for tag, dtype in (("bf16", torch.bfloat16), ("f32", None)):
-        net, state, step = _wavlm_step_net(cfg2, done[1]["avg_model"], dtype)
-        if dtype is not None:
-            start = {k: v.detach().float().cpu().clone() for k, v in net.state_dict().items()
-                     if v.is_floating_point()}
-        res[tag] = _one_step(net, state, step, batch, prefix="")
-        del net, state, step
-        empty_cache()
-    # the controls, two faults of the bf16 path: the norm layers'
+    # average, stage 2's start), same batch, for each of WAVLM_STEP_SEEDS'
+    # batches; the controls, two faults of the bf16 path: the norm layers'
     # statistics taken in bf16 (models/norm.py takes them in float32, as the
     # JAX package does), and no float32 master weights (the bf16 step's
     # update as bf16 weights would hold it)
-    from wespeaker_hubert_tpu_torch.models import norm
-
-    net, state, step = _wavlm_step_net(cfg2, done[1]["avg_model"], torch.bfloat16)
-    upcast, norm.upcast = norm.upcast, lambda x: x
-    try:
-        ctrl_loss = abs(_one_step(net, state, step, batch, prefix="projection.")[0]
-                        - res["f32"][0]) / abs(res["f32"][0])
-    finally:
-        norm.upcast = upcast
-    del net, state, step
-    empty_cache()
-    ctrl_upd = _rel_l2({k: (start[k].bfloat16().float() + v).bfloat16().float()
-                        - start[k].bfloat16().float() for k, v in res["bf16"][1].items()},
-                       res["f32"][1])
-    del start
-    loss_rel = abs(res["bf16"][0] - res["f32"][0]) / abs(res["f32"][0])
-    upd_rel = _rel_l2(res["bf16"][1], res["f32"][1])
-    pair = _diff_table(res["bf16"][1], res["f32"][1])
-    worst = sorted(pair.items(), key=lambda kv: kv[1][0])[:4]
+    cfg2 = configs[2]
+    da = cfg2["dataset_args"]
+    steps = []
+    for seed in WAVLM_STEP_SEEDS:
+        pipe = TrainPipeline(
+            Path(data, "vox2_dev", "shard.list").read_text().split(),
+            read_spk2id(os.path.join(data, "vox2_dev", "utt2spk")),
+            TrainPipelineConfig(data_type="shard", num_frms=da["num_frms"],
+                                batch_size=cfg2["dataloader_args"]["batch_size"],
+                                shuffle_size=da["shuffle_args"]["shuffle_size"], seed=seed),
+            AugStore(root=os.path.join(data, "rirs_aug_store")),
+            AugStore(root=os.path.join(data, "musan_aug_store")))
+        batch = _to_device(next(iter(pipe)), torch.device(DEVICE))
+        res = {}
+        for tag, dtype in (("bf16", torch.bfloat16), ("f32", None)):
+            net, state, step = _wavlm_step_net(cfg2, done[1]["avg_model"], dtype)
+            if dtype is not None:
+                start = {k: v.detach().float().cpu().clone()
+                         for k, v in net.state_dict().items() if v.is_floating_point()}
+            res[tag] = _one_step(net, state, step, batch, prefix="")
+            del net, state, step
+            empty_cache()
+        net, state, step = _wavlm_step_net(cfg2, done[1]["avg_model"], torch.bfloat16)
+        upcast, norm.upcast = norm.upcast, lambda x: x
+        try:
+            ctrl_loss = abs(_one_step(net, state, step, batch, prefix="projection.")[0]
+                            - res["f32"][0]) / max(abs(res["f32"][0]), 1.0)
+        finally:
+            norm.upcast = upcast
+        del net, state, step
+        empty_cache()
+        ctrl_upd = _rel_l2({k: (start[k].bfloat16().float() + v).bfloat16().float()
+                            - start[k].bfloat16().float() for k, v in res["bf16"][1].items()},
+                           res["f32"][1])
+        del start
+        worst = sorted(_diff_table(res["bf16"][1], res["f32"][1]).items(),
+                       key=lambda kv: kv[1][0])[:4]
+        steps.append({
+            "seed": seed, "loss": [res["bf16"][0], res["f32"][0]],
+            "loss_rel": abs(res["bf16"][0] - res["f32"][0]) / max(abs(res["f32"][0]), 1.0),
+            "updates_rel_l2": _rel_l2(res["bf16"][1], res["f32"][1]), "worst": worst,
+            "control_loss_rel": ctrl_loss, "control_updates_rel_l2": ctrl_upd})
+        del res, batch
+    loss_rel = max(r["loss_rel"] for r in steps)
+    upd_rel = max(r["updates_rel_l2"] for r in steps)
+    ctrl_loss = min(r["control_loss_rel"] for r in steps)
+    ctrl_upd = min(r["control_updates_rel_l2"] for r in steps)
     out["bf16_vs_f32_step"] = {
-        "loss": [res["bf16"][0], res["f32"][0]], "loss_rel": loss_rel,
-        "loss_bar": WAVLM_BF16_LOSS_BAR, "updates_rel_l2": upd_rel,
-        "updates_bar": WAVLM_BF16_UPDATE_BAR, "worst": worst,
+        "steps": steps, "loss_rel": loss_rel, "loss_bar": WAVLM_BF16_LOSS_BAR,
+        "updates_rel_l2": upd_rel, "updates_bar": WAVLM_BF16_UPDATE_BAR,
         "control_loss_rel": ctrl_loss, "control_loss_fault": "the bf16 step with the norm "
         "layers' statistics taken in bf16", "control_updates_rel_l2": ctrl_upd,
         "control_updates_fault": "the bf16 step's update held in bf16 weights (no float32 "
                                  "master weights)"}
-    log(f"[wavlm] a bf16 stage-2 step against the float32 step (batch {batch['label'].shape[0]} "
-        f"x {da['num_frms'] / 100:g} s, stage 1's average): loss {res['bf16'][0]:.5f} vs "
-        f"{res['f32'][0]:.5f} (rel {loss_rel:.3e}, bar {WAVLM_BF16_LOSS_BAR}; control, the "
-        f"norm statistics in bf16, {ctrl_loss:.3e}); updates relative L2 {upd_rel:.3e} (bar "
-        f"{WAVLM_BF16_UPDATE_BAR}; control, no float32 master weights, {ctrl_upd:.3e}); least "
-        f"cosines {worst}")
-    del res, pair
+    for r in steps:
+        log(f"[wavlm] a bf16 stage-2 step against the float32 step (batch seed {r['seed']}, "
+            f"{cfg2['dataloader_args']['batch_size']} x {da['num_frms'] / 100:g} s, stage 1's "
+            f"average): loss {r['loss'][0]:.5f} vs {r['loss'][1]:.5f} (rel {r['loss_rel']:.3e}, "
+            f"bar {WAVLM_BF16_LOSS_BAR}; control, the norm statistics in bf16, "
+            f"{r['control_loss_rel']:.3e}); updates relative L2 {r['updates_rel_l2']:.3e} (bar "
+            f"{WAVLM_BF16_UPDATE_BAR}; control, no float32 master weights, "
+            f"{r['control_updates_rel_l2']:.3e}); least cosines {r['worst']}")
 
     # 3 profiled stage-3 steps from stage 3's average, bf16
     prof_out = "not measured"
@@ -3947,14 +4090,17 @@ def phase_wavlm_recipe(report, root):
     check(len(cos["f32"]) == WAVLM_CPU_UTTS and keys == cpu_keys
           and min(cos["f32"]) >= COS_MIN["f32"],
           f"wavlm: stage-3 embeddings, float32 on the card against the CPU: {cos['f32']}")
-    check(min(cos["bf16_k2_vs_plain"]) >= COS_MIN["bf16"],
-          f"wavlm: stage-3 embeddings, bf16 K2 against plain attention: {cos['bf16_k2_vs_plain']}")
+    check(min(cos["bf16_k2_vs_plain"]) >= WAVLM_K2_COS_MIN > min(cos["control_k2_vs_plain"]),
+          f"wavlm: stage-3 embeddings, bf16 K2 against plain attention: {cos['bf16_k2_vs_plain']}"
+          f" (control {cos['control_k2_vs_plain']})")
     check(extract_launches > 0 and extract_launches % n == 0
           and launches_extract["f32"] == extract_launches
+          and all(launches_extract[t] == extract_launches for t, *_ in masked)
           and launches_extract["bf16_plain_attention"] == 0,
           f"wavlm: the extractions launched K2 {launches_extract} times")
-    check(min(cos["bf16"]) >= WAVLM_BF16_COS_MIN,
-          f"wavlm: stage-3 embeddings, bf16 on the card against float32 on the CPU: {cos['bf16']}")
+    check(min(cos["bf16"]) >= WAVLM_BF16_COS_MIN > min(cos["control_bf16_vs_cpu"]),
+          f"wavlm: stage-3 embeddings, bf16 on the card against float32 on the CPU: {cos['bf16']}"
+          f" (control {cos['control_bf16_vs_cpu']})")
     check(loss_rel <= WAVLM_BF16_LOSS_BAR < ctrl_loss
           and upd_rel <= WAVLM_BF16_UPDATE_BAR < ctrl_upd,
           f"wavlm: the bf16 stage-2 step against the float32 step: loss {loss_rel} (control "
@@ -5257,6 +5403,502 @@ def phase_cnceleb_finetune(report, root):
     return k1_extract
 
 
+# ------------------------------------------- the CN-Celeb v2 recipe (ResNet34)
+CNCELEB_V2_CONFIG = Path(__file__).resolve().parent / "examples/cnceleb/v2/conf/resnet34.yaml"
+CNCELEB_V2_TRAIN_UTTS = 256  # phase_recipe's first 256 training wavs: 2 batches of 128
+CNCELEB_V2_STEPS = (2, 2)  # (steps an epoch over 2 epochs, lm steps in 1 epoch)
+CNCELEB_V2_EXTRA = []  # more overrides, for a CPU rehearsal (batch, width, mels)
+SCORE_BAR, ASNORM_BAR = 1e-5 + 1.1e-5, 2e-4 + 1.1e-5  # phase_score's, plus a {:.5f} step
+
+
+def qmf_against_cpu(data, exp, cpu_exp, trial_names):
+    """Stages 5-7 of the card's run (`exp`) against the CPU driver's on the
+    card's embeddings (`cpu_exp`).  The cosine and AS-Norm files of each
+    trial list and of the QMF calibration trials (stage 7's card work), at
+    the score bars.  The QMF fit itself is host code on both sides (scipy's
+    L-BFGS-B, 200 iterations, from the calibration trials' AS-Norm
+    factors): at random weights its minimum is flat, and a 1e-5 change of
+    the scores moves the weights it stops at and its Cllr (reported, refitted
+    from each side's files, with no bar).  So the QMF files are held with the
+    card's weights applied to the CPU's AS-Norm factors: within the AS-Norm
+    bar times the weights' L1 norm, plus the file's {:.5f} step.  Returns
+    {file: {max_abs_err, bar}} (bar None: reported only)."""
+    from wespeaker_hubert_tpu_torch.backend.calibration import (
+        apply_calibration,
+        gather_factors,
+        train_calibration,
+    )
+    from wespeaker_hubert_tpu_torch.bin.score_calibration import load_durations
+
+    out = {}
+
+    def held(name, a, b, bar):
+        out[name] = {"n": len(a), "max_abs_err": float(np.abs(np.asarray(a) - np.asarray(b)).max())
+                     if len(a) == len(b) else float("inf"), "bar": bar}
+
+    for t in list(trial_names) + ["calibration.trials"]:
+        for suffix, bar in ((".score", SCORE_BAR), (".score.asnorm", ASNORM_BAR)):
+            held(t + suffix, _score_column(os.path.join(exp, "scores", t + suffix), 2),
+                 _score_column(os.path.join(cpu_exp, "scores", t + suffix), 2), bar)
+    fits = {}
+    for side, d in (("card", exp), ("cpu", cpu_exp)):
+        with open(os.path.join(d, "scores", "calibration.trials.score.asnorm")) as f:
+            factors, meta = gather_factors(list(f), load_durations(
+                os.path.join(data, "cnceleb_train", "utt2dur")))
+        fits[side] = train_calibration(factors, np.asarray([m[2] == "target" for m in meta]))
+    out["calibration Cllr"] = {"card": fits["card"][1], "cpu": fits["cpu"][1],
+                               "max_abs_err": abs(fits["card"][1] - fits["cpu"][1]),
+                               "bar": None, "weights_max_abs_err": float(
+                                   np.abs(fits["card"][0] - fits["cpu"][0]).max())}
+    params = fits["card"][0]
+    durations = load_durations(os.path.join(data, "eval", "utt2dur"))
+    for t in trial_names:
+        with open(os.path.join(cpu_exp, "scores", t + ".score.asnorm")) as f:
+            factors, _ = gather_factors(list(f), durations)
+        held(t + ".score.asnorm.qmf",
+             _score_column(os.path.join(exp, "scores", t + ".score.asnorm.qmf"), 2),
+             apply_calibration(params, factors),
+             ASNORM_BAR * float(np.abs(params[:-1]).sum()) + 1e-5)
+        own = _score_column(os.path.join(cpu_exp, "scores", t + ".score.asnorm.qmf"), 2)
+        out[t + ".score.asnorm.qmf"]["cpu_fit_max_abs_err"] = float(np.abs(
+            own - _score_column(os.path.join(exp, "scores", t + ".score.asnorm.qmf"), 2)).max())
+    return out
+
+
+def loop_calls(n_batches, epoch_iter, loop_steps):
+    """The train-step calls of one bin/train epoch over n_batches: groups of
+    loop_steps until epoch_iter steps have run, then the batches left over
+    (when the data runs out first) as single steps."""
+    calls, done = [], 0
+    while n_batches - done >= loop_steps and sum(calls) < epoch_iter:
+        calls.append(loop_steps)
+        done += loop_steps
+    if sum(calls) < epoch_iter:
+        calls += [1] * min(n_batches - done, epoch_iter - sum(calls))
+    return calls
+
+
+def native_epoch_batches(shard_list, batch, threads):
+    """Batches of one epoch of the C++ loader over a shard list of no more
+    shards than its threads, every utterance within the length filter: each
+    thread streams one shard and assembles whole batches of it."""
+    import tarfile
+
+    shards = Path(shard_list).read_text().split()
+    check(len(shards) <= threads, f"{len(shards)} shards for {threads} loader threads")
+    total = 0
+    for shard in shards:
+        with tarfile.open(shard) as tf:
+            total += sum(1 for m in tf if m.name.endswith(".wav")) // batch
+    return total
+
+
+def write_cnceleb_v2_data(src, data):
+    """phase_recipe's wavs (`src`) laid out as CN-Celeb v2's --data_root
+    expects, without copying audio: musan / rirs; `cnceleb_train`, the
+    first CNCELEB_V2_TRAIN_UTTS vox2_dev utterances with an utt2spk naming
+    CNCELEB_SPEAKERS speakers (the rest without audio); `eval`, vox1's 64
+    with `eval/trials/CNC-Eval-Concat.lst` and `CNC-Eval-Avg.lst`
+    (VoxCeleb1-O's pairs split between them) and its utt2dur."""
+    for sub in ("musan", "rirs"):
+        os.makedirs(os.path.join(data, sub), exist_ok=True)
+        Path(data, sub, "wav.scp").write_text(Path(src, sub, "wav.scp").read_text())
+    scp = Path(src, "vox2_dev", "wav.scp").read_text().splitlines()[:CNCELEB_V2_TRAIN_UTTS]
+    u2s = Path(src, "vox2_dev", "utt2spk").read_text().splitlines()[:CNCELEB_V2_TRAIN_UTTS]
+    spks = {ln.split()[1] for ln in u2s}
+    u2s += [f"cnc{s:05d}-absent cnc{s:05d}" for s in range(CNCELEB_SPEAKERS - len(spks))]
+    os.makedirs(os.path.join(data, "cnceleb_train"), exist_ok=True)
+    Path(data, "cnceleb_train", "wav.scp").write_text("\n".join(scp) + "\n")
+    Path(data, "cnceleb_train", "utt2spk").write_text("\n".join(u2s) + "\n")
+    os.makedirs(os.path.join(data, "eval", "trials"), exist_ok=True)
+    for name in ("wav.scp", "utt2spk"):
+        Path(data, "eval", name).write_text(Path(src, "vox1", name).read_text())
+    trials = Path(src, "vox1", "vox1_O_cleaned.kaldi").read_text().splitlines()
+    for i, name in enumerate(CNCELEB_TRIALS):
+        Path(data, "eval", "trials", name).write_text("\n".join(trials[i::2]) + "\n")
+
+
+def _batch_spy(bin_train, caught):
+    """Wraps bin/train's _to_device so a run's host batches are copied, in
+    order, into `caught`; returns the unwrapped function."""
+    to_device = bin_train._to_device
+
+    def spy(batch, device):
+        caught.append({k: np.array(v) for k, v in batch.items() if k != "keys"})
+        return to_device(batch, device)
+
+    bin_train._to_device = spy
+    return to_device
+
+
+def phase_cnceleb_v2(report, root):
+    """recipes.cnceleb_v2 stages 1-9 on the card with
+    examples/cnceleb/v2/conf/resnet34.yaml (ResNet34, 32 channels, 80 mels,
+    256-d, TSTP, ArcMargin over 3 x 2,800 classes, batch 128 x 2 s, tar
+    shards on the C++ loader its `num_workers: 8` asks for, float32) and,
+    for stage 9, examples/voxceleb/v2/conf/resnet_lm.yaml (the repo's only
+    ResNet34 large-margin config: 64 x 6 s, margin 0.5) as the port's reader
+    parses them, overriding only the paths and the run's length (2 epochs
+    of 2 steps; lm 1 epoch of 2 steps), on phase_recipe's wavs laid out as
+    CN-Celeb (write_cnceleb_v2_data).  Stages 1-3, 4-8 and 9, each with
+    K1's count set to 0 just before and read just after.  Checks: the
+    stages and their lines; the step calls; K1 on every stage-4 input
+    against its plain version (the lm run's stage 4 the same inputs); the
+    host batches stage 3 trained on in its first epoch bit for bit those
+    of the C++ loader built as bin/train builds it, beside the card; 16
+    stage-4 embeddings through bin/extract on the CPU, and the CPU driver's
+    stages 5-7 on the card's embeddings: both trial lists' cosine, AS-Norm
+    and QMF score files against the card's (qmf_against_cpu).  Returns the
+    K1 launches of the two stage 4s."""
+    import shutil
+
+    from wespeaker_hubert_tpu_torch.bin import train as bin_train
+    from wespeaker_hubert_tpu_torch.data.dataset import NativeTrainPipeline
+    from wespeaker_hubert_tpu_torch.ops import fbank_kernel
+    from wespeaker_hubert_tpu_torch.recipes import cnceleb_v2, voxceleb_v2
+
+    src, data = os.path.join(root, "data"), os.path.join(root, "cnc_v2_data")
+    exp, exp_lm = os.path.join(root, "exp_cnc_v2"), os.path.join(root, "exp_cnc_v2_lm")
+    write_cnceleb_v2_data(src, data)
+    epoch, lm = CNCELEB_V2_STEPS
+    paths = [f"train_data={data}/cnceleb_train/shard.list",
+             f"train_label={data}/cnceleb_train/utt2spk",
+             f"dataset_args.reverb_data={data}/rirs_aug_store",
+             f"dataset_args.noise_data={data}/musan_aug_store"]
+    overrides = ([f"exp_dir={exp}"] + paths + ["num_epochs=2", f"epoch_iter={epoch}",
+                                               "save_epoch_interval=1", "num_avg=2"]
+                 + CNCELEB_V2_EXTRA + [f"lm.exp_dir={exp_lm}"] + ["lm." + o for o in paths]
+                 + ["lm.num_epochs=1", f"lm.epoch_iter={lm}", "lm.save_epoch_interval=1",
+                    "lm.num_avg=1"] + ["lm." + o for o in CNCELEB_V2_EXTRA])
+    common = ["--config", str(CNCELEB_V2_CONFIG), "--lm_config", str(RESNET_LM_CONFIG),
+              "--data_root", data, "--device", DEVICE] + overrides
+    out = report["cnceleb_v2"] = {"overrides": overrides, "train_utterances":
+                                  CNCELEB_V2_TRAIN_UTTS, "speakers": CNCELEB_SPEAKERS}
+    runs, caught = {}, []
+    make = bin_train.make_train_step
+    try:
+        for tag, stages in (("base", (1, 3)), ("export", (4, 8)), ("lm", (9, 9))):
+            timer = _StepTimer()
+            bin_train.make_train_step = timer(make)
+            to_device = _batch_spy(bin_train, caught) if tag == "base" else None
+            fbank_kernel.LAUNCHES = 0
+            try:
+                with _K1Spy(fbank_kernel) as spy:
+                    done = cnceleb_v2.main(["--stage", str(stages[0]), "--stop_stage",
+                                            str(stages[1])] + common)
+            finally:
+                if to_device is not None:
+                    bin_train._to_device = to_device
+            runs[tag] = {"done": done, "k1": fbank_kernel.LAUNCHES, "k1_inputs": spy.inputs,
+                         "timer": timer}
+    finally:
+        bin_train.make_train_step = make
+    done = {k: v for r in runs.values() for k, v in r["done"].items()}
+    lm_done = done[9]["stages"]
+    trial_names = cnceleb_v2.TRIALS
+    base_cfg, lm_cfg = voxceleb_v2.load_configs(voxceleb_v2.parse_args(common))
+    trials = [os.path.join(data, "eval", "trials", t) for t in trial_names]
+    calls = {t: [n for n, _ in runs[t]["timer"].calls] for t in ("base", "lm")}
+    step_ms = {t: [1e3 * s / n for n, s in runs[t]["timer"].calls] for t in ("base", "lm")}
+    k1 = {t: runs[t]["k1"] for t in runs}
+    out.update({"stage_s": {s: d["s"] for s, d in done.items()},
+                "lm_stage_s": {s: d["s"] for s, d in lm_done.items()},
+                "lines": {s: d["lines"] for s, d in done.items() if d.get("lines")},
+                "lm_lines": {s: d["lines"] for s, d in lm_done.items() if d["lines"]},
+                "step_calls": calls, "step_ms": step_ms, "k1_launches": k1})
+    log(f"[cnceleb v2] stage seconds: " + ", ".join(f"{s} {d['s']:.1f}" for s, d in done.items())
+        + "; stage 9's: " + ", ".join(f"{s} {d['s']:.1f}" for s, d in lm_done.items()))
+    log(f"[cnceleb v2] stage 3: {len(step_ms['base'])} steps of "
+        f"{base_cfg['dataloader_args']['batch_size']} x 2 s on the C++ loader, ms "
+        + ", ".join(f"{x:.1f}" for x in step_ms["base"]) + f"; lm {len(step_ms['lm'])} steps of "
+        f"{lm_cfg['dataloader_args']['batch_size']} x 6 s, ms "
+        + ", ".join(f"{x:.1f}" for x in step_ms["lm"]) + f"; K1 launches {k1}")
+    for s in (5, 6, 7):
+        log(f"[cnceleb v2] stage {s}: base " + "; ".join(done[s]["lines"]) + " | lm "
+            + "; ".join(lm_done[s]["lines"]))
+
+    def cpu_side():
+        """The CPU's half: the C++ loader's first epoch as bin/train builds
+        it, 16 embeddings and the cosine / AS-Norm files (recipe_against_cpu),
+        and the CPU driver's stages 5-7 on the card's embeddings."""
+        pipe = bin_train.train_pipeline(base_cfg)[0]
+        pipe.set_epoch(0)
+        loader = {"native": isinstance(pipe, NativeTrainPipeline), "batches": list(pipe)}
+        pipe.close()
+        bad = recipe_against_cpu(data, exp, out, os.path.join(exp, "config.json"),
+                                 "cnceleb v2", "eval", "cnceleb_train", trials)
+        cpu_exp = os.path.join(root, "exp_cnc_v2_cpu")
+        shutil.copytree(os.path.join(exp, "embeddings"), os.path.join(cpu_exp, "embeddings"))
+        cpu_common = [o if not o.startswith("exp_dir=") else f"exp_dir={cpu_exp}"
+                      for o in common]
+        cpu_common[cpu_common.index("--device") + 1] = "cpu"
+        cnceleb_v2.main(["--stage", "5", "--stop_stage", "7"] + cpu_common)
+        return loader, bad, qmf_against_cpu(data, exp, cpu_exp, trial_names)
+
+    with ThreadPoolExecutor(1) as pool:  # the CPU's half beside K1's checks on the card
+        cpu_run = pool.submit(cpu_side)
+        base_in, lm_in = runs["export"]["k1_inputs"], runs["lm"]["k1_inputs"]
+        k1_rows, k1_matched = k1_on_eval_batches(
+            [os.path.join(data, d, "raw.list") for d in ("eval", "cnceleb_train")],
+            base_in, base_cfg["dataset_args"]["fbank_args"]["num_mel_bins"]) \
+            if DEVICE == "cuda" else ([], False)
+        lm_same = len(lm_in) == len(base_in) and all(torch.equal(a, b)
+                                                     for a, b in zip(lm_in, base_in))
+        n_caught = {"base": len(base_in), "lm": len(lm_in),
+                    "stage 3": len(runs["base"]["k1_inputs"])}
+        del base_in, lm_in
+        for r in runs.values():
+            r.pop("k1_inputs")
+        loader, cpu_bad, files = cpu_run.result()
+    empty_cache()
+    first_epoch = caught[:epoch]
+    same = (len(loader["batches"]) >= epoch and all(
+        sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
+        for a, b in zip(first_epoch, loader["batches"])))
+    want_batches = native_epoch_batches(Path(data, "cnceleb_train", "shard.list"),
+                                        base_cfg["dataloader_args"]["batch_size"],
+                                        base_cfg["dataloader_args"]["num_workers"])
+    out.update({"k1_stage4_checks": k1_rows, "k1_inputs": n_caught,
+                "loader": {"native": loader["native"], "epoch_batches": len(loader["batches"]),
+                           "want_epoch_batches": want_batches,
+                           "first_epoch_identical": same},
+                "cpu_driver_5_7": files})
+    log(f"[cnceleb v2] K1 on all {n_caught['base']} stage-4 inputs against its plain version "
+        f"(bar as [recipe]; inputs {'match' if k1_matched else 'DO NOT match'} EvalPipeline's "
+        f"batches; the lm run's {n_caught['lm']} {'equal' if lm_same else 'DIFFER from'} them): "
+        + "; ".join(f"{tuple(r['shape'])} x{r['batches']}: {r['off_bar']} past the bar, valid "
+                    f"max|d| {r['valid']['max_abs_err']:.3e}" for r in k1_rows))
+    log(f"[cnceleb v2] the C++ loader ({'native' if loader['native'] else 'NOT native'}, "
+        f"{len(loader['batches'])} batches an epoch, want {want_batches}): stage 3's first "
+        f"{len(first_epoch)} batches on the card {'bit-identical to' if same else 'DIFFER from'} "
+        f"the loader's own run beside it")
+    log("[cnceleb v2] the CPU driver's stages 5-7 on the card's embeddings against the card's: "
+        + "; ".join(f"{k} max|d| {v['max_abs_err']:.2e} (bar {v['bar']:.3g})"
+                    for k, v in files.items() if v["bar"] is not None)
+        + f"; the QMF fits' Cllr {files['calibration Cllr']['card']:.6f} / "
+        f"{files['calibration Cllr']['cpu']:.6f}, their weights max|d| "
+        f"{files['calibration Cllr']['weights_max_abs_err']:.3e}, the CPU's own QMF files "
+        + ", ".join(f"{v['cpu_fit_max_abs_err']:.3e}" for k, v in files.items()
+                    if k.endswith(".qmf")) + " from the card's")
+    check(sorted(done) == list(range(1, 10)) and sorted(lm_done) == list(range(3, 9)),
+          f"cnceleb v2: stages {sorted(done)}, stage 9's {sorted(lm_done)}")
+    check(calls == {"base": [1] * 2 * epoch, "lm": [1] * lm}, f"cnceleb v2: step calls {calls}")
+    check(k1["base"] == 0 and n_caught["stage 3"] == 0,
+          f"cnceleb v2: the dithered train step launched K1 {k1['base']} times")
+    check(k1["export"] > 0 and k1_matched and n_caught["base"] == k1["export"],
+          f"cnceleb v2: stage 4's K1 inputs do not match EvalPipeline's batches ({n_caught})")
+    check(lm_same and k1["lm"] == k1["export"],
+          f"cnceleb v2: the lm run's K1 launches {k1['lm']} are not its stage 4's")
+    check(all(r["off_bar"] == 0 and r["finite"] for r in k1_rows),
+          "cnceleb v2: K1 disagrees with its plain version on a stage-4 input")
+    check(loader["native"] and same and len(loader["batches"]) == want_batches,
+          f"cnceleb v2: the C++ loader's batches {out['loader']}")
+    check(not cpu_bad, "cnceleb v2: " + "; ".join(cpu_bad))
+    check(len(files) == 9 and all(v["max_abs_err"] <= v["bar"] for v in files.values()
+                                  if v["bar"] is not None),
+          f"cnceleb v2: the CPU driver's score files {files}")
+    for s in (5, 6, 7):
+        for lines in (done[s]["lines"], lm_done[s]["lines"]):
+            check(len(lines) == len(trial_names) and all(" EER " in ln for ln in lines),
+                  f"cnceleb v2: stage {s} printed {lines}")
+    return k1["export"], k1["lm"]
+
+
+# ------------------------------------ every head and the multi-head poolings
+HEADS_CONFIG = CNCELEB_V2_CONFIG
+HEADS_SEED = 20251029
+HEADS_BATCH = 8
+# name -> (projection_args, or None for the config's arc_margin; pooling)
+HEADS_CASES = {
+    "add_margin": ({"project_type": "add_margin", "scale": 32.0}, "TSTP"),
+    "arc_margin_intertopk_subcenter": ({"project_type": "arc_margin_intertopk_subcenter",
+                                        "scale": 32.0, "K": 3, "mp": 0.06, "k_top": 5}, "TSTP"),
+    "sphere": ({"project_type": "sphere", "margin": 4}, "TSTP"),
+    "sphereface2": ({"project_type": "sphereface2", "scale": 32.0}, "TSTP"),
+    "linear": ({"project_type": "linear"}, "TSTP"),
+    "MHASTP": (None, "MHASTP"),
+    "MQMHASTP": (None, "MQMHASTP"),
+}
+HEADS_LOGITS_COS = 0.9999
+
+
+def phase_heads_poolings(report):
+    """ResNet34 at full width from examples/cnceleb/v2/conf/resnet34.yaml
+    (80 mels, 256-d) with CN-Celeb's head size (3 x 2,800 classes), seeded
+    weights: each of the five heads the port adds (add_margin,
+    arc_margin_intertopk_subcenter, sphere, sphereface2, linear; TSTP) and
+    each of the two poolings (MHASTP, MQMHASTP; the config's arc_margin)
+    gets one float32 SGD step at batch 8 x 2 s on the card against the CPU
+    (step_vs_cpu: the loss, every tensor's update), the CPU's in a thread
+    (beside_cpu); after it, eval embeddings of 3 padded utterances through
+    K1 and the head's logits at margin 0.2, card against CPU (logits cosine
+    >= HEADS_LOGITS_COS).  The sphereface2 step never calls cross-entropy
+    (its own loss replaces it); every other step does.  Returns K1's
+    launches in the card's eval embeddings (after the card's step and after
+    the control's)."""
+    from wespeaker_hubert_tpu_torch.ops import fbank_kernel
+    from wespeaker_hubert_tpu_torch.ops.fbank import FbankConfig
+    from wespeaker_hubert_tpu_torch.ops.pipeline import FeaturePipelineConfig
+    from wespeaker_hubert_tpu_torch.train import executor
+    from wespeaker_hubert_tpu_torch.train.executor import make_eval_embed
+    from wespeaker_hubert_tpu_torch.utils.config import load_config
+
+    rng = np.random.default_rng(HEADS_SEED)
+    wav = torch.from_numpy(np.stack([speechlike(rng, 3.0, f0) for f0 in (120, 170, 230)]))
+    lengths = torch.tensor([48000, 30400, 12800], dtype=torch.int32)
+    labels = torch.from_numpy(rng.integers(0, 3 * CNCELEB_SPEAKERS, 3))
+    mels = load_config(str(HEADS_CONFIG))["dataset_args"]["fbank_args"]["num_mel_bins"]
+    fcfg = FeaturePipelineConfig(fbank=FbankConfig(num_mel_bins=mels, dither=0.0,
+                                                   spectrum_impl="kernel"), spec_aug=False)
+    k1 = {"launches": 0}
+
+    def after(net, dev):
+        net.eval()
+        before = fbank_kernel.LAUNCHES
+        with torch.no_grad():
+            emb = make_eval_embed(net, fcfg)({"wav": wav.to(dev), "length": lengths.to(dev)})
+            logits, _ = net.projection(emb, labels.to(dev), 0.2)
+        if dev != "cpu":
+            k1["launches"] += fbank_kernel.LAUNCHES - before
+        return {"emb": emb.float().cpu(), "logits": logits.float().cpu()}
+
+    out = report["heads_poolings"] = {}
+    ce_calls = []
+    cross_entropy = executor.cross_entropy
+
+    def counted(*a):
+        ce_calls.append(1)
+        return cross_entropy(*a)
+
+    bad = []
+    executor.cross_entropy = counted
+    try:
+        for name, (proj, pool) in HEADS_CASES.items():
+            config = load_config(str(HEADS_CONFIG))
+            if proj is not None:
+                config["projection_args"] = proj
+            config["model_args"]["pooling_func"] = pool
+            del ce_calls[:]
+            r = step_vs_cpu(config, HEADS_SEED, f"heads {name}", n=HEADS_BATCH,
+                            classes=3 * CNCELEB_SPEAKERS, after=after)
+            got = r.pop("after")
+            r["cross_entropy_calls"] = len(ce_calls)
+            lc = float(torch.nn.functional.cosine_similarity(
+                got["card"]["logits"].flatten().double(), got["cpu"]["logits"].flatten().double(),
+                dim=0))
+            ec = min(cosine(a.numpy(), b.numpy()) for a, b in zip(got["card"]["emb"],
+                                                                  got["cpu"]["emb"]))
+            r["after_step"] = {"logits_cosine": lc, "logits_bar": HEADS_LOGITS_COS,
+                               "logits_shape": list(got["card"]["logits"].shape),
+                               "embedding_min_cosine": ec,
+                               "logits_max_abs_err": float((got["card"]["logits"]
+                                                            - got["cpu"]["logits"]).abs().max())}
+            out[name] = r
+            log(f"[heads {name}] {config['model']} + {type_name(config)} / {pool}: after the "
+                f"step, eval "
+                f"embeddings through K1 card vs CPU min cosine {ec:.7f}, logits "
+                f"{tuple(got['card']['logits'].shape)} cosine {lc:.7f} (bar {HEADS_LOGITS_COS}), "
+                f"max|d| {r['after_step']['logits_max_abs_err']:.3e}; cross-entropy called "
+                f"{len(ce_calls)} times")
+            want_ce = (len(ce_calls) == 0) if name == "sphereface2" else (len(ce_calls) >= 3)
+            if not want_ce:
+                bad.append(f"{name}: cross-entropy called {len(ce_calls)} times")
+            shape = tuple(got["card"]["logits"].shape)
+            if not lc >= HEADS_LOGITS_COS or shape != (3, 3 * CNCELEB_SPEAKERS):
+                bad.append(f"{name}: logits cosine {lc}, shape {shape}")
+    finally:
+        executor.cross_entropy = cross_entropy
+    out["k1_launches"] = k1["launches"]
+    check(not bad, "heads: " + "; ".join(bad))
+    # one eval batch after the card's step and one after the control's
+    check(DEVICE == "cpu" or k1["launches"] == 2 * len(HEADS_CASES),
+          f"heads: K1 launched {k1['launches']} times in the card's eval embeddings")
+    return k1["launches"]
+
+
+def type_name(config):
+    return config["projection_args"].get("project_type", "linear")
+
+
+# ------------------------------------------------ the host loader's cost
+LOADER_STEPS = 6
+LOADER_EXTRA = []  # more overrides, for a CPU rehearsal (batch, width)
+
+
+def phase_loader_cost(report, root):
+    """The flagship ecapa_tdnn.yaml at full width (ECAPA_TDNN_GLOB_c512,
+    3 x 5,994 classes, 128 x 2 s, float32, loop_steps 1) through bin/train
+    for LOADER_STEPS steps on phase_recipe's shards, with `num_workers: 8`
+    (the C++ loader) and with `num_workers: 0` (TrainPipeline on bin/train's
+    prefetch thread), the same seed: the step ms over steps 2-6 and the
+    device's idle share in that window (torch.profiler's busy time over its
+    wall, no synchronize inside).  bin/train queues 4 batches ahead while
+    the first step runs, so the window mostly shows the step with each
+    loader working beside it, not the loader's rate (perf_loader.py
+    measures that).  A measurement, not a claim."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from wespeaker_hubert_tpu_torch.bin import train as bin_train
+    from wespeaker_hubert_tpu_torch.utils.config import apply_overrides, load_config
+
+    data = os.path.join(root, "data")
+    out = report["loader_cost"] = {}
+    make = bin_train.make_train_step
+    for workers in (8, 0):
+        exp = os.path.join(root, f"exp_loader_{workers}")
+        config = apply_overrides(load_config(str(RECIPE_CONFIG)), [
+            f"exp_dir={exp}", f"train_data={data}/vox2_dev/shard.list",
+            f"train_label={data}/vox2_dev/utt2spk",
+            f"dataset_args.reverb_data={data}/rirs_aug_store",
+            f"dataset_args.noise_data={data}/musan_aug_store", "num_epochs=1",
+            f"epoch_iter={LOADER_STEPS}", "loop_steps=1", "save_epoch_interval=1",
+            f"dataloader_args.num_workers={workers}"] + LOADER_EXTRA)
+        marks = {}
+
+        def timed_make(*args, **kwargs):
+            fn = make(*args, **kwargs)
+            calls = [0]
+
+            def step(state, batch):
+                calls[0] += 1
+                if calls[0] == 2:
+                    sync()
+                    marks["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                                        ProfilerActivity.CUDA])
+                    marks["prof"].__enter__()
+                    marks["t0"] = time.perf_counter()
+                got = fn(state, batch)
+                if calls[0] == LOADER_STEPS:
+                    sync()
+                    marks["t1"] = time.perf_counter()
+                    marks["prof"].__exit__(None, None, None)
+                return got
+            return step
+
+        bin_train.make_train_step = timed_make
+        try:
+            t0 = time.perf_counter()
+            bin_train.train(config, device=DEVICE)
+            wall = time.perf_counter() - t0
+        finally:
+            bin_train.make_train_step = make
+        window_us = (marks["t1"] - marks["t0"]) * 1e6
+        busy, _ = device_busy_us(marks["prof"]) if DEVICE == "cuda" else (None, 0)
+        out[workers] = {
+            "loader": "C++ NativeTrainPipeline, 8 threads" if workers else
+            "TrainPipeline on the prefetch thread",
+            "step_ms": window_us / 1e3 / (LOADER_STEPS - 1), "run_s": wall,
+            "device_idle_share": (1 - busy / window_us) if busy else "not measured"}
+        del marks
+        empty_cache()
+    line = "; ".join(f"num_workers {w} ({v['loader']}): {v['step_ms']:.2f} ms a step over steps "
+                     f"2-{LOADER_STEPS}, device idle share "
+                     + (f"{v['device_idle_share']:.4f}" if DEVICE == "cuda" else "not measured")
+                     + f", bin/train {v['run_s']:.1f} s" for w, v in out.items())
+    log(f"[loader] ecapa_tdnn.yaml, 128 x 2 s, float32, loop_steps 1: {line}")
+    check(all(math.isfinite(v["step_ms"]) for v in out.values()), f"loader: {out}")
+
+
 DIAR_CONFIG = RESNET_CONFIG  # examples/voxconverse/v2/README.md diarizes with ResNet34
 DIAR_SEED = 20251027
 DIAR_RECIPE = ((120, 2), (240, 3), (360, 4), (600, 3))  # (seconds, speakers): (a), (b)
@@ -5721,6 +6363,25 @@ def phase_score(report, root):
         check(all(0 < v[0] < 50 for v in c["eer_mindcf"].values()),
               f"score {name}: EERs {c['eer_mindcf']}")
         del emb, got
+
+
+def score_in_worker(device, sizes):
+    """phase_score in the deferred worker process, beside the main
+    timeline (its work is mostly the host's: text files and key lookups),
+    on `device` at `sizes` (the main process's DEVICE and SCORE_SIZES):
+    returns its report entry with the phase's seconds; a missed bar raises
+    PhaseFailed into main()'s failures."""
+    global DEVICE, SCORE_SIZES
+    DEVICE, SCORE_SIZES = device, sizes
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report, t0 = {}, time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        phase_score(report, root)
+    report["score"]["phase_s"] = time.perf_counter() - t0
+    log(f"[score] the phase took {report['score']['phase_s']:.1f} s in the worker process")
+    empty_cache()  # the worker lives on beside the recipes' peaks
+    return report["score"]
 
 
 SRE_CONFIG = RESNET_CONFIG  # ResNet34 (32 channels, TSTP, 256-d), SRE v2's extractor
@@ -6222,6 +6883,9 @@ def main():
         if train_launches is not None:
             timed("train checks", phase_train_checks, report, train_dir)
     NET_TEMPLATES.clear()
+    # scoring at VoxCeleb1-O / -H sizes, host-bound, in the worker process
+    # beside the recipes (collected at the end)
+    defer_check("score", report, "score", score_in_worker, DEVICE, SCORE_SIZES, program=False)
     with tempfile.TemporaryDirectory() as recipe_dir:
         recipe_launches = timed("recipe", phase_recipe, report, recipe_dir)
         # the same data directory: stages 1-2 run again on it
@@ -6237,13 +6901,14 @@ def main():
         cnceleb_launches = timed("cnceleb finetune", phase_cnceleb_finetune, report, recipe_dir)
         contrastive_launches = timed("contrastive recipe", phase_contrastive_recipe, report,
                                      recipe_dir)
+        cnc_v2_launches = timed("cnceleb v2 recipe", phase_cnceleb_v2, report, recipe_dir)
+        timed("loader cost", phase_loader_cost, report, recipe_dir)
     timed("ecapa step check", phase_ecapa_step_check, report)
     timed("resnet step check", phase_resnet_step_check, report)
     timed("zoo step check", phase_zoo_step_check, report)
+    heads_launches = timed("heads and poolings", phase_heads_poolings, report)
     with tempfile.TemporaryDirectory() as whisper_dir:
         whisper_launches = timed("whisper recipe", phase_whisper_recipe, report, whisper_dir)
-    with tempfile.TemporaryDirectory() as score_dir:
-        timed("score", phase_score, report, score_dir)
     with tempfile.TemporaryDirectory() as diar_dir:
         diar_launches = timed("diarization", phase_diarization, report, diar_dir)
     with tempfile.TemporaryDirectory() as sre_dir:
@@ -6251,6 +6916,8 @@ def main():
     t0 = time.perf_counter()
     collect_deferred(failures)
     phase_s["waiting for the deferred checks"] = time.perf_counter() - t0
+    if isinstance(report.get("score"), dict) and "phase_s" in report["score"]:
+        phase_s["score (in the worker, beside)"] = report["score"]["phase_s"]
     report["wall_s"] = time.perf_counter() - t_start
     report["failures"] = failures
     report["k1_history"] = {
@@ -6271,7 +6938,8 @@ def main():
             or resnet_launches is None or whisper_launches is None or campplus_launches is None
             or wavlm_launches is None or redimnet_launches is None or gemini_launches is None
             or dino is None or cnceleb_launches is None or contrastive_launches is None
-            or diar_launches is None or sre_launches is None):
+            or diar_launches is None or sre_launches is None or cnc_v2_launches is None
+            or heads_launches is None):
         for f in failures:
             print(f"chip_smoke FAILED {f}", file=sys.stderr)
         return 1
@@ -6295,6 +6963,11 @@ def main():
         "launches_moco_recipe": {"stage 4": contrastive_launches["moco"]},
         "launches_simclr_recipe": {"stage 4": contrastive_launches["simclr"]},
         "launches_cnceleb_finetune": {"stage 4": cnceleb_launches},
+        "launches_cnceleb_v2": {"stage 4": cnc_v2_launches[0],
+                                "stage 9 (its stage 4)": cnc_v2_launches[1]},
+        "launches_heads_poolings": heads_launches,
+        "launches_heads_poolings_scope": "eval embeddings of 3 utterances after each of the 7 "
+                                         "heads / poolings steps, the card's and the control's",
         "launches_diarization": diar_launches,
         "launches_diarization_scope": "voxconverse_v2 (spectral, density) and voxconverse_v1 "
                                       "(oracle, system SAD) over 4 conversations of 120-600 s; "

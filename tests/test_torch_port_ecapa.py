@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
+from tests.torch_port_refs import FastJit
 from wespeaker_hubert_tpu.models import pooling as jax_pooling
 from wespeaker_hubert_tpu.models.convert_to_torch import to_torch_state_dict
 from wespeaker_hubert_tpu.models.ecapa_tdnn import EcapaTdnn as JaxEcapa
@@ -59,7 +60,7 @@ def jax_ecapa(channels, feat_dim, embed_dim, glob, emb_bn=False, t=50, seed=0):
     shapes = jax.eval_shape(
         lambda: model.init(jax.random.key(0), jnp.zeros((1, t, feat_dim)), train=False)
     )
-    apply = jax.jit(lambda v, x, mask: model.apply(v, x, mask=mask, train=False))
+    apply = FastJit(jax.jit(lambda v, x, mask: model.apply(v, x, mask=mask, train=False)))
     return apply, random_variables(shapes, seed)
 
 

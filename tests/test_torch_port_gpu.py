@@ -1095,3 +1095,63 @@ def test_compute_feats_on_k1_matches_plain(cuda, tmp_path):
     for (k, g), (kw, w) in zip(got, want):
         assert k == kw and g.shape == w.shape
         np.testing.assert_allclose(g, w, **FBANK_TOL)
+
+
+HEADS = {"add_margin": {}, "arc_margin_intertopk_subcenter": {"K": 3},
+         "sphere": {"margin": 4}, "sphereface2": {"margin_type": "A"}, "linear": {}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ptype", sorted(HEADS))
+def test_head_on_gpu_matches_cpu(cuda, ptype):
+    """Each head the port adds, forward and backward, the card against the
+    CPU in float32: logits and the gradients of a fixed projection of them
+    (plus SphereFace2's loss) with respect to the embedding and every head
+    parameter, at 8,400 classes (CN-Celeb's 3 x 2,800)."""
+    from wespeaker_hubert_tpu_torch.models.projections import get_projection
+
+    torch.manual_seed(0)
+    conf = dict(HEADS[ptype], project_type=ptype, embed_dim=256, num_class=8400)
+    heads = {d: get_projection(conf) for d in ("cpu", "cuda")}
+    heads["cuda"].load_state_dict(heads["cpu"].state_dict())
+    rng = np.random.default_rng(3)
+    emb = torch.from_numpy(rng.standard_normal((16, 256)).astype(np.float32))
+    label = torch.from_numpy(rng.integers(0, 8400, 16))
+    proj = torch.from_numpy(rng.standard_normal((16, 8400)).astype(np.float32))
+    got = {}
+    for dev, head in heads.items():
+        head.to(dev).train()
+        e = emb.to(dev).detach().requires_grad_()
+        logits, aux = head(e, label.to(dev), 0.2)
+        out = (logits * proj.to(dev)).sum() + (0.0 if aux is None else aux)
+        out.backward()
+        got[dev] = [logits.detach().cpu(), e.grad.cpu()] + [
+            p.grad.cpu() for p in head.parameters()] + ([aux.detach().cpu()] if aux is not None
+                                                       else [])
+    for a, b in zip(got["cuda"], got["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["MHASTP", "MQMHASTP"])
+def test_multi_head_pooling_on_gpu_matches_cpu(cuda, pool):
+    """MHASTP and MQMHASTP at ResNet34's pooled width (2,560 = 256 channels
+    x 10 frequency rows) with a padding mask, forward and backward, the
+    card against the CPU in float32."""
+    from wespeaker_hubert_tpu_torch.models.pooling import POOLING_LAYERS
+
+    torch.manual_seed(0)
+    mods = {d: POOLING_LAYERS[pool](2560) for d in ("cpu", "cuda")}
+    mods["cuda"].load_state_dict(mods["cpu"].state_dict())
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((4, 2560, 50)).astype(np.float32))
+    mask = torch.arange(50)[None, :] < torch.tensor([50, 41, 23, 7])[:, None]
+    got = {}
+    for dev, mod in mods.items():
+        mod.to(dev)
+        xd = x.to(dev).detach().requires_grad_()
+        y = mod(xd, mask.to(dev))
+        (y * torch.linspace(-1, 1, y.shape[-1], device=dev)).sum().backward()
+        got[dev] = [y.detach().cpu(), xd.grad.cpu()] + [p.grad.cpu() for p in mod.parameters()]
+    for a, b in zip(got["cuda"], got["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

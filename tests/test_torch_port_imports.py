@@ -1,10 +1,11 @@
-"""The port stands alone: no file of `wespeaker_hubert_tpu_torch` or
-`chip_smoke.py` imports JAX, flax, optax, msgpack or the JAX package (the
-port reads flax's msgpack checkpoints with its own reader), nor sklearn,
-umap or hdbscan (the card's machine has none: the diarization's k-means,
-spectral embedding and HDBSCAN are the port's own), and a process that
-imports every port module, serves and diarizes on the CPU never loads
-any of them."""
+"""The port stands alone: no file of `wespeaker_hubert_tpu_torch`, of
+`chip_smoke.py` or of the port's measurement scripts (`PORT_SCRIPTS`)
+imports JAX, flax, optax, msgpack or the JAX package (the port reads
+flax's msgpack checkpoints with its own reader), nor sklearn, umap or
+hdbscan (the card's machine has none: the diarization's k-means, spectral
+embedding and HDBSCAN are the port's own), and a process that imports
+every port module, serves and diarizes on the CPU never loads any of
+them."""
 
 import ast
 import json
@@ -21,10 +22,12 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "wespeaker_hubert_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "wespeaker_hubert_tpu",
              "sklearn", "umap", "hdbscan"}
+PORT_SCRIPTS = ("chip_smoke.py", "perf_loader.py", "perf_wavlm_bars.py", "perf_k2_f32_ab.py",
+                "perf_k2_f32_ablate.py")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / f for f in PORT_SCRIPTS]
 
 
 def _imported_roots(path):
@@ -71,10 +74,13 @@ def _module_names():
     "backend.plda", "backend.processing", "backend.kaldi_io", "bin.plda_bins",
     "bin.train_plda", "bin.eval_plda", "bin.adapt_plda", "bin.embd_proc", "bin.compute_det",
     "bin.datadir", "utils.file_utils", "bin.infer_export", "recipes.sre_v2", "recipes.sre_v3",
+    "data.native_loader", "recipes.cnceleb_v2",
 ])
 def test_training_modules_are_checked(name):
     """The training, recipe, interop, Whisper, model-zoo, SSL, diarization and
-    back-end (PLDA, SRE) slices' modules are among those the checks above and the no-JAX process below import."""
+    back-end (PLDA, SRE) slices' modules, the host loaders and the CN-Celeb
+    v2 driver are among those the checks above and the no-JAX process below
+    import."""
     assert "wespeaker_hubert_tpu_torch." + name in set(_module_names())
     assert not FORBIDDEN.intersection(_imported_roots(PORT / (name.replace(".", "/") + ".py")))
 

@@ -46,7 +46,8 @@ from wespeaker_hubert_tpu_torch.bin.import_torch import import_torch
 from wespeaker_hubert_tpu_torch.models.projections import ArcMarginProduct
 from wespeaker_hubert_tpu_torch.models.registry import get_speaker_model
 from wespeaker_hubert_tpu_torch.models.speaker_net import (SpeakerNet, build_speaker_net,
-                                                           load_speaker_state)
+                                                           load_speaker_state,
+                                                           speaker_state_dict)
 from wespeaker_hubert_tpu_torch.recipes import voxceleb_v2
 from wespeaker_hubert_tpu_torch.utils import flax_msgpack
 from wespeaker_hubert_tpu_torch.utils.checkpoint import load_partial, load_state
@@ -145,6 +146,29 @@ def test_import_then_export_is_bit_identical(tmp_path, model):
                      feat_dim=24, embed_dim=8)
 
 
+@pytest.mark.parametrize("model", ["ResNet18", "REPVGG_TINY_A0"])
+def test_import_refuses_2d_backbone_with_multi_head_pooling(tmp_path, model):
+    """The port's frame map flattens frequency-major for MHASTP / MQMHASTP
+    where WeSpeaker's flattens channel-major: with names and shapes equal,
+    import_torch and the hub's bundle conversion refuse such a checkpoint,
+    and the hub leaves the bundle as it was."""
+    from wespeaker_hubert_tpu_torch.cli.hub import ensure_native_checkpoint
+
+    args = {"feat_dim": 16, "embed_dim": 8, "pooling_func": "MHASTP"}
+    module = get_speaker_model(model)(**args)
+    bundle = tmp_path / "bundle"
+    bundle.mkdir()
+    torch.save({"model": module.state_dict()}, bundle / "avg_model.pt")
+    with pytest.raises(ValueError, match="frequency-major .* channel-major"):
+        import_torch(model, str(bundle / "avg_model.pt"), str(tmp_path / "out.pt"), **args)
+    assert not (tmp_path / "out.pt").exists()
+    (bundle / "config.yaml").write_text(
+        f"model: {model}\nmodel_args:\n" + "".join(f"  {k}: {v}\n" for k, v in args.items()))
+    with pytest.raises(ValueError, match="MHASTP"):
+        ensure_native_checkpoint(str(bundle))
+    assert sorted(os.listdir(bundle)) == ["avg_model.pt", "config.yaml"]
+
+
 def test_export_model_from_jax_exp_dir(tmp_path):
     config = {"model": "ResNet18", "model_args": {"feat_dim": 16, "embed_dim": 8},
               "projection_args": {"project_type": "arc_margin"}}
@@ -192,6 +216,47 @@ def test_export_model_from_jax_exp_dir(tmp_path):
     assert sd16["conv1.weight"].dtype == torch.bfloat16
     assert torch.equal(sd16["conv1.weight"].float(), want16)
     assert json.loads(Path(out16, "config.json").read_text())["compute_dtype"] == "bf16"
+
+
+def test_export_rebinds_weights_as_a_fresh_trace(tmp_path, monkeypatch):
+    """A second export of the same model takes the first trace's graph with
+    the second checkpoint's weights and statistics: its program holds what
+    a fresh trace holds and gives the same embeddings, bit for bit."""
+    from wespeaker_hubert_tpu_torch.bin import export_model as em
+
+    config = {"model": "XVEC", "model_args": {"feat_dim": 16, "embed_dim": 8},
+              "projection_args": {"project_type": "arc_margin"}}
+    ckpts = []
+    for seed in (0, 1):
+        torch.manual_seed(seed)
+        net = build_speaker_net(config)
+        for m in net.modules():  # statistics of their own, not the init's
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                m.running_mean.uniform_(-0.1, 0.1)
+                m.running_var.uniform_(0.5, 1.5)
+        ckpts.append(str(tmp_path / f"ck{seed}.pt"))
+        torch.save(speaker_state_dict(net), ckpts[-1])
+    traces, export = [], torch.export.export
+    monkeypatch.setattr(torch.export, "export", lambda *a, **k: traces.append(1) or export(*a, **k))
+    em._TRACED.clear()
+    em.export_program(config, ckpts[0], str(tmp_path / "p0.pt2"))
+    rebound = load_program(em.export_program(config, ckpts[1], str(tmp_path / "p1.pt2")))
+    assert len(traces) == 1
+    em._TRACED.clear()
+    fresh = load_program(em.export_program(config, ckpts[1], str(tmp_path / "fresh.pt2")))
+    assert len(traces) == 2
+    a, b = torch.export.load(str(tmp_path / "p1.pt2")), torch.export.load(str(tmp_path /
+                                                                           "fresh.pt2"))
+    assert set(a.state_dict) == set(b.state_dict) and set(a.constants) == set(b.constants)
+    for k in b.state_dict:
+        assert torch.equal(a.state_dict[k], b.state_dict[k]), k
+    for k in b.constants:
+        assert torch.equal(a.constants[k], b.constants[k]), k
+    for bsz, t in ((3, 37), (1, 160)):
+        feats = torch.from_numpy(np.random.default_rng(t).standard_normal((bsz, t, 16))
+                                 .astype(np.float32))
+        with torch.inference_mode():
+            assert torch.equal(rebound(feats), fresh(feats))
 
 
 def test_recipe_stages_1_to_9_resnet_on_cpu(tmp_path, capsys, caplog):

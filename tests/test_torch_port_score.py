@@ -108,7 +108,7 @@ def test_trial_scores_and_cohort_stats_match_jax(score_files, monkeypatch):
                                 np.asarray(jm), np.asarray(js))
     pn = score.apply_asnorm(raw, e_idx, t_idx, pm, ps, pm, ps)
     np.testing.assert_allclose(pn, jn, rtol=0, atol=2e-4)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="queue 1, data parallelism"):
         score.cohort_mean_std(emb, cohort, 5, device="cpu", mesh=object())
 
 

@@ -29,6 +29,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
+from tests.torch_port_refs import run_jax
 from wespeaker_hubert_tpu.data import EvalPipeline as JaxEvalPipeline
 from wespeaker_hubert_tpu.data import write_wav
 from wespeaker_hubert_tpu.frontend import SSLEncoder as JaxSSLEncoder
@@ -344,9 +345,8 @@ def _jax_encoder_run(name):
     model = JaxSSLEncoder(cfg)
     shapes = jax.eval_shape(lambda: model.init(jax.random.key(0), wav, lengths))
     params = randomize(shapes["params"], rng)
-    hidden, feat_lengths = jax.jit(lambda p, w, n: model.apply({"params": p}, w, n))(
-        params, wav, lengths
-    )
+    hidden, feat_lengths = run_jax(lambda p, w, n: model.apply({"params": p}, w, n),
+                                   params, wav, lengths)
     return cfg, params, wav, lengths, [np.asarray(h) for h in hidden], np.asarray(feat_lengths)
 
 
@@ -521,8 +521,8 @@ def test_frontend_layer_selection_matches_jax(layer, multilayer):
     cfg = JaxSSLConfig.tiny("hubert")
     net, variables, port = _jax_frontend_net(cfg, layer=layer, multilayer=multilayer, seed=13)
     wav, lengths = _wav_batch(14)
-    want, want_len = jax.jit(lambda v, w, n: net.apply(v, w, n, method=net.features))(
-        variables, wav, lengths)
+    want, want_len = run_jax(lambda v, w, n: net.apply(v, w, n, method=net.features),
+                             variables, wav, lengths)
     with torch.no_grad():
         got, got_len = port.features(torch.from_numpy(wav), torch.from_numpy(lengths))
     np.testing.assert_array_equal(got_len.numpy(), np.asarray(want_len))

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
-from tests.torch_port_refs import FastJit
+from tests.torch_port_refs import FastJit, run_jax
 from tests.test_torch_port_train import _store_arrays
 from tests.test_torch_port_train_step import STEP_TOL
 from wespeaker_hubert_tpu.data import AugStore as JaxAugStore
@@ -215,8 +215,8 @@ def test_whisper_slice_matches_jax():
     # the encoder's features and lengths, flash and einsum
     jnet = JaxSpeakerNet(backbone=JaxWhisperPMFA(JAX_CFG.output_size, EMBED), projection=None,
                          frontend=JaxWhisperEncoder(JAX_CFG))
-    want_hs, want_len = jax.jit(lambda v, w, n: jnet.apply(v, w, n, method=jnet.features))(
-        variables, wav, lengths)
+    want_hs, want_len = run_jax(lambda v, w, n: jnet.apply(v, w, n, method=jnet.features),
+                                variables, wav, lengths)
     assert want_hs.shape == (3, 64, JAX_CFG.output_size)
     for impl in ("flash", "einsum"):
         port = port_net(impl).eval()

@@ -72,7 +72,7 @@ def cohort_mean_std(
     if mesh is not None:
         raise NotImplementedError(
             "mesh= (cohort statistics sharded over devices) is not ported yet "
-            "(ROADMAP.md queue 1, item 10)")
+            "(ROADMAP.md queue 1, data parallelism)")
     device = torch.device(device)
     top_n = min(int(top_n), len(cohort))
     c = l2_normalize(torch.as_tensor(np.asarray(cohort, np.float32)).to(device))

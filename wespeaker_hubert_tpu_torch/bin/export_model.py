@@ -20,7 +20,10 @@ converter from a JAX model directory to the port's.
 (and of WeSpeaker's ONNX export): the feats -> embedding function, without
 a mask, as a `torch.export` program (`torch.export.save`) with symbolic
 batch and time dims, time at least `MIN_FRAMES`.  It is traced on the CPU;
-`load_program` reads it back onto a device.
+`load_program` reads it back onto a device.  The last trace is kept in the
+process: a later export of the same model and model_args (a recipe's
+stage 9 re-entering stage 8 with the fine-tuned weights) takes its graph
+and binds the new weights and statistics, as a new trace would hold them.
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ __all__ = ["export_model", "export_program", "load_program", "MIN_FRAMES", "main
 # three stride-2 stages leave ceil(T / 8) frames for the pooling; the trace
 # needs two or more (a 1-frame map would be a special case of its shapes)
 MIN_FRAMES = 16
+# (model, model_args) -> the last program traced of them
+_TRACED: Dict[str, "torch.export.ExportedProgram"] = {}
 
 
 def export_model(exp_dir: str, output_dir: str, checkpoint: Optional[str] = None,
@@ -90,19 +95,44 @@ def export_program(config: Dict, checkpoint: str, path: str) -> str:
         raise NotImplementedError("export_program takes features: an SSL frontend's model "
                                   "takes the wav")
     module = _Embed(net.float().eval())
-    batch = torch.export.Dim("batch", min=1, max=4096)
-    time = torch.export.Dim("time", min=MIN_FRAMES, max=1 << 20)
-    example = torch.zeros(2, 200, feat_dim)
-    with torch.no_grad():
-        # facts about the stride-2 stages' ceil-divided lengths that hold for
-        # every T but that the shape solver cannot prove (ResNet's flatten
-        # asks min(T', F' T') == T') are checked when the program runs
-        program = torch.export.export(module, (example,),
-                                      dynamic_shapes={"feats": {0: batch, 1: time}},
-                                      prefer_deferred_runtime_asserts_over_guards=True)
+    key = json.dumps([config["model"], config.get("model_args", {})], sort_keys=True,
+                     default=str)
+    program = _TRACED.get(key)
+    if program is None or not _rebind(program, module):
+        batch = torch.export.Dim("batch", min=1, max=4096)
+        time = torch.export.Dim("time", min=MIN_FRAMES, max=1 << 20)
+        example = torch.zeros(2, 200, feat_dim)
+        with torch.no_grad():
+            # facts about the stride-2 stages' ceil-divided lengths that hold
+            # for every T but that the shape solver cannot prove (ResNet's
+            # flatten asks min(T', F' T') == T') are checked when it runs
+            program = torch.export.export(module, (example,),
+                                          dynamic_shapes={"feats": {0: batch, 1: time}},
+                                          prefer_deferred_runtime_asserts_over_guards=True)
+        _TRACED.clear()
+        _TRACED[key] = program
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     torch.export.save(program, path)
     return path
+
+
+def _rebind(program: "torch.export.ExportedProgram", module: torch.nn.Module) -> bool:
+    """Put `module`'s weights and statistics into a program traced of a
+    module of the same structure; False (nothing changed) where the names,
+    shapes or dtypes differ, or where a buffer the trace holds as a
+    constant (a non-persistent one) is not the module's."""
+    state, held = module.state_dict(), program.state_dict
+    if set(state) != set(held) or any(
+            state[k].shape != held[k].shape or state[k].dtype != held[k].dtype for k in state):
+        return False
+    buffers = dict(module.named_buffers())
+    if any(k in buffers and not torch.equal(v, buffers[k]) for k, v in program.constants.items()):
+        return False
+    for k, v in state.items():
+        v = v.detach().clone()
+        held[k] = (torch.nn.Parameter(v, requires_grad=held[k].requires_grad)
+                   if isinstance(held[k], torch.nn.Parameter) else v)
+    return True
 
 
 def load_program(path: str, device="cpu") -> torch.nn.Module:

@@ -15,6 +15,12 @@ that name (built from the `key=value` model_args; `embed_dim` has no
 default), and the checkpoint's own tensors are written, in the module's
 order, as a port checkpoint (utils/checkpoint.py) that bin/extract,
 bin/train's `model_init` and bin/serve's model directory load.
+
+One exception is refused: a 2-D backbone (ResNet and the FrameMapNet
+family, RepVGG) with a multi-head pooling (MHASTP, MQMHASTP).  The port
+flattens that frame map frequency-major, as the JAX package does, where
+WeSpeaker flattens it channel-major; the names and shapes match, so such a
+checkpoint would load and embed wrongly.
 """
 
 from __future__ import annotations
@@ -25,7 +31,10 @@ from typing import Dict
 
 import torch
 
+from ..models.pooling import MULTI_HEAD_POOLINGS
 from ..models.registry import get_speaker_model
+from ..models.repvgg import RepVGG
+from ..models.resnet import FrameMapNet
 from ..utils.checkpoint import save_checkpoint
 from ..utils.config import coerce_value
 
@@ -56,6 +65,11 @@ def import_torch(model: str, torch_ckpt: str, output: str, **model_args) -> str:
         raise ValueError("embed_dim=N is needed to build the port's module")
     model_args.setdefault("feat_dim", 80)
     module = get_speaker_model(model)(**model_args)
+    if isinstance(module, (FrameMapNet, RepVGG)) and module.pooling_func in MULTI_HEAD_POOLINGS:
+        raise ValueError(
+            f"{model} with {module.pooling_func}: the port flattens the frame map "
+            "frequency-major for a multi-head pooling (the JAX package's order), WeSpeaker "
+            "channel-major, so a WeSpeaker checkpoint of it would load and embed wrongly")
     sd = read_wespeaker_state_dict(torch_ckpt)
     module.load_state_dict(sd, strict=True)  # every key and shape, before writing
     state = {k: sd[k] for k in module.state_dict()}

@@ -100,7 +100,7 @@ def score_norm(
     that QMF calibration reads; returns `output_file`."""
     if sharded:
         raise NotImplementedError("sharded cohort statistics are not ported yet "
-                                  "(ROADMAP.md queue 1, item 10)")
+                                  "(ROADMAP.md queue 1, data parallelism)")
     device = resolve_device(device)
     keys, emb = load_embeddings(eval_emb_path)
     _, cohort = load_embeddings(cohort_emb_path)

@@ -8,9 +8,12 @@ Counterpart of `wespeaker_hubert_tpu/bin/train.py`:
 The config is the training config, YAML (utils/config.py's reader) or JSON;
 `a.b.c=value` overrides set dotted paths, values parsed as YAML scalars.
 One process drives one device, CUDA unless the caller asks for the CPU.  The
-host pipeline (data/dataset.py:TrainPipeline: `raw` JSONL lists, `shard` tar
-lists or `feat` lists) runs on one prefetch thread;
-`dataloader_args.num_workers` is logged and ignored.  The frontend is
+host pipeline (data/dataset.py: `raw` JSONL lists, `shard` tar lists or
+`feat` lists) runs on a prefetch thread, and `dataloader_args.num_workers`
+picks it as the JAX package's bin/train does: 0 TrainPipeline, N > 0 the
+C++ loader in N threads (NativeTrainPipeline, built at first use), or N
+PrefetchPipeline workers for a config the C++ loader refuses
+(`make_train_pipeline`).  The frontend is
 fbank, an SSL encoder (`s3prl`) or Whisper's encoder (`whisper_encoder`,
 frozen or trained jointly; `whisper_encoder_args.checkpoint` imports an
 OpenAI encoder state dict converted to `.npz`).  `num_class` is
@@ -41,13 +44,20 @@ import os
 import queue
 import threading
 import time
-from typing import Dict, List, Union
+from typing import Dict, List, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..data.aug_store import AugStore
-from ..data.dataset import TrainPipeline, TrainPipelineConfig, load_data_list
+from ..data.dataset import (
+    NativeRefusal,
+    NativeTrainPipeline,
+    PrefetchPipeline,
+    TrainPipeline,
+    TrainPipelineConfig,
+    load_data_list,
+)
 from ..models.speaker_net import (
     build_speaker_net,
     load_speaker_state,
@@ -64,7 +74,7 @@ from ..utils.config import parse_config_or_kwargs
 from ..utils.device import resolve_device
 from ..utils.observability import MetricsLogger, ThroughputMeter
 
-__all__ = ["read_spk2id", "train", "main"]
+__all__ = ["make_train_pipeline", "read_spk2id", "train", "train_pipeline", "main"]
 
 logger = logging.getLogger("train")
 
@@ -122,6 +132,71 @@ def _stack(pending: List[Dict]) -> Dict:
     return {k: np.stack([p[k] for p in pending]) for k in pending[0] if k != "keys"}
 
 
+def make_train_pipeline(data_list, spk2id, pipe_cfg: TrainPipelineConfig, reverb_store,
+                        noise_store, dataloader_args: dict):
+    """The host pipeline `dataloader_args.num_workers` asks for, as the JAX
+    package's bin/train chooses it: 0 (the default) TrainPipeline; N > 0
+    the C++ loader in N threads (NativeTrainPipeline), or N prefetch
+    threads (PrefetchPipeline) where the config is one the C++ loader
+    refuses.  A failed build of the C++ loader raises: falling back would
+    change the batch order."""
+    num_workers = int(dataloader_args.get("num_workers", 0) or 0)
+    if num_workers <= 0:
+        logger.info("data: TrainPipeline (num_workers 0)")
+        return TrainPipeline(data_list, spk2id, pipe_cfg, reverb_store=reverb_store,
+                             noise_store=noise_store)
+    try:
+        pipe = NativeTrainPipeline(data_list, spk2id, pipe_cfg, reverb_store=reverb_store,
+                                   noise_store=noise_store, num_threads=num_workers)
+        logger.info("data: native C++ loader, %d threads", num_workers)
+        return pipe
+    except NativeRefusal as e:
+        logger.info("data: PrefetchPipeline, %d workers (the native loader refuses: %s)",
+                    num_workers, e)
+    return PrefetchPipeline(data_list, spk2id, pipe_cfg, reverb_store=reverb_store,
+                            noise_store=noise_store, num_workers=num_workers,
+                            prefetch=int(dataloader_args.get("prefetch_factor", 4)))
+
+
+def train_pipeline(config: dict) -> Tuple:
+    """The host pipeline bin/train trains a config on: (pipeline, spk2id,
+    data list).  `feat` data turns speed perturbation off (no waveform to
+    perturb) and needs the fbank frontend."""
+    dataset_args = config.get("dataset_args", {})
+    dataloader_args = config.get("dataloader_args", {})
+    spk2id = read_spk2id(config["train_label"])
+    data_list = load_data_list(config["train_data"])
+    data_type = config.get("data_type", "raw")
+    speed_perturb = dataset_args.get("speed_perturb", True)
+    if data_type == "feat":
+        speed_perturb = False
+        if dataset_args.get("frontend", "fbank") != "fbank":
+            raise ValueError(
+                "data_type=feat requires frontend=fbank (precomputed features "
+                "cannot feed a wav-domain frontend)"
+            )
+    reverb_store = AugStore(root=dataset_args["reverb_data"]) if dataset_args.get("reverb_data") else None
+    noise_store = AugStore(root=dataset_args["noise_data"]) if dataset_args.get("noise_data") else None
+    filter_args = dataset_args.get("filter_args", {})
+    pipe_cfg = TrainPipelineConfig(
+        data_type=data_type,
+        num_frms=dataset_args.get("num_frms", 200),
+        sample_rate=dataset_args.get("resample_rate", 16000),
+        shuffle=dataset_args.get("shuffle", True),
+        shuffle_size=dataset_args.get("shuffle_args", {}).get("shuffle_size", 2500),
+        filter_min_frames=filter_args.get("min_num_frames", 100),
+        filter_max_frames=filter_args.get("max_num_frames", 800),
+        speed_perturb=speed_perturb,
+        aug_prob=dataset_args.get("aug_prob", 0.6),
+        batch_size=int(dataloader_args.get("batch_size", 64)),
+        seed=int(config.get("seed", 42)),
+        packed_aug=dataset_args.get("packed_aug", True),
+    )
+    pipe = make_train_pipeline(data_list, spk2id, pipe_cfg, reverb_store, noise_store,
+                               dataloader_args)
+    return pipe, spk2id, data_list
+
+
 def train(config: Union[str, dict], device="cuda", **overrides) -> TrainState:
     """Run supervised training; returns the final TrainState."""
     config = parse_config_or_kwargs(config, **overrides)
@@ -136,42 +211,11 @@ def train(config: Union[str, dict], device="cuda", **overrides) -> TrainState:
     seed = int(config.get("seed", 42))
     dataloader_args = config.get("dataloader_args", {})
     batch_size = int(dataloader_args.get("batch_size", 64))
-    if dataloader_args.get("num_workers"):
-        logger.info("num_workers=%s ignored: one host prefetch thread",
-                    dataloader_args["num_workers"])
 
     # ---- data
-    spk2id = read_spk2id(config["train_label"])
-    data_list = load_data_list(config["train_data"])
-    data_type = config.get("data_type", "raw")
-    speed_perturb = dataset_args.get("speed_perturb", True)
-    if data_type == "feat":
-        speed_perturb = False  # no waveform to perturb
-        if dataset_args.get("frontend", "fbank") != "fbank":
-            raise ValueError(
-                "data_type=feat requires frontend=fbank (precomputed features "
-                "cannot feed a wav-domain frontend)"
-            )
-    num_class = len(spk2id) * (3 if speed_perturb else 1)
-    reverb_store = AugStore(root=dataset_args["reverb_data"]) if dataset_args.get("reverb_data") else None
-    noise_store = AugStore(root=dataset_args["noise_data"]) if dataset_args.get("noise_data") else None
-    filter_args = dataset_args.get("filter_args", {})
-    pipe_cfg = TrainPipelineConfig(
-        data_type=data_type,
-        num_frms=dataset_args.get("num_frms", 200),
-        sample_rate=dataset_args.get("resample_rate", 16000),
-        shuffle=dataset_args.get("shuffle", True),
-        shuffle_size=dataset_args.get("shuffle_args", {}).get("shuffle_size", 2500),
-        filter_min_frames=filter_args.get("min_num_frames", 100),
-        filter_max_frames=filter_args.get("max_num_frames", 800),
-        speed_perturb=speed_perturb,
-        aug_prob=dataset_args.get("aug_prob", 0.6),
-        batch_size=batch_size,
-        seed=seed,
-        packed_aug=dataset_args.get("packed_aug", True),
-    )
-    pipe = TrainPipeline(data_list, spk2id, pipe_cfg, reverb_store=reverb_store,
-                         noise_store=noise_store)
+    pipe, spk2id, data_list = train_pipeline(config)
+    pipe_cfg = pipe.cfg
+    num_class = len(spk2id) * (3 if pipe_cfg.speed_perturb else 1)
 
     # ---- model
     torch.manual_seed(seed)

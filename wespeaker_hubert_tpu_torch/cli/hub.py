@@ -65,7 +65,11 @@ def ensure_native_checkpoint(model_dir: str) -> str:
         bundle = os.path.join(model_dir, BUNDLE_CKPT)
         os.replace(pt, bundle)
         logger.info("converting %s -> avg_model.pt (%s)", bundle, config["model"])
-        import_torch(config["model"], bundle, pt, **dict(config.get("model_args", {})))
+        try:
+            import_torch(config["model"], bundle, pt, **dict(config.get("model_args", {})))
+        except Exception:
+            os.replace(bundle, pt)  # the bundle as it was
+            raise
         tmp = f"{cfg_json}.tmp{os.getpid()}"
         with open(tmp, "w") as f:
             json.dump(config, f, indent=1)

@@ -6,7 +6,8 @@ Counterpart of `wespeaker_hubert_tpu/data/dataset.py`: `load_data_list`,
 feat, spk} with Kaldi matrix rxspecifiers), `iter_tar_shards` (tar
 archives of KEY.wav + KEY.spk members: plain, gzip or zstd),
 `chunk_samples_for_frames`, `shard_list_for_rank`, `buffer_shuffle`,
-`TrainPipelineConfig`, `TrainPipeline` and `EvalPipeline`.  The host
+`TrainPipelineConfig`, `TrainPipeline`, `PrefetchPipeline`,
+`NativeTrainPipeline` and `EvalPipeline`.  The host
 decodes and selects (list striping, shuffle, chunk choice, augmentation
 parameters) and ships fixed-shape numpy batches; the DSP runs on the device
 (ops/augment.py).  `TrainPipeline` makes the same `random.Random` and
@@ -15,22 +16,37 @@ batches are identical for the same list, seed and stores.  For `shard` data
 the list's lines are tar paths: the epoch's shuffle and the rank / worker
 striping act on whole shards, and the buffer shuffle on the utterances
 streamed out of them.
+
+`PrefetchPipeline` runs N TrainPipelines over the `[worker::N]` stripes
+in threads and takes their batches round-robin; `NativeTrainPipeline`
+runs the C++ loader (data/native_loader.py).  Both give the JAX package's
+counterparts' batches exactly; `bin/train` picks them by
+`dataloader_args.num_workers`, as the JAX package's does.
+
+The readers, so every pipeline, refuse a wav whose header rate is not the
+configured rate (`dataset_args.resample_rate`, 16 kHz by default) with a
+`WavRateError` naming the key, its rate and the configured one: nothing
+here resamples, and framing it at the configured rate would be wrong
+without a word.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import logging
+import queue
 import random
 import tarfile
+import threading
 from typing import Dict, Iterable, Iterator, List, Optional, Sequence
 
 import numpy as np
 
 from ..ops.augment import speed_input_len
 from .aug_store import AugStore, snr_range_for_key
-from .wav_io import read_wav, read_wav_bytes
+from .wav_io import WavRateError, read_wav, read_wav_bytes
 
 __all__ = [
     "chunk_samples_for_frames",
@@ -42,6 +58,9 @@ __all__ = [
     "buffer_shuffle",
     "TrainPipelineConfig",
     "TrainPipeline",
+    "PrefetchPipeline",
+    "NativeRefusal",
+    "NativeTrainPipeline",
     "EvalPipeline",
 ]
 
@@ -64,13 +83,20 @@ def load_data_list(path: str) -> List[str]:
         return [ln.strip() for ln in f if ln.strip()]
 
 
-def iter_raw_list(entries: Iterable[str]) -> Iterator[dict]:
+def _check_rate(key: str, rate: int, sample_rate: int) -> None:
+    if rate != sample_rate:
+        raise WavRateError(key, rate, sample_rate)
+
+
+def iter_raw_list(entries: Iterable[str], sample_rate: int = 16000) -> Iterator[dict]:
     """JSON entry lines -> {key, wav (float32), sample_rate, spk}; an entry
-    that fails to read is logged and skipped."""
+    that fails to read is logged and skipped, and a wav at another rate
+    than `sample_rate` raises WavRateError."""
     for line in entries:
         try:
             obj = json.loads(line)
             wav, sr = read_wav(obj["wav"])
+            _check_rate(obj["key"], sr, sample_rate)
             if "vad" in obj:
                 parts = [
                     wav[int(float(s) * sr) : int(float(e) * sr)]
@@ -83,6 +109,8 @@ def iter_raw_list(entries: Iterable[str]) -> Iterator[dict]:
                 "wav": wav,
                 "sample_rate": sr,
             }
+        except WavRateError:
+            raise
         except Exception as e:  # corrupt sample: warn + skip
             logger.warning("failed to read sample: %s", e)
 
@@ -101,10 +129,11 @@ def iter_feat_list(entries: Iterable[str]) -> Iterator[dict]:
             logger.warning("failed to read feat sample: %s", e)
 
 
-def iter_tar_shards(paths: Iterable[str]) -> Iterator[dict]:
+def iter_tar_shards(paths: Iterable[str], sample_rate: int = 16000) -> Iterator[dict]:
     """Tar shards -> {key, wav (float32), sample_rate, spk}: KEY.wav and
     KEY.spk (or KEY.txt) members grouped by their shared prefix, streamed.
-    A shard that fails to read is logged and skipped from that point."""
+    A shard that fails to read is logged and skipped from that point; a
+    wav at another rate than `sample_rate` raises WavRateError."""
     from .zstd_io import open_maybe_zstd
 
     for path in paths:
@@ -128,10 +157,13 @@ def iter_tar_shards(paths: Iterable[str]) -> Iterator[dict]:
                     data = tf.extractfile(member).read()
                     if ext == "wav":
                         cur["wav"], cur["sample_rate"] = read_wav_bytes(data)
+                        _check_rate(base, cur["sample_rate"], sample_rate)
                     elif ext in ("spk", "txt"):
                         cur["spk"] = data.decode("utf-8").strip()
                 if cur_key is not None and "wav" in cur:
                     yield cur | {"key": cur_key, "spk": cur.get("spk", "")}
+        except WavRateError:
+            raise
         except Exception as e:  # corrupt shard: warn + skip
             logger.warning("failed to read shard %s: %s", path, e)
         finally:
@@ -146,6 +178,13 @@ def _reader(data_type: str):
     if data_type not in _READERS:
         raise ValueError(f"unknown data_type {data_type!r} (raw, shard or feat)")
     return _READERS[data_type]
+
+
+def _read(data_type: str, entries: Iterable[str], sample_rate: int) -> Iterator[dict]:
+    """The data type's reader over `entries`, wavs held to `sample_rate`."""
+    if data_type == "feat":
+        return iter_feat_list(entries)
+    return _reader(data_type)(entries, sample_rate)
 
 
 def shard_list_for_rank(
@@ -289,7 +328,7 @@ class TrainPipeline:
             worker=self.worker, num_workers=self.num_workers,
             shuffle=cfg.shuffle, seed=cfg.seed,
         )
-        it = _reader(cfg.data_type)(entries)
+        it = _read(cfg.data_type, entries, cfg.sample_rate)
         rng = random.Random(cfg.seed + 77 * self.epoch + self.rank + 10007 * self.worker)
         if cfg.shuffle:
             it = buffer_shuffle(it, cfg.shuffle_size, rng)
@@ -409,6 +448,228 @@ class TrainPipeline:
         return batch
 
 
+class PrefetchPipeline:
+    """N worker threads, each a TrainPipeline over the `[worker::N]` stripe
+    of this rank's list filling its own bounded queue, taken ROUND-ROBIN:
+    the batch order is a pure function of (seed, epoch, N), whatever the
+    threads' timing.  A worker that fails fails the epoch."""
+
+    _END = object()
+
+    def __init__(
+        self,
+        data_list: Sequence[str],
+        spk2id: Dict[str, int],
+        cfg: TrainPipelineConfig = TrainPipelineConfig(),
+        reverb_store: Optional[AugStore] = None,
+        noise_store: Optional[AugStore] = None,
+        rank: int = 0,
+        world_size: int = 1,
+        num_workers: int = 4,
+        prefetch: int = 4,
+    ):
+        self.num_workers = max(1, num_workers)
+        self.prefetch = max(1, prefetch)
+        self.workers = [
+            TrainPipeline(data_list, spk2id, cfg, reverb_store, noise_store, rank=rank,
+                          world_size=world_size, worker=w, num_workers=self.num_workers)
+            for w in range(self.num_workers)
+        ]
+        w0 = self.workers[0]  # TrainPipeline's surface, for bin/train
+        self.cfg, self.spk2id = w0.cfg, w0.spk2id
+        self.chunk_samples, self.input_samples = w0.chunk_samples, w0.input_samples
+        self.aug_counts = w0.aug_counts
+
+    def set_epoch(self, epoch: int) -> None:
+        for w in self.workers:
+            w.set_epoch(epoch)
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        qs = [queue.Queue(maxsize=self.prefetch) for _ in self.workers]
+        stop = threading.Event()
+
+        def put(q, item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.2)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def feed(pipe, q):
+            err = None
+            try:
+                for b in pipe:
+                    if not put(q, b):
+                        return
+            except BaseException as e:  # noqa: BLE001 — raised in the consumer
+                err = e
+            finally:
+                put(q, (self._END, err))
+
+        threads = [threading.Thread(target=feed, args=(p, q), daemon=True)
+                   for p, q in zip(self.workers, qs)]
+        for t in threads:
+            t.start()
+        try:
+            live = collections.deque(range(self.num_workers))
+            while live:
+                w = live[0]
+                b = qs[w].get()
+                if isinstance(b, tuple) and len(b) == 2 and b[0] is self._END:
+                    if b[1] is not None:
+                        raise RuntimeError(f"prefetch worker {w} failed") from b[1]
+                    live.popleft()  # exhausted: the next worker keeps the turn
+                    continue
+                yield b
+                live.rotate(-1)
+        finally:
+            stop.set()
+            for q, t in zip(qs, threads):  # drain until each feeder sees stop
+                for _ in range(50):
+                    if not t.is_alive():
+                        break
+                    try:
+                        while True:
+                            q.get_nowait()
+                    except queue.Empty:
+                        pass
+                    t.join(timeout=0.1)
+
+
+class NativeRefusal(ValueError):
+    """A training config the C++ loader does not take (bin/train runs
+    PrefetchPipeline instead, as the JAX package's does)."""
+
+
+class NativeTrainPipeline:
+    """TrainPipeline's surface over the deterministic C++ loader: decode,
+    filter, chunk, the speed draw and batch assembly run in C++ threads;
+    Python draws the packed augmentation rows (rir / noise / snr) per
+    batch.  Its sample order differs from TrainPipeline's (a full
+    permutation, not a bounded-buffer shuffle) and is the JAX package's
+    NativeTrainPipeline's, batch for batch.  Raw lists run Loader2, tar
+    shards Loader3.
+
+    Refused (NativeRefusal): `feat` data, unpacked augmentation with
+    stores, `shuffle: false`, `drop_last: false`, VAD-cropped entries, xz
+    shards, and zstd shards where the library has no libzstd."""
+
+    def __init__(
+        self,
+        data_list: Sequence[str],
+        spk2id: Dict[str, int],
+        cfg: TrainPipelineConfig = TrainPipelineConfig(),
+        reverb_store: Optional[AugStore] = None,
+        noise_store: Optional[AugStore] = None,
+        rank: int = 0,
+        world_size: int = 1,
+        num_threads: int = 8,
+    ):
+        from .native_loader import (
+            DeterministicNativeLoader,
+            DeterministicNativeShardLoader,
+            native_zstd_available,
+        )
+
+        if cfg.data_type not in ("raw", "shard"):
+            raise NativeRefusal(f"data_type {cfg.data_type!r} needs the python pipeline")
+        if not cfg.packed_aug and (reverb_store or noise_store):
+            raise NativeRefusal("the native pipeline needs packed_aug with aug stores")
+        if not cfg.shuffle:
+            raise NativeRefusal("the native pipeline always shuffles; shuffle=false needs "
+                                "the python pipeline")
+        if not cfg.drop_last:
+            raise NativeRefusal("the native pipeline drops the last partial batch; "
+                                "drop_last=false needs the python pipeline")
+        self.cfg = cfg
+        self.spk2id = spk2id
+        self.reverb_store = reverb_store
+        self.noise_store = noise_store
+        self.rank = rank
+        self.epoch = 0
+        self.chunk_samples = chunk_samples_for_frames(
+            cfg.num_frms, cfg.frame_shift_ms, cfg.frame_length_ms, cfg.sample_rate)
+        self.input_samples = (
+            speed_input_len(self.chunk_samples) if cfg.speed_perturb else self.chunk_samples)
+        self.aug_counts = TrainPipeline._compute_aug_counts(self)
+        min_samp = int(cfg.filter_min_frames * cfg.frame_shift_ms / 1000 * cfg.sample_rate)
+        max_samp = int(cfg.filter_max_frames * cfg.frame_shift_ms / 1000 * cfg.sample_rate)
+        common = dict(chunk_samples=self.input_samples, batch_size=cfg.batch_size,
+                      num_spks=len(spk2id) if cfg.speed_perturb else 0, min_samples=min_samp,
+                      max_samples=max_samp, seed=cfg.seed, num_threads=num_threads, rank=rank,
+                      world_size=world_size, sample_rate=cfg.sample_rate)
+        if cfg.data_type == "shard":
+            unsupported = {(0xFD, 0x37): "xz"}
+            if not native_zstd_available():
+                unsupported[(0x28, 0xB5)] = "zstd"
+            for sp in data_list:
+                with open(sp, "rb") as f:
+                    magic = tuple(f.read(2))
+                if magic in unsupported:
+                    raise NativeRefusal(f"{unsupported[magic]} shard {sp!r}: the native tar "
+                                        "reader of this build does not stream it")
+            self._loader = DeterministicNativeShardLoader(
+                list(data_list), spk2id, shuffle_size=cfg.shuffle_size, **common)
+        else:
+            paths, labels, keys = [], [], []
+            for line in data_list:
+                obj = json.loads(line)
+                if "vad" in obj:
+                    raise NativeRefusal("VAD-cropped entries need the python pipeline")
+                spk = obj.get("spk", "")
+                if spk not in spk2id:
+                    continue
+                paths.append(obj["wav"])
+                labels.append(spk2id[spk])
+                keys.append(obj["key"])
+            self._loader = DeterministicNativeLoader(paths, labels, keys=keys, **common)
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        cfg = self.cfg
+        n_rev, n_noise = self.aug_counts
+        nprng = np.random.default_rng(cfg.seed + 1000 * self.epoch + self.rank)
+        rng = random.Random(cfg.seed + 77 * self.epoch + self.rank)
+        for wav, label, speed in self._loader.epoch(self.epoch):
+            batch = {"wav": wav, "label": label}
+            if cfg.speed_perturb:
+                batch["speed_idx"] = speed
+            if n_rev:
+                rir = np.zeros((n_rev, cfg.rir_max_samples), np.float32)
+                for i in range(n_rev):
+                    _, r = self.reverb_store.random_one(nprng)
+                    r = np.asarray(r, np.float32)[: cfg.rir_max_samples]
+                    rir[i, : len(r)] = r
+                batch["rir"] = rir
+            elif n_noise:
+                batch["rir"] = np.zeros((0, cfg.rir_max_samples), np.float32)
+            if n_noise:
+                noise = np.empty((n_noise, self.chunk_samples), np.float32)
+                snr = np.empty((n_noise,), np.float32)
+                for i in range(n_noise):
+                    key, nz = self.noise_store.random_one(nprng)
+                    noise[i] = _random_chunk(np.asarray(nz, np.float32), self.chunk_samples, rng)
+                    lo, hi = snr_range_for_key(key)
+                    snr[i] = rng.uniform(lo, hi)
+                batch["noise"], batch["snr"] = noise, snr
+            elif n_rev:
+                batch["noise"] = np.zeros((0, self.chunk_samples), np.float32)
+                batch["snr"] = np.zeros((0,), np.float32)
+            yield batch
+        failures = self._loader.decode_failures()
+        if failures:
+            logger.warning("native loader: %d item(s) skipped (wavs the C parser cannot "
+                           "decode, or compressed / unreadable shards); such data needs the "
+                           "python pipeline (num_workers: 0)", failures)
+
+    def close(self) -> None:
+        self._loader.close()
+
+
 class EvalPipeline:
     """Whole-utterance extraction batches with length bucketing.
 
@@ -436,6 +697,7 @@ class EvalPipeline:
         self.data_list = list(data_list)
         self.data_type = data_type
         self.batch_size = batch_size
+        self.sample_rate = sample_rate
         if data_type == "feat":
             # precomputed features: bucket units are frames
             self.bucket_samples = list(bucket_frames)
@@ -471,7 +733,7 @@ class EvalPipeline:
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         is_feat = self.data_type == "feat"
-        it = _reader(self.data_type)(self.data_list)
+        it = _read(self.data_type, self.data_list, self.sample_rate)
         buckets: Dict[int, List[dict]] = {}
         for s in it:
             x = s["feat"] if is_feat else s["wav"]

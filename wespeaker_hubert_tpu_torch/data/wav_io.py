@@ -2,7 +2,9 @@
 deps: a copy of `wespeaker_hubert_tpu/data/wav_io.py`.
 
 Uses the stdlib `wave` module for standard PCM files plus a small RIFF
-reader for float32 wavs; returns float32 arrays scaled to [-1, 1].
+reader for float32 wavs; returns float32 arrays scaled to [-1, 1].  The
+port adds `WavRateError`, which its pipelines raise for a wav whose rate is
+not the configured one.
 """
 
 from __future__ import annotations
@@ -14,7 +16,17 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["read_wav", "read_wav_bytes", "write_wav"]
+__all__ = ["WavRateError", "read_wav", "read_wav_bytes", "write_wav"]
+
+
+class WavRateError(ValueError):
+    """A wav whose header rate is not the configured sample rate (the
+    pipelines frame every wav at `dataset_args.resample_rate` and resample
+    nothing)."""
+
+    def __init__(self, name: str, rate: int, expected: int):
+        super().__init__(f"{name}: the wav's rate is {rate} Hz, but resample_rate is "
+                         f"{expected}; resample it to {expected} Hz first")
 
 
 def read_wav_bytes(data: bytes) -> Tuple[np.ndarray, int]:

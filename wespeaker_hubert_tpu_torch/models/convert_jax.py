@@ -16,7 +16,8 @@ HuggingFace's encoder names
 JAX package's `frontend/convert.py:convert_hf_state_dict`), a Whisper
 encoder with OpenAI's (`frontend.blocks.0.attn.query.weight`, ...;
 `whisper_frontend_from_jax`, the inverse of `convert_whisper_state_dict`),
-and a SpeakerNet's margin head under `projection.` in WeSpeaker's layout.
+and a SpeakerNet's head (every head of models/projections.py) under
+`projection.` in WeSpeaker's layout.
 
 Layout rules:
   Conv1d  kernel (K, Cin, Cout)  -> weight (Cout, Cin, K)
@@ -29,6 +30,10 @@ Layout rules:
   BN      scale / bias + batch_stats mean / var
                                  -> weight / bias / running_mean / running_var
   head    projection/weight (D, C) -> projection.weight (C, D)
+          (SphereFace2's bias (1, 1) as it is; LinearProduct's bn / linear
+           -> projection.trans.0 / .2)
+  MHASTP  pool/head_{h}/att_{i} (Dense) -> pool.heads_att_trans.{h}.att_{i}
+          (1x1 Conv1d); MQMHASTP's pool/query_{q}/... -> pool.n_query.{q}...
 
 ResNet's names: `layer{L}_{i}/conv{k}` -> `layer{L}.{i}.conv{k}`, and
 `shortcut_conv` / `shortcut_bn` -> `shortcut.0` / `.1`.  The JAX ResNet
@@ -37,9 +42,11 @@ port (C', F', T') channel-major, as WeSpeaker does, so `seg_1`'s input
 columns are permuted (the inverse of the JAX package's
 `models/convert_torch.py:_stats_permutation`, whose copy is here); that
 needs the frequency rows F' = feat_dim // 8, so a ResNet conversion takes
-the model's `feat_dim`.  Res2Net and ERes2Net follow ResNet's rules, with
-`convs_{k}` / `bns_{k}` / `fuse_{k}` -> `convs.{k}` / `bns.{k}` /
-`fuse_models.{k}` and an AFF's `att_conv1` / `att_bn1` / `att_conv2` /
+the model's `feat_dim`; with a multi-head pooling (MHASTP, MQMHASTP) the
+port flattens frequency-major too, and `seg_1` is not permuted.  Res2Net
+and ERes2Net follow ResNet's rules, with `convs_{k}` / `bns_{k}` /
+`fuse_{k}` -> `convs.{k}` / `bns.{k}` / `fuse_models.{k}` and an AFF's
+`att_conv1` / `att_bn1` / `att_conv2` /
 `att_bn2` -> `local_att.0` / `.1` / `.3` / `.4` (the inverses of
 `res2net_from_torch` and `eres2net_from_torch`).  CAM++ (the inverse of
 `campplus_from_torch`) holds every Dense as a 1x1 Conv1d under WeSpeaker's
@@ -283,6 +290,35 @@ def _redimnet_module_of(params: Dict):
     return module_of
 
 
+def _multi_head_pool(module: str) -> str:
+    """MHASTP's `head_{h}` and MQMHASTP's `query_{q}` flax scopes -> the
+    port's (WeSpeaker's) `heads_att_trans.{h}` and `n_query.{q}`."""
+    module = re.sub(r"(^|\.)query_(\d+)(?=\.)", r"\1n_query.\2", module)
+    return re.sub(r"(^|\.)head_(\d+)(?=\.)", r"\1heads_att_trans.\2", module)
+
+
+def _projection_from_jax(proj: Dict, stats: Dict) -> Dict[str, np.ndarray]:
+    """A SpeakerNet's head in the port's names: a margin head's `weight`
+    (D, C) or (D, C K) -> `projection.weight` transposed (SphereFace2 also
+    its `bias` (1, 1)); LinearProduct's `bn` (with its running statistics)
+    and `linear` -> `projection.trans.0` and `projection.trans.2`."""
+    head: Dict[str, np.ndarray] = {}
+    if "weight" in proj:
+        head["projection.weight"] = _np(proj["weight"]).T
+        if "bias" in proj:
+            head["projection.bias"] = _np(proj["bias"])
+    if "bn" in proj:
+        bn, st = proj["bn"], stats.get("bn", {})
+        head.update({"projection.trans.0.weight": _np(bn["scale"]),
+                     "projection.trans.0.bias": _np(bn["bias"]),
+                     "projection.trans.0.running_mean": _np(st["mean"]),
+                     "projection.trans.0.running_var": _np(st["var"]),
+                     "projection.trans.0.num_batches_tracked": np.zeros((), np.int64),
+                     "projection.trans.2.weight": _np(proj["linear"]["kernel"]).T,
+                     "projection.trans.2.bias": _np(proj["linear"]["bias"])})
+    return head
+
+
 def _permute_rows(w: np.ndarray, channels: int, freq: int, axis: int) -> np.ndarray:
     """Undo the JAX flatten order along `axis` of `w` (a multiple of C F
     long): JAX's entry i goes to WeSpeaker's `_stats_permutation` index."""
@@ -411,9 +447,7 @@ def from_jax_variables(model_name: str, variables: Dict,
         if "frontend" in params:
             frontend = (frontend_from_jax(params["frontend"]) if "upstream" in params["frontend"]
                         else whisper_frontend_from_jax(params["frontend"]))
-        proj = params.get("projection", {})
-        if set(proj) == {"weight"}:  # the margin heads; other heads are not ported
-            head["projection.weight"] = _np(proj["weight"]).T
+        head = _projection_from_jax(params.get("projection", {}), stats.get("projection", {}))
         params = params["backbone"]
         stats = stats.get("backbone", {})
 
@@ -424,7 +458,7 @@ def from_jax_variables(model_name: str, variables: Dict,
             i = n_mix if path[0].endswith("final") else int(path[0].rsplit("_", 1)[1])
             sd[f"backbone.inputs_weights.{i}"] = leaf[None, :, :, None]
             continue
-        module, name = module_of(path[:-1]), path[-1]
+        module, name = _multi_head_pool(module_of(path[:-1])), path[-1]
         if name in ("prior_mean", "prior_logprec"):  # XI pooling's prior
             sd[f"{module}.{name}"] = leaf
         elif name == "kernel":
@@ -432,7 +466,8 @@ def from_jax_variables(model_name: str, variables: Dict,
                 w = leaf.transpose(3, 2, 1, 0)
             elif leaf.ndim == 3:
                 w = leaf.transpose(2, 1, 0)
-            elif module in _CONV1X1_DENSE or module_of is _campplus_module:
+            elif (module in _CONV1X1_DENSE or module_of is _campplus_module
+                  or ".heads_att_trans." in module):
                 # CAM++ holds every Dense as a 1x1 Conv1d, as WeSpeaker does
                 w = leaf.T[:, :, None]
             else:
@@ -445,7 +480,7 @@ def from_jax_variables(model_name: str, variables: Dict,
         else:
             raise KeyError(f"unexpected flax parameter {'/'.join(path)}")
     for path, leaf in _flatten(stats).items():
-        module, name = module_of(path[:-1]), path[-1]
+        module, name = _multi_head_pool(module_of(path[:-1])), path[-1]
         if name not in ("mean", "var"):
             raise KeyError(f"unexpected flax batch stat {'/'.join(path)}")
         sd[f"{module}.running_{name}"] = leaf
@@ -462,7 +497,10 @@ def from_jax_variables(model_name: str, variables: Dict,
         return max(v.shape[0] for k, v in sd.items()
                    if k.startswith(prefix) and k.endswith(".weight") and v.ndim == 4)
 
-    if module_of is _resnet_module:
+    pool = params.get("pool", {})
+    if any(re.fullmatch(r"(head|query)_\d+", k) for k in pool):
+        pass  # a multi-head pooling: the port flattens as JAX does, nothing to permute
+    elif module_of is _resnet_module:
         # the last map's channels: the widest conv of layer4
         sd["seg_1.weight"] = _permute_rows(sd["seg_1.weight"], last_channels("layer4."),
                                            feat_dim // 8, 1)

@@ -145,8 +145,6 @@ class EcapaTdnn(nn.Module):
         emb_bn: bool = False,
     ):
         super().__init__()
-        if pooling_func not in POOLING_LAYERS:
-            raise NotImplementedError(f"pooling {pooling_func!r} is not ported")
         self.embed_dim = embed_dim
         self.layer1 = ConvReluBn(feat_dim, channels, 5)
         self.layer2 = SERes2Block(channels, 3, 2, 8)

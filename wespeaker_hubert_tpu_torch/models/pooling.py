@@ -1,8 +1,7 @@
 """Temporal pooling: frame-level features -> utterance vectors.
 
 Counterpart of `wespeaker_hubert_tpu/models/pooling.py` (TAP, TSDP, TSTP,
-ASTP, ASP and XI; MHASTP and MQMHASTP are still to be ported, and no
-config uses them).  Modules take
+ASTP, ASP, MHASTP, MQMHASTP and XI).  Modules take
 channels-first (B, D, T) features, as the rest of the PyTorch backbone
 keeps them, and an optional (B, T) bool validity mask, so padded batches
 pool exactly.  Parameter names and shapes are WeSpeaker's
@@ -11,7 +10,13 @@ pool exactly.  Parameter names and shapes are WeSpeaker's
 global-context variant; ASP's attention is the `attention` Sequential
 (1x1 conv, ReLU, BatchNorm, 1x1 conv) of WeSpeaker's SimAM-ResNet, and XI's
 precision estimator `lin1_relu_bn` (1x1 conv, ReLU, BatchNorm) and `lin2`,
-beside `prior_mean` and `prior_logprec`.
+beside `prior_mean` and `prior_logprec`.  MHASTP splits the channel axis
+(dim 1) into `head_num` equal chunks, each with its attention
+`heads_att_trans.{h}` (1x1 convs `att_{i}` with tanh between); MQMHASTP
+holds `query_num` MHASTPs as `n_query.{q}`.  The 2-D backbones feed the
+multi-head poolings their frame map flattened frequency-major, as the JAX
+package does, so that each head sees the same features there
+(`MULTI_HEAD_POOLINGS`).
 """
 
 from __future__ import annotations
@@ -24,7 +29,8 @@ import torch.nn.functional as F
 
 from .norm import BatchNorm1d
 
-__all__ = ["TAP", "TSDP", "TSTP", "ASTP", "ASP", "XI", "POOLING_LAYERS", "pooling_output_dim"]
+__all__ = ["TAP", "TSDP", "TSTP", "ASTP", "ASP", "MHASTP", "MQMHASTP", "XI", "POOLING_LAYERS",
+           "MULTI_HEAD_POOLINGS", "pooling_output_dim"]
 
 
 def _masked_moments(
@@ -146,6 +152,58 @@ class ASP(nn.Module):
         return torch.cat([mu, sg], dim=-1)
 
 
+class MHASTP(nn.Module):
+    """Multi-head attentive statistics pooling: the channels split into
+    `head_num` chunks, each weighted over time by its own attention (d_s
+    1: one score per frame; else one per channel), weighted mean / std per
+    head, concatenated."""
+
+    def __init__(self, in_dim: int, layer_num: int = 2, head_num: int = 2, d_s: int = 1,
+                 bottleneck_dim: int = 64):
+        super().__init__()
+        assert in_dim % head_num == 0
+        self.in_dim = in_dim
+        self.head_num = head_num
+        d_model = in_dim // head_num
+        dims = [bottleneck_dim] * (layer_num + 1)
+        dims[0], dims[-1] = d_model, d_model if d_s > 1 else 1
+        self.heads_att_trans = nn.ModuleList()
+        for _ in range(head_num):
+            att = nn.Sequential()
+            for i in range(layer_num - 1):
+                att.add_module(f"att_{i}", nn.Conv1d(dims[i], dims[i + 1], kernel_size=1))
+                att.add_module(f"tanh{i}", nn.Tanh())
+            att.add_module(f"att_{layer_num - 1}",
+                           nn.Conv1d(dims[layer_num - 1], dims[layer_num], kernel_size=1))
+            self.heads_att_trans.append(att)
+
+    def forward(self, x, mask=None):
+        outs = []
+        for chunk, att in zip(torch.chunk(x, self.head_num, dim=1), self.heads_att_trans):
+            alpha = torch.softmax(_masked_scores(att(chunk), mask), dim=2)
+            mean = (alpha * chunk).sum(dim=2)
+            var = (alpha * chunk**2).sum(dim=2) - mean**2
+            outs.append(torch.cat([mean, torch.sqrt(torch.clamp_min(var, 1e-7))], dim=-1))
+        return torch.cat(outs, dim=-1)
+
+
+class MQMHASTP(nn.Module):
+    """Multi-query multi-head attentive statistics pooling: `query_num`
+    independent MHASTPs over the same input, concatenated."""
+
+    def __init__(self, in_dim: int, layer_num: int = 2, query_num: int = 2, head_num: int = 8,
+                 d_s: int = 2, bottleneck_dim: int = 64):
+        super().__init__()
+        self.in_dim = in_dim
+        self.query_num = query_num
+        self.n_query = nn.ModuleList([
+            MHASTP(in_dim, layer_num=layer_num, head_num=head_num, d_s=d_s,
+                   bottleneck_dim=bottleneck_dim) for _ in range(query_num)])
+
+    def forward(self, x, mask=None):
+        return torch.cat([q(x, mask) for q in self.n_query], dim=-1)
+
+
 class XI(nn.Module):
     """Xi-vector Gaussian-posterior pooling: a frame log-precision 2 log
     softplus(lin2(BN(ReLU(lin1 x)))), the padded frames at the dtype's
@@ -173,12 +231,20 @@ class XI(nn.Module):
         return (feat_all * torch.softmax(logprec_all, dim=2)).sum(dim=2)
 
 
-POOLING_LAYERS = {"TAP": TAP, "TSDP": TSDP, "TSTP": TSTP, "ASTP": ASTP, "ASP": ASP, "XI": XI}
+POOLING_LAYERS = {"TAP": TAP, "TSDP": TSDP, "TSTP": TSTP, "ASTP": ASTP, "ASP": ASP,
+                  "MHASTP": MHASTP, "MQMHASTP": MQMHASTP, "XI": XI}
+# poolings whose heads split the channel axis: the 2-D backbones flatten
+# their frame map frequency-major for these, as the JAX package does
+MULTI_HEAD_POOLINGS = ("MHASTP", "MQMHASTP")
 
 
-def pooling_output_dim(pool_type: str, in_dim: int) -> int:
-    if pool_type in ("TAP", "TSDP", "XI"):
+def pooling_output_dim(pool_type: str, in_dim: int, **kwargs) -> int:
+    if pool_type in ("TAP", "TSDP"):
         return in_dim
-    if pool_type in ("TSTP", "ASTP", "ASP"):
+    if pool_type in ("TSTP", "ASTP", "ASP", "MHASTP"):
         return 2 * in_dim
-    raise ValueError(f"pooling {pool_type!r} is not ported")
+    if pool_type == "MQMHASTP":
+        return 2 * in_dim * kwargs.get("query_num", 2)
+    if pool_type == "XI":
+        return 2 * in_dim if kwargs.get("stddev", False) else in_dim
+    raise ValueError(f"unknown pooling {pool_type}")

@@ -13,7 +13,8 @@ the pooling `pool` and `seg`.
 Both axes stride by 2 at stages 2-4, so the pooling mask is strided once
 per stride-2 stage, then cut to T'.  The frame map flattens channel-major,
 as WeSpeaker's does (the JAX module flattens frequency-major; the port's
-converter permutes `seg`).
+converter permutes `seg`), but frequency-major for the multi-head poolings
+(resnet.py:flatten_frame_map).
 
 `convert_repvgg_params` fuses a training-form state_dict into the deploy
 form, as the JAX package's `convert_repvgg_params` fuses its trees: each
@@ -32,7 +33,7 @@ import torch.nn.functional as F
 
 from .norm import BatchNorm2d
 from .pooling import POOLING_LAYERS, pooling_output_dim
-from .resnet import downsample_mask, strided_size
+from .resnet import downsample_mask, flatten_frame_map, strided_size
 
 __all__ = ["SEBlock2D", "RepVGGBlock", "RepSPKBlock", "RepVGG", "convert_repvgg_params",
            "REPVGG_FACTORIES"]
@@ -146,16 +147,16 @@ class RepVGG(nn.Module):
         # both axes halve at each stride-2 stage
         self.time_strides = sum(1 for s in strides if s == 2)
         stats_dim = in_planes * strided_size(feat_dim, self.time_strides)
+        self.pooling_func = pooling_func
         self.pool = POOLING_LAYERS[pooling_func](in_dim=stats_dim)
         self.seg = nn.Linear(pooling_output_dim(pooling_func, stats_dim), embed_dim)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
         out = self.stage0(x.transpose(1, 2).unsqueeze(1))  # (B, 1, F, T)
         out = self.stage4(self.stage3(self.stage2(self.stage1(out))))
-        b, c, f, t = out.shape
         if mask is not None:
-            mask = downsample_mask(mask, t, self.time_strides)
-        return self.seg(self.pool(out.reshape(b, c * f, t), mask))
+            mask = downsample_mask(mask, out.shape[-1], self.time_strides)
+        return self.seg(self.pool(flatten_frame_map(out, self.pooling_func), mask))
 
 
 # ---------------------------------------------------------------- convert

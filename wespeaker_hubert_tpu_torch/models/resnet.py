@@ -14,8 +14,11 @@ state_dict loads as it is.
 The frame map (B, C', F', T') flattens channel-major to (B, C' * F', T')
 before pooling, as WeSpeaker's does; the JAX package flattens
 frequency-major, so its `seg_1` rows reach the port permuted
-(models/convert_jax.py).  Each stride-2 stage halves time and frequency
-with ceil division, and the pooling mask follows as the JAX one does:
+(models/convert_jax.py).  For the multi-head poolings (MHASTP, MQMHASTP),
+whose heads split that axis, the port flattens frequency-major as the JAX
+package does (`flatten_frame_map`), and `seg_1` comes across unpermuted.
+Each stride-2 stage halves time and frequency with ceil division, and the
+pooling mask follows as the JAX one does:
 `mask[:, ::2]` three times, then `[:, :T']`.
 
 forward returns `(embed_a, embed_b)` with `two_emb_layer`, else
@@ -31,13 +34,14 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .norm import BatchNorm1d, BatchNorm2d
-from .pooling import POOLING_LAYERS, pooling_output_dim
+from .pooling import MULTI_HEAD_POOLINGS, POOLING_LAYERS, pooling_output_dim
 
 __all__ = [
     "BasicBlock",
     "Bottleneck",
     "FrameMapNet",
     "downsample_mask",
+    "flatten_frame_map",
     "strided_size",
     "ResNet",
     "ResNet18",
@@ -119,6 +123,16 @@ def strided_size(n: int, strides: int) -> int:
     return n
 
 
+def flatten_frame_map(out: torch.Tensor, pooling_func: str) -> torch.Tensor:
+    """(B, C, F, T) -> (B, C * F, T), channel-major (row c * F + f), or
+    frequency-major (row f * C + c, the JAX package's order) for the
+    multi-head poolings, whose heads split the rows."""
+    b, c, f, t = out.shape
+    if pooling_func in MULTI_HEAD_POOLINGS:
+        out = out.transpose(1, 2)
+    return out.reshape(b, c * f, t)
+
+
 class FrameMapNet(nn.Module):
     """The embedding head of the 2-D backbones (ResNet, so Res2Net, and
     ERes2Net; Gemini DF-ResNet): the last frame map (B, C', F', T')
@@ -133,6 +147,7 @@ class FrameMapNet(nn.Module):
         self.embed_dim = embed_dim
         self.two_emb_layer = two_emb_layer
         self.time_strides = time_strides
+        self.pooling_func = pooling_func
         # WeSpeaker's stats_dim: feat_dim / 8 frequency rows of the last map
         # (`freq` where the backbone strides frequency otherwise)
         stats_dim = (int(feat_dim / 8) if freq is None else freq) * channels
@@ -143,10 +158,9 @@ class FrameMapNet(nn.Module):
             self.seg_2 = nn.Linear(embed_dim, embed_dim)
 
     def _head(self, out: torch.Tensor, mask: Optional[torch.Tensor]):
-        b, c, f, t = out.shape
         if mask is not None:
-            mask = downsample_mask(mask, t, self.time_strides)
-        embed_a = self.seg_1(self.pool(out.reshape(b, c * f, t), mask))
+            mask = downsample_mask(mask, out.shape[-1], self.time_strides)
+        embed_a = self.seg_1(self.pool(flatten_frame_map(out, self.pooling_func), mask))
         if self.two_emb_layer:
             return embed_a, self.seg_2(self.seg_bn_1(F.relu(embed_a)))
         return embed_a.new_zeros(()), embed_a

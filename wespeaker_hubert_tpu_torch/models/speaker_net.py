@@ -70,13 +70,13 @@ class SpeakerNet(nn.Module):
 
 def refuse_model_parallel(fe_args: dict) -> None:
     """Raise on a frontend's pipeline or sequence parallelism, which the
-    port does not have (ROADMAP.md queue 1, item 11)."""
+    port does not have (ROADMAP.md queue 1, model-parallel modes)."""
     asked = {"pipeline_parallel": int(fe_args.get("pipeline_parallel") or 1) > 1,
              "sequence_parallel": bool(fe_args.get("sequence_parallel"))}
     for key in (k for k, v in asked.items() if v):
         raise NotImplementedError(
             f"{key}={fe_args[key]} is not ported: the port runs a frontend on one device "
-            "(ROADMAP.md queue 1, item 11)")
+            "(ROADMAP.md queue 1, model-parallel modes)")
 
 
 def build_speaker_net(config: dict, num_class: Optional[int] = None) -> SpeakerNet:

@@ -28,7 +28,7 @@ own bin modules on `--device` (CUDA unless the caller asks for the CPU):
 instead of starting from `model_init`): it is checked before any stage
 runs, and so is a config's `pipeline_parallel` or `sequence_parallel`
 (whisper_pmfa_stage1_pp.yaml asks for 4 pipeline stages), which the port
-refuses (ROADMAP.md queue 1, item 11).
+refuses (ROADMAP.md queue 1, model-parallel modes).
 """
 
 from __future__ import annotations

@@ -34,11 +34,16 @@ lm config (utils/config.py).  With stage 9 in range, `--lm_config` is
 required and its `exp_dir` must differ from the base one (else bin/train
 would resume the base run instead of fine-tuning from `model_init`): both
 are checked before any stage runs.
+
+`recipes/cnceleb_v2.py` runs the same stages on CN-Celeb's sets
+(`Layout`: the training set, whose embeddings give the mean vector, the
+AS-Norm cohort and the QMF trials, and the evaluation set).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 from typing import Dict, List, Optional, Tuple
@@ -60,13 +65,29 @@ from ..bin.train import train
 from ..utils.config import apply_overrides, load_config
 from ..utils.embeddings import load_embeddings
 
-__all__ = ["parse_args", "load_configs", "run_stages", "main"]
+__all__ = ["Layout", "VOXCELEB", "parse_args", "load_configs", "run_stages", "run", "main"]
 
 LM_PREFIX = "lm."
 
 
-def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
-    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """The sets under `--data_root` a recipe reads: `train` (the training
+    data; its embeddings give the mean vector, the speaker-mean AS-Norm
+    cohort and the QMF calibration trials) and `eval` (the trials' set)."""
+
+    train: str
+    eval: str
+
+
+VOXCELEB = Layout(train="vox2_dev", eval="vox1")
+
+
+def parse_args(argv: Optional[List[str]] = None, description: str = __doc__,
+               **defaults) -> argparse.Namespace:
+    """The driver's arguments; `defaults` replace the VoxCeleb ones (a
+    recipe of another corpus)."""
+    p = argparse.ArgumentParser(description=description.split("\n\n")[0])
     p.add_argument("--stage", type=int, default=3)
     p.add_argument("--stop_stage", type=int, default=6)
     p.add_argument("--config", default="conf/ecapa_tdnn.yaml")
@@ -81,6 +102,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("overrides", nargs="*",
                    help="a.b.c=value config overrides, lm.a.b.c=value lm config overrides")
+    p.set_defaults(**defaults)
     args = p.parse_args(argv)
     if args.stage <= 9 <= args.stop_stage and not args.lm_config:
         # fail before hours of stages 1-8, not at the stage-9 boundary
@@ -110,18 +132,21 @@ def _metrics_line(path: str, lines: List[str]) -> None:
 
 
 def run_stages(args: argparse.Namespace, config: Dict, stage: int, stop_stage: int,
-               lm_config: Optional[Dict] = None) -> Dict[int, Dict]:
-    """Run stages [stage, stop_stage]; returns {stage: {"s": seconds,
-    "lines": printed result lines}}, and for stage 9 also "stages", the
-    re-entered stages' own."""
+               lm_config: Optional[Dict] = None, layout: Layout = VOXCELEB) -> Dict[int, Dict]:
+    """Run stages [stage, stop_stage] on `layout`'s sets; returns {stage:
+    {"s": seconds, "lines": printed result lines}}, and for stage 9 also
+    "stages", the re-entered stages' own."""
     device = args.device
+    train_set, eval_set = layout.train, layout.eval
     exp_dir = config["exp_dir"]
     models_dir = os.path.join(exp_dir, "models")
     avg_ckpt = os.path.join(exp_dir, "avg_model.pt")
     emb_dir = os.path.join(exp_dir, "embeddings")
     score_dir = os.path.join(exp_dir, "scores")
-    mean_vec_path = os.path.join(emb_dir, "vox2_dev_mean.npy")
-    cohort_path = os.path.join(emb_dir, "vox2_dev_spk_mean.npz")
+    mean_vec_path = os.path.join(emb_dir, f"{train_set}_mean.npy")
+    cohort_path = os.path.join(emb_dir, f"{train_set}_spk_mean.npz")
+    eval_emb = os.path.join(emb_dir, f"{eval_set}.npz")
+    train_emb = os.path.join(emb_dir, f"{train_set}.npz")
     done: Dict[int, Dict] = {}
 
     def begin(s: int, what: str):
@@ -144,9 +169,9 @@ def run_stages(args: argparse.Namespace, config: Dict, stage: int, stop_stage: i
 
     if in_range(2):
         begin(2, "data lists")
-        for dset in ("vox2_dev", "vox1"):
+        for dset in (train_set, eval_set):
             d = os.path.join(args.data_root, dset)
-            if config.get("data_type", "shard") == "shard" and dset == "vox2_dev":
+            if config.get("data_type", "shard") == "shard" and dset == train_set:
                 make_shard_list(os.path.join(d, "wav.scp"), os.path.join(d, "utt2spk"),
                                 os.path.join(d, "shards"), os.path.join(d, "shard.list"))
             make_raw_list(os.path.join(d, "wav.scp"), os.path.join(d, "utt2spk"),
@@ -161,28 +186,25 @@ def run_stages(args: argparse.Namespace, config: Dict, stage: int, stop_stage: i
     if in_range(4):
         begin(4, "average + extract")
         average_model(models_dir, avg_ckpt, num=config.get("num_avg", 10))
-        for name in ("vox1", "vox2_dev"):
-            extract(config, os.path.join(args.data_root, name, "raw.list"), avg_ckpt,
-                    os.path.join(emb_dir, f"{name}.npz"), device=device)
+        for name, out in ((eval_set, eval_emb), (train_set, train_emb)):
+            extract(config, os.path.join(args.data_root, name, "raw.list"), avg_ckpt, out,
+                    device=device)
         end(4)
 
     if in_range(5):
         lines = begin(5, "cosine score + metrics")
         # the train-set mean vector, subtracted before scoring
-        _, train_emb = load_embeddings(os.path.join(emb_dir, "vox2_dev.npz"))
-        np.save(mean_vec_path, train_emb.mean(0))
-        for f in score_trials(os.path.join(emb_dir, "vox1.npz"), args.trials, score_dir,
-                              mean_vec_path, device=device):
+        np.save(mean_vec_path, load_embeddings(train_emb)[1].mean(0))
+        for f in score_trials(eval_emb, args.trials, score_dir, mean_vec_path, device=device):
             _metrics_line(f, lines)
         end(5)
 
     if in_range(6):
         lines = begin(6, "AS-Norm")
-        vector_mean(os.path.join(emb_dir, "vox2_dev.npz"),
-                    os.path.join(args.data_root, "vox2_dev", "utt2spk"), cohort_path)
+        vector_mean(train_emb, os.path.join(args.data_root, train_set, "utt2spk"), cohort_path)
         for trial in args.trials:
             base = os.path.join(score_dir, os.path.basename(trial) + ".score")
-            normed = score_norm(base, base + ".asnorm", os.path.join(emb_dir, "vox1.npz"),
+            normed = score_norm(base, base + ".asnorm", eval_emb,
                                 cohort_path, method="asnorm", top_n=args.asnorm_top_n,
                                 mean_vec_path=mean_vec_path, device=device)
             _metrics_line(normed, lines)
@@ -193,13 +215,13 @@ def run_stages(args: argparse.Namespace, config: Dict, stage: int, stop_stage: i
         # trained on trials generated from the training set, never on the
         # evaluation trials (whose labels would leak into the calibrator)
         params, loss, n_cal = train_calibration_on_train_set(
-            os.path.join(args.data_root, "vox2_dev"), os.path.join(emb_dir, "vox2_dev.npz"),
+            os.path.join(args.data_root, train_set), train_emb,
             cohort_path, mean_vec_path, exp_dir, score_dir, top_n=args.asnorm_top_n,
             each_trial_num=args.calibration_trial_num, device=device)
         print(f"  calibration trained on {n_cal} trials (Cllr {loss:.4f})", flush=True)
-        dur_path = os.path.join(args.data_root, "vox1", "utt2dur")
+        dur_path = os.path.join(args.data_root, eval_set, "utt2dur")
         if not os.path.exists(dur_path):
-            wav2dur(os.path.join(args.data_root, "vox1", "wav.scp"), dur_path)
+            wav2dur(os.path.join(args.data_root, eval_set, "wav.scp"), dur_path)
         durations = load_durations(dur_path)
         for trial in args.trials:
             normed = os.path.join(score_dir, os.path.basename(trial) + ".score.asnorm")
@@ -223,23 +245,27 @@ def run_stages(args: argparse.Namespace, config: Dict, stage: int, stop_stage: i
     if in_range(9):
         begin(9, "large-margin fine-tune (re-entering stages 3-8)")
         lm = dict(lm_config, model_init=avg_ckpt)
-        done[9]["stages"] = run_stages(args, lm, 3, min(stop_stage, 8))
+        done[9]["stages"] = run_stages(args, lm, 3, min(stop_stage, 8), layout=layout)
         end(9)
     return done
 
 
-def main(argv: Optional[List[str]] = None) -> Dict[int, Dict]:
+def run(args: argparse.Namespace, layout: Layout = VOXCELEB) -> Dict[int, Dict]:
+    """The configs (checked before any stage), then the stages."""
     import logging
 
     import torch
 
-    args = parse_args(argv)
     config, lm_config = load_configs(args)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     # float32 means float32: no TF32 in cuDNN convolutions or matmuls
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return run_stages(args, config, args.stage, args.stop_stage, lm_config)
+    return run_stages(args, config, args.stage, args.stop_stage, lm_config, layout)
+
+
+def main(argv: Optional[List[str]] = None) -> Dict[int, Dict]:
+    return run(parse_args(argv))
 
 
 if __name__ == "__main__":
